@@ -1,6 +1,7 @@
 // Shared device helpers for the port's persistent recurrence kernels.
 //
-// Both kernels (lstm_stack.cu, wavernn_sample.cu) are persistent
+// The recurrence kernels (lstm_stack.cu, lstm_train.cu, wavernn_sample.cu)
+// are persistent
 // cooperative grids: one block per SM at most, every block alive for the
 // whole recurrence, dependent stages separated by a grid-wide barrier.
 // Their matvecs give each output unit (one or a few weight columns) to
@@ -213,6 +214,20 @@ __device__ __forceinline__ void stage_rows(T* dst, const float* src, int r0,
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// d += A (16 x 16, row-major) * B (16 x 8, col-major) on the tensor cores:
+// bf16 operands, f32 accumulation.  Fragment layout of the PTX ISA: lane =
+// 4 * gid + tq; a = {(gid, 2tq..), (gid+8, 2tq..), (gid, 2tq+8..),
+// (gid+8, 2tq+8..)}, b = {(k 2tq.., n gid), (k 2tq+8.., n gid)},
+// d = {(gid, 2tq), (gid, 2tq+1), (gid+8, 2tq), (gid+8, 2tq+1)}.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Launch a persistent cooperative kernel: at most one block per SM and no

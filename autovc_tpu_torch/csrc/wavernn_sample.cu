@@ -184,14 +184,6 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ void gru_stage_mma(const WrArgs<__nv_bfloat16>& a,
                               const __nv_bfloat16* w_ih,

@@ -1,10 +1,10 @@
 """Model loader (counterpart of ``autovc_tpu/models/__init__.py``).
 
-``load_model(model_type, ...)`` reads a v2 ``.ckpt`` written by the JAX
-package (through the weight bridge) or, when no checkpoint is requested,
+``load_model(model_type, ...)`` reads a v2 ``.ckpt`` (written by either
+package, through the weight bridge) or, when no checkpoint is requested,
 returns fresh parameters made from a seeded ``torch.Generator`` with the
 JAX init's shapes and layout.  Parameters land on ``device`` — the GPU
-unless the caller passes ``device="cpu"``.
+unless the caller passes ``device="cpu"``.  ``save_model`` writes one.
 """
 from __future__ import annotations
 
@@ -101,3 +101,15 @@ def load_model(model_type: str, model_name: str | None = None,
     if verbose:
         print(f"[{model_type}] loaded '{path}' (step {step})")
     return LoadedModel(model_type, params, config, step, blob)
+
+
+def save_model(model: LoadedModel, model_name: str,
+               save_dir: str | None = None, **extra_payload) -> str:
+    """Persist a model as a v2 ``.ckpt`` (``{step, params, extras...}``,
+    the JAX package's ``save_model`` payload); returns its path."""
+    save_dir = save_dir or model.config.model_dir
+    path = os.path.join(save_dir.rstrip("/"), model_name)
+    ckpt_util.save_checkpoint(path, {"step": model.step,
+                                     "params": model.params,
+                                     **model.extras, **extra_payload})
+    return path

@@ -21,6 +21,7 @@ from autovc_tpu_torch.config import SpeakerEncoderConfig
 from autovc_tpu_torch.ops import conv as C
 from autovc_tpu_torch.ops import melspec as M
 from autovc_tpu_torch.ops import rnn as R
+from autovc_tpu_torch.utils import resolve_device
 
 Params = Dict[str, Any]
 
@@ -77,9 +78,11 @@ def _partial_rows(wav: np.ndarray, cfg: SpeakerEncoderConfig, device):
 
 def embed_utterances(params: Params, wavs,
                      cfg: SpeakerEncoderConfig = SpeakerEncoderConfig(),
-                     device="cpu"):
+                     device=None):
     """d-vectors for several utterances (at the SE's sample rate) in one
-    forward.  Returns a list of (emb,) float32 numpy arrays."""
+    forward on ``device`` (None: the GPU, or raise; ``"cpu"`` on request).
+    Returns a list of (emb,) float32 numpy arrays."""
+    device = resolve_device(device)
     blocks = [_partial_rows(w, cfg, device) for w in wavs]
     counts = [int(b.shape[0]) for b in blocks]
     rows = torch.cat(blocks, dim=0)
@@ -98,6 +101,6 @@ def embed_utterances(params: Params, wavs,
 
 def embed_utterance(params: Params, wav: np.ndarray,
                     cfg: SpeakerEncoderConfig = SpeakerEncoderConfig(),
-                    device="cpu") -> np.ndarray:
+                    device=None) -> np.ndarray:
     """Embedding of one utterance: :func:`embed_utterances` of one."""
     return embed_utterances(params, [wav], cfg, device)[0]

@@ -1,10 +1,15 @@
-"""1-D convolution, eval-mode batch-norm and linear blocks
-(counterpart of ``autovc_tpu/ops/conv.py``).
+"""1-D convolution, batch-norm and linear blocks (counterpart of
+``autovc_tpu/ops/conv.py``).
 
 Layouts are the JAX package's: tensors (B, C, T), conv weights (O, I, K),
 linear weights (out, in).  Initialisers draw from an explicit
 ``torch.Generator`` with the JAX package's distributions and shapes
 (Xavier-uniform weights, PyTorch-default uniform biases).
+
+Train-mode batch-norm normalises with the batch statistics and updates the
+running statistics IN PLACE (under ``no_grad``), where the JAX function
+returns them in a new tree: callers thread nothing, and a sequence of
+train-mode calls updates them in the JAX package's order.
 """
 from __future__ import annotations
 
@@ -79,9 +84,13 @@ def init_conv_bn(gen, in_channels: int, out_channels: int, kernel_size: int,
 
 def conv1d(params: Params, x: torch.Tensor, padding: int = 0,
            mode: str = "f32") -> torch.Tensor:
-    """(B, C_in, T) -> (B, C_out, T')."""
+    """(B, C_in, T) -> (B, C_out, T').  Under bf16 the output is rounded to
+    bf16 before the bias, as the JAX bf16 conv's bf16 output is
+    (``precision.conv_output``)."""
     x, w = PREC.operands(mode, x, params["w"])
     out = F.conv1d(x, w, padding=padding)
+    if mode == "bf16":
+        out = PREC.round_bf16(out)
     if "b" in params:
         out = out + params["b"][None, :, None]
     return out
@@ -94,17 +103,36 @@ def linear(params: Params, x: torch.Tensor, mode: str = "f32"):
     return out
 
 
-def batchnorm1d(params: Params, x: torch.Tensor, eps: float = 1e-5):
-    """Eval-mode BatchNorm over (B, C, T) with the running statistics."""
-    inv = torch.rsqrt(params["var"] + eps) * params["scale"]
-    return ((x - params["mean"][None, :, None]) * inv[None, :, None]
+def batchnorm1d(params: Params, x: torch.Tensor, train: bool = False,
+                momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm over (B, C, T), statistics over (B, T).
+
+    Eval mode normalises with the running statistics.  Train mode
+    normalises with the batch's (biased variance) and moves the running
+    statistics in place: ``new = (1 - momentum) * old + momentum * batch``
+    with the UNBIASED batch variance, as ``nn.BatchNorm1d`` and the JAX
+    function do."""
+    if train:
+        mean = torch.mean(x, dim=(0, 2))
+        var = torch.mean(x * x, dim=(0, 2)) - mean * mean
+        n = x.shape[0] * x.shape[2]
+        with torch.no_grad():
+            params["mean"].mul_(1 - momentum).add_(momentum * mean)
+            params["var"].mul_(1 - momentum).add_(
+                momentum * (var * (n / max(n - 1, 1))))
+    else:
+        mean, var = params["mean"], params["var"]
+    inv = torch.rsqrt(var + eps) * params["scale"]
+    return ((x - mean[None, :, None]) * inv[None, :, None]
             + params["bias"][None, :, None])
 
 
 def conv_bn(params: Params, x: torch.Tensor, kernel_size: int,
-            activation=None, mode: str = "f32") -> torch.Tensor:
-    """conv(k, same-pad) -> BN -> optional activation."""
+            activation=None, mode: str = "f32",
+            train: bool = False) -> torch.Tensor:
+    """conv(k, same-pad) -> BN (``train``: batch statistics, running
+    statistics updated in place) -> optional activation."""
     out = conv1d(params["conv"], x, padding=(kernel_size - 1) // 2,
                  mode=mode)
-    out = batchnorm1d(params["bn"], out)
+    out = batchnorm1d(params["bn"], out, train)
     return activation(out) if activation is not None else out

@@ -17,6 +17,7 @@ import torch
 
 from autovc_tpu_torch.audio import dsp
 from autovc_tpu_torch.config import MelConfig, SpeakerMelConfig
+from autovc_tpu_torch.utils import resolve_device
 
 
 @functools.lru_cache(maxsize=8)
@@ -69,11 +70,11 @@ def mel_spec_auto_encoder_sliced(wav: np.ndarray,
                                  cfg: MelConfig = MelConfig(),
                                  overlap: float = 0.5,
                                  min_pad_coverage: float = 0.75,
-                                 pcm16: bool = True, device="cpu"):
+                                 pcm16: bool = True, device=None):
     """``cut=True`` AE mel path: (n_chunks, n_mels, N) chunks on ``device``
-    plus the mel slices.  The slice index math is the host's
-    (:func:`dsp.compute_partial_slices`); only the (PCM16) wav goes to the
-    device."""
+    (None: the GPU, or raise; ``"cpu"`` on request) plus the mel slices.
+    The slice index math is the host's (:func:`dsp.compute_partial_slices`);
+    only the (PCM16) wav goes to the device."""
     wav_slices, mel_slices = dsp.compute_partial_slices(
         len(wav), cfg.sr,
         partial_utterance_n_frames=cfg.partial_utterance_n_frames,
@@ -83,6 +84,7 @@ def mel_spec_auto_encoder_sliced(wav: np.ndarray,
     if pcm16:
         wav = pcm16_quantise(wav)
     starts = tuple(int(s.start) for s in mel_slices)
+    device = resolve_device(device)
     chunks = _slice_mel(torch.from_numpy(np.ascontiguousarray(wav)).to(device),
                         cfg, starts, cfg.partial_utterance_n_frames)
     return chunks, mel_slices

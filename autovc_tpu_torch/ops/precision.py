@@ -11,12 +11,17 @@ Two modes, passed explicitly to the functions that use them:
 ``"auto"`` resolves to bf16 on the GPU and to f32 on the CPU, as the JAX
 package resolves it to bf16 on its accelerator and f32 elsewhere.
 
-The plain recurrences of :mod:`autovc_tpu_torch.ops.rnn` (encoder BLSTM,
-decoder lstm1, speaker encoder) run exact float32 in both modes — strictly
-more accurate than the bf16 contract.  The decoder lstm2 kernels follow
-the JAX kernels' gate: bf16 under the bf16 policy when H >=
-``REC_BF16_MIN_HIDDEN``, at every row count (the deliberate deviation of
-``autovc_tpu/ops/precision.py:85-94``: no ``REC_BF16_MIN_ROWS`` clause).
+Under bf16 a convolution's output is rounded to bf16 before its bias, as
+the JAX bf16 conv's is.  The plain recurrences of
+:mod:`autovc_tpu_torch.ops.rnn` (encoder BLSTM, decoder lstm1 at
+inference, speaker encoder) run their recurrent products in exact float32
+in both modes — strictly more accurate than the bf16 contract; the BLSTM
+rounds its input projections' operands under bf16, as the JAX package
+does.  The decoder LSTM kernels (lstm2 at inference, lstm1 and lstm2 in
+training) follow the JAX kernels' gate: bf16 under the bf16 policy when
+H >= ``REC_BF16_MIN_HIDDEN``, at every row count (the deliberate deviation
+of ``autovc_tpu/ops/precision.py:85-94``: no ``REC_BF16_MIN_ROWS``
+clause).
 """
 from __future__ import annotations
 
@@ -68,7 +73,8 @@ def dot(a: torch.Tensor, b: torch.Tensor, mode: str = "f32") -> torch.Tensor:
 
 def lstm_kernel_dtype(mode: str, hidden: int) -> torch.dtype:
     """Compute dtype of the decoder LSTM-stack kernels
-    (``lstm_pallas.py:124,243-245``): bf16 under the bf16 policy when
+    (``lstm_pallas.py:124,243-245``, ``lstm_train_pallas.py:329-333``):
+    bf16 under the bf16 policy when
     H >= REC_BF16_MIN_HIDDEN, at every row count; else f32."""
     if mode == "bf16" and hidden >= REC_BF16_MIN_HIDDEN:
         return torch.bfloat16

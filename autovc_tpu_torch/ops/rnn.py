@@ -2,9 +2,14 @@
 
 The JAX package runs these as XLA scans, not Pallas kernels, so the port
 runs them through PyTorch's fused LSTM (``torch.lstm``: cuDNN on the GPU,
-ATen on the CPU) in exact float32 — used by the speaker encoder, the
-encoder BLSTM and the decoder lstm1.  The decoder lstm2 stack goes through
-the hand-written kernels of :mod:`autovc_tpu_torch.ops.lstm_kernels`.
+ATen on the CPU; differentiable) — used by the speaker encoder, the
+encoder BLSTM and the decoder lstm1 at inference.  They run exact float32,
+except that under the bf16 policy the BLSTM's input projections take
+bf16-rounded operands, as the JAX package's hoisted projections do (its
+H = 32 recurrent product stays f32 there too).  The decoder lstm2 stack
+goes through the hand-written kernels of
+:mod:`autovc_tpu_torch.ops.lstm_kernels`, and both decoder stacks in
+training through :mod:`autovc_tpu_torch.ops.lstm_train_kernels`.
 
 Parameter layout is the JAX package's: ``w_ih`` (in, 4H) / ``w_hh`` (H, 4H)
 used as ``x @ w``, gate order i, f, g, o (LSTM) and r, z, n (GRU),
@@ -18,6 +23,7 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 
+from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops.conv import uniform
 
 Params = Dict[str, Any]
@@ -75,8 +81,12 @@ def _fused_lstm(x, weights, num_layers, hidden, bidirectional=False):
         # cuDNN notes that the per-call weight list is not one flat buffer
         # (it compacts it per call); the plain recurrences accept that
         warnings.filterwarnings("ignore", "RNN module weights")
+        # cuDNN differentiates only its training-mode call: take it when
+        # autograd records a gradient (no dropout, so the same outputs)
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(w.requires_grad for w in weights))
         out, h, c = torch.lstm(x.contiguous(), (h0, h0), weights, True,
-                               num_layers, 0.0, False, bidirectional, True)
+                               num_layers, 0.0, grad, bidirectional, True)
     return out, h, c
 
 
@@ -104,14 +114,20 @@ def lstm_stack_skewed(params: Sequence[Params], x: torch.Tensor):
     return lstm_stack(params, x)
 
 
-def bilstm_stack(params: Sequence[Params], x: torch.Tensor) -> torch.Tensor:
+def bilstm_stack(params: Sequence[Params], x: torch.Tensor,
+                 mode: str = "f32") -> torch.Tensor:
     """Bidirectional multi-layer LSTM over (B, T, I) -> (B, T, 2H), outputs
-    concatenated [forward, backward] on the feature axis."""
+    concatenated [forward, backward] on the feature axis.  Layer by layer,
+    so that under ``mode="bf16"`` each layer's input and ``w_ih`` are
+    rounded to bf16 (``autovc_tpu/ops/rnn.py:247-248``)."""
     H = params[0]["fwd"]["w_hh"].shape[0]
-    weights = [w for lp in params
-               for w in _flat(lp["fwd"]) + _flat(lp["bwd"])]
-    out, _, _ = _fused_lstm(x, weights, len(params), H, bidirectional=True)
-    return out
+    for lp in params:
+        x, wf, wb = PREC.operands(mode, x, lp["fwd"]["w_ih"],
+                                  lp["bwd"]["w_ih"])
+        weights = (_flat(dict(lp["fwd"], w_ih=wf))
+                   + _flat(dict(lp["bwd"], w_ih=wb)))
+        x, _, _ = _fused_lstm(x, weights, 1, H, bidirectional=True)
+    return x
 
 
 def gru_cell(params: Params, xp_t: torch.Tensor,

@@ -1,0 +1,41 @@
+"""Training subsystem (counterpart of ``autovc_tpu/train``): the AutoVC
+generator's dataset, schedules, optimizer and loop, and the dispatcher
+``VoiceConverter.train`` calls."""
+from __future__ import annotations
+
+from autovc_tpu_torch.train import data, loop, schedules  # noqa: F401
+
+
+def train_model(vc, model_type: str, data_path, **kwargs):
+    """Dispatcher used by ``VoiceConverter.train`` (the JAX package's
+    ``train_model``).  Extra kwargs go to the training loop; dataset
+    kwargs: ``preprocess``, ``preprocess_args``, ``cut``,
+    ``data_path_excluded``, ``one_hot``, ``use_mean_speaker_embedding``.
+    Only ``auto_encoder`` is ported."""
+    if model_type in ("speaker_encoder", "vocoder"):
+        raise NotImplementedError(
+            f"{model_type} training is not ported yet (ROADMAP, Next: "
+            + ("vocoder training with the GRU-pair kernels 4/5)"
+               if model_type == "vocoder" else "speaker-encoder training)"))
+    if model_type != "auto_encoder":
+        raise ValueError(f"'{model_type}' is not a supported model_type")
+    if kwargs.pop("source_examples", None) or kwargs.pop("target_examples",
+                                                          None):
+        raise NotImplementedError("the per-epoch conversion examples "
+                                  "(source_examples / target_examples) are "
+                                  "not ported yet (ROADMAP, Next)")
+    dataset_keys = {"preprocess", "preprocess_args", "cut",
+                    "data_path_excluded", "one_hot",
+                    "use_mean_speaker_embedding"}
+    ds_kwargs = {k: kwargs.pop(k) for k in list(kwargs) if k in dataset_keys}
+    dataset = data.AutoEncoderDataset(
+        data_path, speaker_encoder=vc.SE.params,
+        speaker_encoder_params=vc.SE.config, speakers=vc.speakers,
+        cfg=vc.AE.config, verbose=vc.verbose, device=vc.device, **ds_kwargs)
+    params, ema, info = loop.train_autoencoder(
+        vc.AE.params, dataset, vc.AE.config, logger=vc.logger,
+        verbose=vc.verbose, start_step=vc.AE.step, **kwargs)
+    vc.AE.params = params
+    vc.AE.step = info["step"]
+    vc.AE.extras["ema_params"] = ema
+    return info

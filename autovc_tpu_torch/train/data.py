@@ -1,0 +1,122 @@
+"""Training data for the AutoVC generator (counterpart of
+``autovc_tpu/train/data.py``'s ``AutoEncoderDataset``).
+
+Host-side mel chunks and one embedding per file, batched as numpy arrays
+with the JAX package's shuffle (``default_rng(seed)``) and drop-last rule,
+so the same files give the same batches in both packages.  Embeddings come
+from the mean-speaker registry when the filename matches a speaker's name,
+else from ``embed_utterance`` on ``device``.
+"""
+from __future__ import annotations
+
+from typing import Iterator, List, Tuple
+
+import numpy as np
+
+from autovc_tpu_torch.audio import Audio, dsp
+from autovc_tpu_torch.config import AutoEncoderConfig, SpeakerEncoderConfig
+from autovc_tpu_torch.utils import (close_progbar, progbar,
+                                    retrieve_file_paths)
+
+
+class AutoEncoderDataset:
+    """(mel chunk, speaker embedding) pairs for AutoVC training."""
+
+    def __init__(self, data_path, speaker_encoder=None,
+                 speaker_encoder_params=None, speakers=None,
+                 data_path_excluded=(), use_mean_speaker_embedding=True,
+                 one_hot: bool = False, cut: bool = True,
+                 cfg: AutoEncoderConfig = AutoEncoderConfig(),
+                 preprocess=("normalize_volume",),
+                 preprocess_args={"target_dBFS": -20}, verbose=True,
+                 device=None):
+        """
+        Args:
+          speaker_encoder: SE params tree for the ``embed_utterance``
+            fallback; ``speaker_encoder_params`` its config.
+          speakers: mean-speaker registry dict (name -> embedding).
+          device: where ``embed_utterance`` runs (None: the GPU, or raise).
+        """
+        from autovc_tpu_torch.audio import io as audio_io
+        from autovc_tpu_torch.models import speaker_encoder as SEm
+
+        se_cfg = speaker_encoder_params or SpeakerEncoderConfig()
+        speakers = speakers or {}
+        wav_files = retrieve_file_paths(data_path,
+                                        excluded=list(data_path_excluded))
+        self.wav_files = wav_files
+        mels: List[np.ndarray] = []
+        embeds: List[np.ndarray] = []
+        if verbose:
+            print("Creating mel spectrograms and embeddings...")
+            progbar(0, len(wav_files))
+        for i, f in enumerate(wav_files):
+            audio = Audio(f, sr=cfg.spectrogram.sr)
+            audio.preprocess(*preprocess, **preprocess_args)
+
+            emb = None
+            if one_hot:
+                emb = np.zeros(cfg.dim_emb, np.float32)
+                emb[i % cfg.dim_emb] = 1.0
+            elif use_mean_speaker_embedding:
+                for name, e in speakers.items():
+                    if name in f:
+                        emb = np.asarray(e, np.float32)
+                        break
+            if emb is None:
+                if speaker_encoder is None:
+                    raise ValueError(
+                        f"no mean-speaker match for '{f}' and no "
+                        "speaker_encoder given to embed it")
+                wav16 = audio_io.resample(audio.wav, audio.sr,
+                                          se_cfg.spectrogram.sr)
+                emb = SEm.embed_utterance(speaker_encoder, wav16, se_cfg,
+                                          device)
+
+            if cut:
+                chunks, _ = dsp.mel_spec_auto_encoder_sliced(
+                    audio.wav, cfg.spectrogram)
+                mels.extend(list(chunks))
+                embeds.extend([emb] * len(chunks))
+            else:
+                mels.append(dsp.mel_spec_auto_encoder(audio.wav,
+                                                      cfg.spectrogram))
+                embeds.append(emb)
+            if verbose:
+                progbar(i + 1, len(wav_files))
+        if verbose:
+            close_progbar()
+
+        self.cut = cut
+        self.mels = mels
+        self.embeds = embeds
+
+    def __len__(self):
+        return len(self.mels)
+
+    def batches(self, batch_size: int = 16, shuffle: bool = True,
+                seed: int = 0, drop_last: bool | None = None
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield (mel (B, n_mels, T), embedding (B, emb)) float32 batches.
+
+        With ``cut=True`` all chunks share T and the ragged final batch is
+        dropped by default; with ``cut=False`` unequal-length mels are
+        zero-padded to the longest in the batch."""
+        n = len(self.mels)
+        drop_last = self.cut if drop_last is None else drop_last
+        order = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        stop = n - (n % batch_size) if (drop_last and n >= batch_size) else n
+        for s in range(0, stop, batch_size):
+            idx = order[s:s + batch_size]
+            ms = [self.mels[i] for i in idx]
+            T = max(m.shape[-1] for m in ms)
+            ms = [np.pad(m, ((0, 0), (0, T - m.shape[-1]))) for m in ms]
+            yield (np.stack(ms).astype(np.float32),
+                   np.stack([self.embeds[i] for i in idx]).astype(np.float32))
+
+    def epoch_steps(self, batch_size: int = 16) -> int:
+        n = len(self.mels)
+        return (n // batch_size if self.cut and n >= batch_size
+                else -(-n // batch_size))

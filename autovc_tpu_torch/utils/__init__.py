@@ -1,10 +1,13 @@
-"""Small shared utilities: file discovery and device resolution.
+"""Small shared utilities: file discovery, device resolution, parameter
+trees and a progress bar.
 
-``retrieve_file_paths`` is a copy of ``autovc_tpu/utils/__init__.py``'s.
+``retrieve_file_paths`` and ``progbar`` are copies of
+``autovc_tpu/utils/__init__.py``'s.
 """
 from __future__ import annotations
 
 import os
+import sys
 
 import torch
 
@@ -58,3 +61,39 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            f"available")
     return device
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a parameter tree (dicts and lists), in the
+    order ``jax.tree_util.tree_leaves`` gives the same tree: dict keys
+    sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def tree_clone(tree):
+    """A copy of a parameter tree with every tensor leaf cloned."""
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_clone(v) for v in tree]
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def progbar(i, n, info=None, size=16):
+    """Minimal textual progress bar."""
+    done = int(size * i / max(n, 1))
+    bar = "\u2588" * done + "\u2591" * (size - done)
+    msg = f"\r{i}/{n} |{bar}| "
+    if info:
+        msg += " ".join(f"{k}: {v}" for k, v in info.items())
+    sys.stdout.write(msg)
+    sys.stdout.flush()
+
+
+def close_progbar():
+    sys.stdout.write("\n")
+    sys.stdout.flush()

@@ -1,6 +1,7 @@
 """VoiceConverter (counterpart of ``autovc_tpu/voice_converter.py``):
-``__init__``, ``_embed``, ``_speaker_embedding`` and ``convert`` on its
-``cut=True`` path.
+``__init__``, ``_embed``, ``_speaker_embedding``, ``convert`` on its
+``cut=True`` path, ``train`` (the AutoVC generator), ``setup_logging`` and
+``save``.
 
 ``convert`` runs the JAX package's fused accelerator chain
 (``_fused_convert``): host preprocessing and slice geometry, then on the
@@ -26,11 +27,12 @@ import torch
 
 from autovc_tpu_torch.audio import Audio, dsp, io
 from autovc_tpu_torch.config import ConverterConfig
-from autovc_tpu_torch.models import LoadedModel, load_model
+from autovc_tpu_torch.models import LoadedModel, load_model, save_model
 from autovc_tpu_torch.ops import lstm_kernels as LK
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops import wavernn_kernels as WK
 from autovc_tpu_torch.utils import resolve_device
+from autovc_tpu_torch.utils.logging import MetricsLogger
 
 
 class VoiceConverter:
@@ -81,6 +83,7 @@ class VoiceConverter:
             self.vocoder.params, self.vocoder.config,
             self.vocoder_precision == "bf16")
         self.stage_times: Dict[str, float] | None = None
+        self.logger: MetricsLogger | None = None
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -249,3 +252,34 @@ class VoiceConverter:
         if self.verbose:
             print(f"  saved '{out_path}'")
         return audio_out
+
+    def train(self, data_path, model_type: str = "auto_encoder", **kwargs):
+        """Train one of the models (``autovc_tpu.train.train_model``); only
+        ``model_type="auto_encoder"`` is ported.  Runs on the converter's
+        device; the kernels' packed lstm2 weights are rebuilt afterwards."""
+        from autovc_tpu_torch import train as train_mod
+        if model_type not in ("auto_encoder", "speaker_encoder", "vocoder"):
+            raise ValueError(f"'{model_type}' is not a supported model_type")
+        self.setup_logging()
+        info = train_mod.train_model(self, model_type, data_path, **kwargs)
+        with torch.no_grad():
+            self._lstm2_packed = LK.pack(self.AE.params["decoder"]["lstm2"],
+                                         self.ae_precision)
+        return info
+
+    def setup_logging(self, **params) -> MetricsLogger:
+        if self.logger is None:
+            self.logger = MetricsLogger(
+                self.config.wandb,
+                run_config={"config": "autovc_tpu_torch"}, **params)
+        return self.logger
+
+    def save(self, model_type: str, model_name: str, save_dir=None) -> str:
+        """Write one model as a v2 ``.ckpt`` (readable by both packages)."""
+        model: LoadedModel = {"auto_encoder": self.AE,
+                              "speaker_encoder": self.SE,
+                              "vocoder": self.vocoder}[model_type]
+        path = save_model(model, model_name, save_dir)
+        if self.logger is not None:
+            self.logger.log_artifact(path, model_name, model_type)
+        return path

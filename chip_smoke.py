@@ -7,13 +7,21 @@ Phases (any failure exits non-zero):
      limit;
   2. build: every CUDA kernel of the port, compiled with nvcc for sm_90a;
   3. each kernel against its plain PyTorch version on the card, on the
-     same inputs and noise, at full model width;
-  4. end to end: ``VoiceConverter()`` (default config, fresh seeded
-     weights) converts a ~4 s wav (decoder lstm2 through kernel 2) and a
-     ~24 s wav (9 mel chunks: kernel 3), with every kernel's launch count
-     read around each conversion; then converts each again under
+     same inputs and noise, at full model width: the inference kernels
+     1-3, and the training kernels 6 (forward) and 7 (backward) at the
+     decoder's lstm2 (f32 and bf16) and lstm1 geometries and the speaker
+     encoder's;
+  4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
+     seeded weights) converts a ~4 s wav (decoder lstm2 through kernel 2)
+     and a ~24 s wav (9 mel chunks: kernel 3), with every kernel's launch
+     count read around each conversion; then converts each again under
      ``torch.profiler`` (the device's idle share) and with its stages
-     timed (where the wall time goes).
+     timed (where the wall time goes);
+  5. end to end, training: ``VoiceConverter().train`` of the AutoVC
+     generator on synthetic wavs, bf16, batch 16 x 400 frames, at least 8
+     steps (kernels 6 and 7 twice a step each), with the loss falling;
+     one step profiled (device idle share, kernel time); then one f32
+     full-width step on the card against the same step on the CPU.
 It prints one JSON line per comparison, then the per-kernel summary line,
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
@@ -23,8 +31,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -33,14 +43,20 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from autovc_tpu_torch import Audio, VoiceConverter  # noqa: E402
-from autovc_tpu_torch.audio import dsp  # noqa: E402
-from autovc_tpu_torch.config import WaveRNNConfig  # noqa: E402
+from autovc_tpu_torch.audio import dsp, io as audio_io  # noqa: E402
+from autovc_tpu_torch.config import (AutoEncoderConfig,  # noqa: E402
+                                     WaveRNNConfig)
+from autovc_tpu_torch.models import autoencoder as AE  # noqa: E402
 from autovc_tpu_torch.models import wavernn as WR  # noqa: E402
 from autovc_tpu_torch.ops import _build  # noqa: E402
 from autovc_tpu_torch.ops import lstm_kernels as LK  # noqa: E402
+from autovc_tpu_torch.ops import lstm_train_kernels as LT  # noqa: E402
 from autovc_tpu_torch.ops import precision as PREC  # noqa: E402
 from autovc_tpu_torch.ops import rnn as R  # noqa: E402
 from autovc_tpu_torch.ops import wavernn_kernels as WK  # noqa: E402
+from autovc_tpu_torch.train import loop as TRL  # noqa: E402
+from autovc_tpu_torch.train import schedules as TRS  # noqa: E402
+from autovc_tpu_torch.utils import tree_clone, tree_leaves  # noqa: E402
 from autovc_tpu_torch.utils.bridge import from_jax_params  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a
@@ -58,7 +74,15 @@ KERNELS = {
     "lstm_stack_stream": dict(
         kernel=LK.STREAM, source="autovc_tpu_torch/csrc/lstm_stack.cu",
         replaces="autovc_tpu/ops/lstm_pallas.py:271"),
+    "lstm_train_fwd": dict(
+        kernel=LT.FWD, source="autovc_tpu_torch/csrc/lstm_train.cu",
+        replaces="autovc_tpu/ops/lstm_train_pallas.py:356"),
+    "lstm_train_bwd": dict(
+        kernel=LT.BWD, source="autovc_tpu_torch/csrc/lstm_train.cu",
+        replaces="autovc_tpu/ops/lstm_train_pallas.py:434"),
 }
+CONVERT_KERNELS = ("wavernn_sample", "lstm_stack_skewed", "lstm_stack_stream")
+TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd")
 
 
 def log(obj) -> None:
@@ -147,6 +171,109 @@ def compare_lstm(name: str, rows: int, dtype, gen, dev) -> dict:
     if not ok:
         raise AssertionError(f"{name} {dtype} disagrees with its plain "
                              f"version: {err} (max |ref| {scale})")
+    return res
+
+
+def held(name: str, got, want, bar_of, **info) -> float:
+    """Hold each tensor of ``got`` against ``want``: the error must not
+    exceed ``bar_of(max |want|)``.  Returns the largest error relative to
+    its bar; raises on a failure."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not b.numel():            # dW_ih of a one-layer stack
+            continue
+        a, b = a.float(), b.float()
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        if not err <= bar_of(scale):
+            raise AssertionError(f"{name} output {i} disagrees with its "
+                                 f"plain version: {err} (max |ref| {scale}, "
+                                 f"bar {bar_of(scale)}; {info})")
+        worst = max(worst, err / bar_of(scale))
+    return worst
+
+
+def compare_lstm_train(geom: str, L: int, H: int, I: int, rows: int, T: int,
+                       dtype, gen, dev, cotangents: str = "all") -> dict:
+    """Kernels 6 and 7 against their plain versions on the same inputs:
+    random params and x, xp0 hoisted as the main path hoists it, non-zero
+    cotangents on ys, h_fin and c_fin (``cotangents="h_fin"``: on h_fin
+    only, as the speaker encoder's loss gives them); kernel 7 runs on the
+    plain forward's saved state.  Bars: f32 forward atol 1e-5 and each
+    gradient within 1e-4 of its max |ref| (dW sums T * B products in
+    another order); bf16 within 2e-2 of max |ref|, as kernels 2/3.
+    Timed against cuDNN ``torch.lstm`` forward and its autograd backward
+    (``library_ms``; the port never calls them)."""
+    mode = "bf16" if dtype == torch.bfloat16 else "f32"
+    if PREC.lstm_kernel_dtype(mode, H) != dtype:
+        raise ValueError(f"H={H} does not run {dtype} kernels")
+    params = from_jax_params(R.init_lstm_stack(gen, I, H, L), dev)
+    x = torch.randn(rows, T, I, generator=gen).to(dev)
+    xp0 = LK.hoist_xp0(params[0], x, mode)
+    whh = torch.stack([p["w_hh"] for p in params])
+    wih = (torch.stack([p["w_ih"] for p in params[1:]]) if L > 1
+           else whh.new_zeros(0, H, 4 * H))
+    bias = (torch.stack([p["b_ih"] + p["b_hh"] for p in params[1:]])
+            if L > 1 else whh.new_zeros(0, 4 * H))
+    wf, wb = LT.pack_fwd(whh, wih, dtype), LT.pack_bwd(whh, wih, dtype)
+    if cotangents == "all":
+        cts = tuple(torch.randn(*s, generator=gen).to(dev)
+                    for s in ((T, rows, H), (rows, H), (rows, H)))
+    else:
+        cts = (torch.zeros(T, rows, H, device=dev),
+               torch.randn(rows, H, generator=gen).to(dev),
+               torch.zeros(rows, H, device=dev))
+    bf16 = dtype == torch.bfloat16
+    info = dict(geometry=geom, dtype=str(dtype), L=L, H=H, rows=rows, T=T)
+    out = LT.fwd_launch(xp0, *wf, bias)
+    ref = LT.lstm_train_fwd_plain(xp0, *wf, bias)
+    fwd_bar = (lambda s: 2e-2 * s) if bf16 else (lambda s: 1e-5)
+    fwd_ratio = held("lstm_train_fwd", out, ref, fwd_bar, **info)
+    fwd_err = float((out[0] - ref[0]).abs().max())
+    saved = (ref[5], ref[3], ref[4])
+    got = LT.bwd_launch(*saved, *cts, *wb)
+    want = LT.lstm_train_bwd_plain(*saved, *cts, *wb)
+    bwd_bar = (lambda s: 2e-2 * s) if bf16 else (lambda s: 1e-4 * s)
+    bwd_ratio = held("lstm_train_bwd", got, want, bwd_bar, **info)
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want)
+                  if b.numel())
+    torch.cuda.synchronize()
+
+    fwd_ms = timed_ms(lambda: LT.fwd_launch(xp0, *wf, bias), 3)
+    bwd_ms = timed_ms(lambda: LT.bwd_launch(*saved, *cts, *wb), 3)
+    fwd_plain = timed_ms(lambda: LT.lstm_train_fwd_plain(xp0, *wf, bias), 1)
+    bwd_plain = timed_ms(lambda: LT.lstm_train_bwd_plain(*saved, *cts, *wb),
+                         1)
+    # cuDNN in the working dtype, x -> ys forward; its backward through
+    # autograd to x and every weight
+    lib = [{k: v.to(dtype).requires_grad_(True) for k, v in p.items()}
+           for p in params]
+    xl = x.to(dtype).requires_grad_(True)
+    with torch.no_grad():
+        lib_fwd = timed_ms(lambda: R.lstm_stack(lib, xl), 3)
+    ys_lib, _, _ = R.lstm_stack(lib, xl)
+    dys_lib = cts[0].transpose(0, 1).to(dtype)
+    leaves = [xl] + [v for p in lib for v in p.values()]
+    lib_bwd = timed_ms(lambda: torch.autograd.grad(
+        ys_lib, leaves, dys_lib, retain_graph=True), 3)
+
+    n_mat = L + (L - 1)              # recurrent + in-kernel input matrices
+    ops_seq = 2.0 * T * rows * n_mat * 4 * H * H
+    fwd_bytes = nbytes(xp0, *wf, bias, *out)
+    bwd_bytes = nbytes(*saved, *cts, *wb, *got)
+    f_ms, f_by = bound(fwd_bytes, ops_seq, dtype)
+    b_ms, b_by = bound(bwd_bytes, 2 * ops_seq, dtype)   # + dW: as many
+    res = {"phase": "compare", "kernel": "lstm_train", **info,
+           "cotangents": cotangents,
+           "fwd": {"max_abs_err": fwd_err, "err_over_bar": fwd_ratio,
+                   "ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": lib_fwd,
+                   "bound_ms": f_ms, "bound_by": f_by},
+           "bwd": {"max_abs_err": bwd_err, "err_over_bar": bwd_ratio,
+                   "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": lib_bwd,
+                   "bound_ms": b_ms, "bound_by": b_by},
+           "tolerance": ("bf16: max err / max|ref| <= 2e-2" if bf16 else
+                         "f32: forward atol 1e-5, gradients 1e-4 of max|ref|"),
+           "ok": True}
+    log(res)
     return res
 
 
@@ -365,7 +492,7 @@ def phase_end_to_end(card: str) -> dict:
     sr = 22050
     vc = VoiceConverter(verbose=False)
     target = Audio(synthetic_wav(3.0, sr, 99), sr_org=sr)
-    launches = {name: 0 for name in KERNELS}
+    launches = {name: 0 for name in CONVERT_KERNELS}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
 
@@ -395,9 +522,9 @@ def phase_end_to_end(card: str) -> dict:
         out = convert(wav)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = {name: spec["kernel"].launches
-                  for name, spec in KERNELS.items()}
-        for name in KERNELS:
+        counts = {name: KERNELS[name]["kernel"].launches
+                  for name in CONVERT_KERNELS}
+        for name in CONVERT_KERNELS:
             launches[name] += counts[name]
 
         t0 = time.time()
@@ -435,6 +562,200 @@ def phase_end_to_end(card: str) -> dict:
     return launches
 
 
+class StepClock:
+    """A training logger (``log_freq=1``) that keeps each step's loss and
+    the host time when it arrived: the loop pulls the loss to the host to
+    log it, so the times are of finished steps."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, metrics, step=None):
+        self.records.append((time.perf_counter(), metrics))
+
+
+def phase_train(card: str, steps_min: int = 8) -> dict:
+    """``VoiceConverter().train`` of the AutoVC generator (default config,
+    bf16, 16 chunks of 400 frames a step) on synthetic wavs: every loss
+    finite, the mean of the last two below the first, kernels 6 and 7
+    launched at least twice a step each.  Then one step of the same step
+    function profiled (device idle share, device time by kernel)."""
+    sr = 22050
+    vc = VoiceConverter(verbose=False)
+    clock = StepClock()
+    vc.logger = clock
+    n_epochs = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        # 8 wavs of 22.5 s: 8 chunks of 400 frames each, 4 steps an epoch
+        for i in range(8):
+            audio_io.save_wav(os.path.join(tmp, f"speaker{i % 4}_{i}.wav"),
+                              synthetic_wav(22.5, sr, 100 + i), sr)
+        for name in TRAIN_KERNELS:
+            KERNELS[name]["kernel"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = vc.train(tmp, model_type="auto_encoder", n_epochs=n_epochs,
+                        batch_size=16, log_freq=1, model_name="")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {name: KERNELS[name]["kernel"].launches for name in TRAIN_KERNELS}
+    steps = info["step"]
+    losses = [m["loss"] for _, m in clock.records]
+    times = [t for t, _ in clock.records]
+    step_s = statistics.median(b - a for a, b in zip(times, times[1:]))
+    ok = (steps >= steps_min and len(losses) == steps
+          and all(math.isfinite(v) for v in losses)
+          and (losses[-1] + losses[-2]) / 2 < losses[0]
+          and all(c >= 2 * steps for c in counts.values()))
+
+    # one more step of the same step function, profiled (a random batch of
+    # the same shape; the first call warms up)
+    cfg = vc.AE.config
+    tx = TRS.make_optimizer(cfg.optimizer, 1)
+    step_fn = TRL.make_ae_step(cfg, tx, cfg.learn.ema_decay)
+    params = vc.AE.params
+    opt_state = tx.init(tree_leaves(params))
+    ema = vc.AE.extras["ema_params"]
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand(16, 80, 400, generator=g).cuda()
+    c = torch.nn.functional.normalize(torch.randn(16, 256, generator=g),
+                                      dim=1).cuda()
+    step_fn(params, opt_state, ema, x, c)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        step_fn(params, opt_state, ema, x, c)
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = device_busy(prof)
+    kernel_ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for tag in ("lstm_train_fwd_kernel", "lstm_train_bwd_kernel",
+                        "dw_bf16_kernel", "dw_f32_kernel"):
+                if tag in e.name:
+                    kernel_ms[tag] = kernel_ms.get(tag, 0.0) + \
+                        e.time_range.elapsed_us() / 1e3
+    res = {"phase": "train", "steps": steps, "epochs": n_epochs,
+           "batch": [16, 80, 400], "precision": cfg.learn.precision,
+           "losses": losses, "launches": counts, "wall_s": wall,
+           "median_step_s": step_s, "frames_per_s": 16 * 400 / step_s,
+           "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / prof_ms,
+           # the profiler's host overhead stretches the profiled step; the
+           # device time it records set against the unprofiled median step
+           "device_idle_share_of_median_step":
+               1.0 - busy_ms / (step_s * 1e3),
+           "device_ms_by_kernel": top, "train_kernel_ms": kernel_ms,
+           "card": card, "ok": ok}
+    log(res)
+    if not ok:
+        raise AssertionError(f"training phase failed: {res}")
+    return counts
+
+
+def _loss_grads(params, x, c, cfg):
+    """f32 ``AE.loss`` in training mode and its gradient for every leaf
+    (on the host), from a copy of ``params`` (the BN statistics move)."""
+    aux, grads = TRL.loss_and_grads(tree_clone(params), x, c, cfg, "f32")
+    return float(aux["loss"]), [g.cpu() for g in grads]
+
+
+def leaf_names(tree, path="") -> list[str]:
+    """Leaf paths of a parameter tree in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k],
+                                                            f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{path}/{i}")]
+    return [path.lstrip("/")]
+
+
+def phase_train_f32_vs_cpu(card: str) -> dict:
+    """One f32 full-width training step's loss and gradients (batch 4 x 400
+    frames) on the card (kernels 6 and 7) against the same step on the CPU
+    (their plain versions), from the same weights:
+      * the loss: relative 1e-4;
+      * each gradient leaf: its relative L2 error ``|a - b| / |b|`` at most
+        1e-3, or at most the CPU's own relative L2 change when the batch is
+        perturbed by 1e-5 relative (the larger of two draws), whichever is
+        larger.  The AE's f32 gradients are ill-conditioned at this batch:
+        train-mode batch-norms (one-pass variance, as in the JAX package)
+        and the encoder re-run of the content term amplify rounding, so a
+        change of summation order anywhere moves every leaf by about a
+        part in a thousand, and the largest element of a leaf by up to a
+        few percent of its max |ref|: a max-abs bar of 1e-3 of max |ref|
+        fails the CPU against itself under a 1e-6 perturbation;
+      * the conv biases that feed a batch-norm have an analytically zero
+        gradient (rounding noise on both sides): both below 1e-5 of the
+        largest gradient; the BN running statistics get none."""
+    cfg = AutoEncoderConfig()
+    params_cpu = AE.init(torch.Generator().manual_seed(11), cfg)
+    params_gpu = from_jax_params(params_cpu, torch.device("cuda"))
+    rng = np.random.default_rng(12)
+    x = rng.random((4, 80, 400), dtype=np.float32)
+    c = rng.standard_normal((4, 256)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    t0 = time.perf_counter()
+    loss_g, grads_g = _loss_grads(params_gpu, x, c, cfg)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, grads_c = _loss_grads(params_cpu, x, c, cfg)
+    cpu_s = time.perf_counter() - t0
+
+    def rel_l2(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    spread = [0.0] * len(grads_c)
+    for _ in range(2):
+        shaken = (x * (1 + 1e-5 * rng.standard_normal(x.shape))).astype(
+            np.float32)
+        _, grads_s = _loss_grads(params_cpu, shaken, c, cfg)
+        spread = [max(s, rel_l2(g, r))
+                  for s, g, r in zip(spread, grads_s, grads_c)]
+    noise = 1e-5 * max(float(g.abs().max()) for g in grads_c)
+    worst, worst_leaf, max_err, failed = 0.0, None, 0.0, []
+    for name, a, b, s in zip(leaf_names(params_cpu), grads_g, grads_c,
+                             spread):
+        scale = float(b.abs().max())
+        if name.endswith("/bn/mean") or name.endswith("/bn/var"):
+            if scale or float(a.abs().max()):
+                failed.append(f"{name}: running statistic has a gradient")
+            continue
+        if name.endswith("/conv/b"):
+            if max(float(a.abs().max()), scale) > noise:
+                failed.append(f"{name}: gradient not ~0")
+            continue
+        err = rel_l2(a, b)
+        max_err = max(max_err, err)
+        ratio = err / max(1e-3, s)
+        if ratio > 1:
+            failed.append(f"{name}: rel L2 err {err:.3g}, bar "
+                          f"{max(1e-3, s):.3g}")
+        if ratio > worst:
+            worst, worst_leaf = ratio, name
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    if loss_rel > 1e-4:
+        failed.append(f"loss rel err {loss_rel:.3g}")
+    res = {"phase": "train_f32_card_vs_cpu", "batch": [4, 80, 400],
+           "loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": loss_rel,
+           "grads_max_rel_l2": max_err, "grads_worst_leaf": worst_leaf,
+           "grads_worst_err_over_bar": worst,
+           "card_s": gpu_s, "cpu_s": cpu_s, "card": card,
+           "tolerance": ("loss rel 1e-4; each gradient's relative L2 error "
+                         "within max(1e-3, the CPU's own change under a "
+                         "1e-5 perturbation of the batch)"),
+           "failed": failed, "ok": not failed}
+    log(res)
+    if failed:
+        raise AssertionError(f"f32 card step disagrees with the CPU: {res}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -452,8 +773,21 @@ def main() -> int:
         compare_lstm("lstm_stack_stream", 24, dt, gen, dev)
     k2 = compare_lstm("lstm_stack_skewed", 1, torch.bfloat16, gen, dev)
     k3 = compare_lstm("lstm_stack_stream", 9, torch.bfloat16, gen, dev)
+    # kernels 6 and 7 at the training path's geometries: decoder lstm2 in
+    # f32 and bf16, lstm1 (input 2 * 32 + 256) and the speaker encoder's
+    # stack (cotangent on h_fin only); the bf16 lstm2 run is the summary's
+    compare_lstm_train("lstm2", 2, 1024, 512, 16, 400, torch.float32, gen,
+                       dev)
+    k67 = compare_lstm_train("lstm2", 2, 1024, 512, 16, 400, torch.bfloat16,
+                             gen, dev)
+    compare_lstm_train("lstm1", 1, 512, 320, 16, 400, torch.bfloat16, gen,
+                       dev)
+    compare_lstm_train("speaker_encoder", 3, 256, 40, 48, 160,
+                       torch.bfloat16, gen, dev, cotangents="h_fin")
     k1 = compare_wavernn(gen, dev)
     launches = phase_end_to_end(card)
+    launches.update(phase_train(card))
+    phase_train_f32_vs_cpu(card)
 
     def entry(name, cmp, err):
         return {"name": name, "route": "cuda",
@@ -467,7 +801,9 @@ def main() -> int:
     summary = {"kernels": [
         entry("wavernn_sample", k1, k1["max_abs_err"]),
         entry("lstm_stack_skewed", k2, k2["max_abs_err"]),
-        entry("lstm_stack_stream", k3, k3["max_abs_err"])]}
+        entry("lstm_stack_stream", k3, k3["max_abs_err"]),
+        entry("lstm_train_fwd", k67["fwd"], k67["fwd"]["max_abs_err"]),
+        entry("lstm_train_bwd", k67["bwd"], k67["bwd"]["max_abs_err"])]}
     for e in summary["kernels"]:
         if e["launches"] < 1:
             raise AssertionError(f"{e['name']} never launched on the main "

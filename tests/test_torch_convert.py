@@ -129,7 +129,8 @@ def test_slice_embeddings(slice_run):
 def test_slice_post_mel(slice_run):
     vc = slice_run["vc"]
     chunks, _ = TMEL.mel_spec_auto_encoder_sliced(
-        slice_run["src_p"], vc.AE.config.spectrogram, overlap=0.5)
+        slice_run["src_p"], vc.AE.config.spectrogram, overlap=0.5,
+        device="cpu")
     post = TAE.batch_forward(vc.AE.params, chunks,
                              torch.from_numpy(slice_run["c_src"][None]),
                              torch.from_numpy(slice_run["c_trg"][None]),

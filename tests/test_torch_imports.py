@@ -100,3 +100,14 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         TW.generate(params, np.zeros((80, 5), np.float32))
     with pytest.raises(RuntimeError):
         load_model("vocoder", verbose=False, device="cuda")
+    from autovc_tpu_torch.models import speaker_encoder as TSE
+    from autovc_tpu_torch.ops import melspec as TMEL
+    wav = np.zeros(16000, np.float32)
+    se = load_model("speaker_encoder", verbose=False, device="cpu").params
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSE.embed_utterance(se, wav)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSE.embed_utterances(se, [wav])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMEL.mel_spec_auto_encoder_sliced(wav)
+    assert TSE.embed_utterance(se, wav, device="cpu").shape == (256,)

@@ -16,6 +16,7 @@ import torch
 from autovc_tpu_torch.config import WaveRNNConfig
 from autovc_tpu_torch.models import wavernn as WR
 from autovc_tpu_torch.ops import lstm_kernels as LK
+from autovc_tpu_torch.ops import lstm_train_kernels as LT
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops import rnn as R
 from autovc_tpu_torch.ops import wavernn_kernels as WK
@@ -48,6 +49,71 @@ def test_lstm_kernel_matches_plain(cuda_device, rows, kernel, dtype):
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     else:
         assert float((out - ref).abs().max()) < 2e-2 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,B,H,dtype", [
+    (1, 3, 64, torch.float32), (2, 11, 256, torch.float32),
+    (3, 5, 128, torch.float32), (2, 11, 256, torch.bfloat16),
+    (1, 16, 512, torch.bfloat16)])
+def test_lstm_train_kernels_match_plain(cuda_device, L, B, H, dtype):
+    """Kernels 6 and 7 against their plain versions, with cotangents on ys,
+    h_fin and c_fin: f32 forward at atol 1e-5 and each gradient within 1e-4
+    of its max |ref| (dW sums T * B products in another order); bf16
+    within 2e-2 of max |ref|."""
+    T = 13
+    gen = torch.Generator().manual_seed(L * 100 + H)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(cuda_device)
+
+    xp0 = rand(T, B, 4 * H)
+    whh, wih = rand(L, H, 4 * H, scale=H ** -0.5), rand(L - 1, H, 4 * H,
+                                                        scale=H ** -0.5)
+    bias = rand(L - 1, 4 * H, scale=0.1)
+    wf = LT.pack_fwd(whh, wih, dtype)
+    out = LT.fwd_launch(xp0, *wf, bias)
+    ref = LT.lstm_train_fwd_plain(xp0, *wf, bias)
+    bf16 = dtype == torch.bfloat16
+
+    def close(a, b, fwd):
+        assert a.shape == b.shape
+        if not b.numel():          # dW_ih of a one-layer stack
+            return
+        a, b = a.float(), b.float()
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        bar = 2e-2 * scale if bf16 else (1e-5 if fwd else 1e-4 * scale)
+        assert err <= bar, (err, scale)
+
+    for a, b in zip(out, ref):
+        close(a, b, True)
+    cts = (rand(T, B, H), rand(B, H), rand(B, H))
+    wb = LT.pack_bwd(whh, wih, dtype)
+    got = LT.bwd_launch(ref[5], ref[3], ref[4], *cts, *wb)
+    want = LT.lstm_train_bwd_plain(ref[5], ref[3], ref[4], *cts, *wb)
+    for a, b in zip(got, want):
+        close(a, b, False)
+
+
+@pytest.mark.cuda
+def test_lstm_stack_train_runs_the_kernels(cuda_device):
+    """On CUDA tensors ``lstm_stack_train`` launches kernel 6 once forward
+    and kernel 7 once backward, and its gradients match the CPU path's."""
+    gen = torch.Generator().manual_seed(5)
+    params = R.init_lstm_stack(gen, 24, 64, 2)
+    x = torch.randn(3, 17, 24, generator=gen)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        p = [{k: v.to(dev, copy=True).requires_grad_(True)
+              for k, v in lp.items()} for lp in params]
+        LT.FWD.launches = LT.BWD.launches = 0
+        ys, (h, c) = LT.lstm_stack_train(p, x.to(dev), "f32")
+        (torch.sum(torch.sin(ys)) + torch.sum(h * c)).backward()
+        launched = (LT.FWD.launches, LT.BWD.launches)
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = [v.grad.cpu() for lp in p for v in lp.values()]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 @pytest.mark.cuda
