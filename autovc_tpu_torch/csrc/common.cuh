@@ -1,7 +1,7 @@
 // Shared device helpers for the port's persistent recurrence kernels.
 //
-// The recurrence kernels (lstm_stack.cu, lstm_train.cu, wavernn_sample.cu)
-// are persistent
+// The recurrence kernels (lstm_stack.cu, lstm_train.cu, gru_train.cu,
+// wavernn_sample.cu) are persistent
 // cooperative grids: one block per SM at most, every block alive for the
 // whole recurrence, dependent stages separated by a grid-wide barrier.
 // Their matvecs give each output unit (one or a few weight columns) to
@@ -214,6 +214,18 @@ __device__ __forceinline__ void stage_rows(T* dst, const float* src, int r0,
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// Streaming stores of the saved training state (evict-first: they must not
+// push the resident weights out of L2), in the store's dtype.
+__device__ __forceinline__ void store_cs(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void store_cs(__nv_bfloat16* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // d += A (16 x 16, row-major) * B (16 x 8, col-major) on the tensor cores:

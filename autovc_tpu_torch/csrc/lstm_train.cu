@@ -10,9 +10,9 @@
 //     reverse-time recurrence that turns the saved activations and the
 //     cotangents into the gate derivatives da of every (layer, step), and
 //     (b) the weight and bias gradients dW_hh, dW_ih, db as products over
-//     K = T * B, written here by hand (shared-memory tiles; mma.sync bf16
-//     tensor-core tiles in bf16, FMA in f32), as the TPU kernel forms them
-//     in its own body.
+//     K = T * B, written by hand in dw_tiles.cuh (shared-memory tiles;
+//     mma.sync bf16 tensor-core tiles in bf16, FMA in f32), as the TPU
+//     kernel forms them in its own body.
 //
 // What bounds them on an H100: the recurrences are a dependent chain of
 // T * L rounds, each re-reading a layer's weights (8 MB per layer in bf16
@@ -29,7 +29,7 @@
 // layer's (or the next step's) gate derivatives for unit j in the epilogue
 // of its own matvec, so each (step, layer) costs ONE grid barrier; the dW
 // products run after the recurrence as one launch of independent tiles.
-#include "common.cuh"
+#include "dw_tiles.cuh"
 
 namespace avc {
 
@@ -50,16 +50,6 @@ struct TrainFwdArgs {
   unsigned int* bar;  // (2,): grid barrier, bar[0] == 0 at launch
   int T, B, H, L;
 };
-
-__device__ __forceinline__ void store_cs(float* p, float v) { __stcs(p, v); }
-__device__ __forceinline__ void store_cs(__nv_bfloat16* p, float v) {
-  __stcs(reinterpret_cast<unsigned short*>(p),
-         __bfloat16_as_ushort(__float2bfloat16_rn(v)));
-}
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // Layer l at step t for all rows: reads h_{l,t-1}, c_{l,t-1} (zero at
 // t = 0) and y_{l-1,t}; writes h_{l,t}, c_{l,t}, the activations, and ys.
@@ -322,195 +312,28 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// kernel 7 (b): weight and bias gradients
+// kernel 7 (b): weight and bias gradients (dw_tiles.cuh)
 // ---------------------------------------------------------------------------
 //
 // Problem z < L:     dW_hh[z] = sum_k h_z[k - B]^T da_z[k]  (h_{t-1}; zero
 //                    for the rows of t = 0), db[z] = sum_k da_z[k];
 // problem z >= L:    dW_ih[l-1] = sum_k h_{l-1}[k]^T da_l[k], l = z - L + 1.
-// k runs over the T * B (step, row) pairs; M = H, N = 4H.  A block owns a
-// 64 x 64 tile of one problem and walks all of K.
+// k runs over the T * B (step, row) pairs; M = H, N = 4H.
 
-struct DwArgs {
-  const float* hs;  // (L, T, B, H)
-  const float* da;  // (L, T, B, 4H)
-  float* dwhh;      // (L, H, 4H)
-  float* dwih;      // (L-1, H, 4H)
-  float* db;        // (L, 4H)
-  int T, B, H, L;
-};
-
-constexpr int kTile = 64;             // M and N of a block tile
-constexpr int kTileK = 32;            // K of a shared-memory stage
-constexpr int kTilePad = kTile + 4;   // row pitch: conflict-free fragments
-
-struct DwProblem {
-  const float* A;   // (K, M) rows, shifted by `shift` (rows < shift zero)
-  const float* Bm;  // (K, N)
-  float* C;         // (M, N)
-  float* db;        // (N,) or null
-  int shift;
-};
-
-__device__ __forceinline__ DwProblem dw_problem(const DwArgs& a, int z) {
-  const size_t TBH = (size_t)a.T * a.B * a.H;
-  const size_t HN = (size_t)a.H * 4 * a.H;
-  if (z < a.L)
-    return {a.hs + z * TBH, a.da + z * TBH * 4, a.dwhh + z * HN,
-            a.db + (size_t)z * 4 * a.H, a.B};
-  const int l = z - a.L + 1;
-  return {a.hs + (l - 1) * TBH, a.da + l * TBH * 4, a.dwih + (l - 1) * HN,
-          nullptr, 0};
-}
-
-// Stage rows [k0, k0 + kTileK) of the A and B tiles as f32 (coalesced
-// 16-byte loads, zero outside); accumulate B's column sums for db.
-template <int NT>
-__device__ __forceinline__ void dw_stage(const DwProblem& p, int M, int N,
-                                         int K, int k0, int m0, int n0,
-                                         float (*As)[kTilePad],
-                                         float (*Bs)[kTilePad],
-                                         float (&colsum)[4]) {
-  constexpr int kVec = kTile / 4;                    // float4 per tile row
-  for (int i = threadIdx.x; i < kTileK * kVec; i += NT) {
-    const int kk = i / kVec, c = (i % kVec) * 4;
-    const int k = k0 + kk;
-    float4 va = make_float4(0.f, 0.f, 0.f, 0.f), vb = va;
-    if (k < K) {
-      if (k >= p.shift && m0 + c < M)
-        va = __ldg(reinterpret_cast<const float4*>(
-            p.A + (size_t)(k - p.shift) * M + m0 + c));
-      vb = __ldg(
-          reinterpret_cast<const float4*>(p.Bm + (size_t)k * N + n0 + c));
-    }
-    As[kk][c] = va.x; As[kk][c + 1] = va.y;
-    As[kk][c + 2] = va.z; As[kk][c + 3] = va.w;
-    Bs[kk][c] = vb.x; Bs[kk][c + 1] = vb.y;
-    Bs[kk][c + 2] = vb.z; Bs[kk][c + 3] = vb.w;
-    colsum[0] += vb.x; colsum[1] += vb.y; colsum[2] += vb.z; colsum[3] += vb.w;
-  }
-}
-
-// db for the block's 64 columns: the threads that staged the same columns
-// sum their partials through shared memory (a fixed order: deterministic).
-template <int NT>
-__device__ __forceinline__ void dw_colsum(const DwProblem& p, int n0,
-                                          const float (&colsum)[4],
-                                          float* red) {
-  constexpr int kVec = kTile / 4, kGroups = NT / kVec;
-  const int g = threadIdx.x / kVec, c = (threadIdx.x % kVec) * 4;
-  __syncthreads();
-  for (int q = 0; q < 4; ++q) red[g * kTile + c + q] = colsum[q];
-  __syncthreads();
-  if (threadIdx.x < kTile) {
-    float s = 0.0f;
-    for (int gg = 0; gg < kGroups; ++gg) s += red[gg * kTile + threadIdx.x];
-    p.db[n0 + threadIdx.x] = s;
-  }
-}
-
-// f32: 256 threads as 16 x 16, each a 4 x 4 register tile (FMA).
-constexpr int kDwF32Threads = 256;
-__global__ void __launch_bounds__(kDwF32Threads) dw_f32_kernel(DwArgs a) {
-  __shared__ __align__(16) float As[kTileK][kTilePad];
-  __shared__ __align__(16) float Bs[kTileK][kTilePad];
-  __shared__ float red[kDwF32Threads / (kTile / 4) * kTile];
-  const DwProblem p = dw_problem(a, blockIdx.z);
-  const int M = a.H, N = 4 * a.H, K = a.T * a.B;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {}, colsum[4] = {};
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    dw_stage<kDwF32Threads>(p, M, N, K, k0, m0, n0, As, Bs, colsum);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 va = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 vb = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {va.x, va.y, va.z, va.w};
-      const float bv[4] = {vb.x, vb.y, vb.z, vb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m < M)
-      *reinterpret_cast<float4*>(p.C + (size_t)m * N + n0 + tx * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-  if (p.db != nullptr && blockIdx.y == 0)
-    dw_colsum<kDwF32Threads>(p, n0, colsum, red);
-}
-
-// bf16: 4 warps as 2 x 2, each a 32 x 32 tile of m16n8k16 mma.sync
-// fragments; operands rounded to bf16 as they leave shared memory, f32
-// accumulation (the TPU kernel's block_dw: bf16 h and da, f32 sums); db
-// sums the unrounded f32 da.
-constexpr int kDwBf16Threads = 128;
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__global__ void __launch_bounds__(kDwBf16Threads) dw_bf16_kernel(DwArgs a) {
-  __shared__ __align__(16) float As[kTileK][kTilePad];
-  __shared__ __align__(16) float Bs[kTileK][kTilePad];
-  __shared__ float red[kDwBf16Threads / (kTile / 4) * kTile];
-  const DwProblem p = dw_problem(a, blockIdx.z);
-  const int M = a.H, N = 4 * a.H, K = a.T * a.B;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tq = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  float acc[2][4][4] = {}, colsum[4] = {};
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    dw_stage<kDwBf16Threads>(p, M, N, K, k0, m0, n0, As, Bs, colsum);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kTileK; ks += 16) {
-      const int kl = ks + 2 * tq, kh = kl + 8;
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int m = wm + mt * 16 + gid;
-        af[mt][0] = pack_bf16(As[kl][m], As[kl + 1][m]);
-        af[mt][1] = pack_bf16(As[kl][m + 8], As[kl + 1][m + 8]);
-        af[mt][2] = pack_bf16(As[kh][m], As[kh + 1][m]);
-        af[mt][3] = pack_bf16(As[kh][m + 8], As[kh + 1][m + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = wn + nt * 8 + gid;
-        const uint32_t b0 = pack_bf16(Bs[kl][n], Bs[kl + 1][n]);
-        const uint32_t b1 = pack_bf16(Bs[kh][n], Bs[kh + 1][n]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int m = m0 + wm + mt * 16 + gid;
-      const int n = n0 + wn + nt * 8 + 2 * tq;
-      if (m < M)
-        *reinterpret_cast<float2*>(p.C + (size_t)m * N + n) =
-            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (m + 8 < M)
-        *reinterpret_cast<float2*>(p.C + (size_t)(m + 8) * N + n) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
-  if (p.db != nullptr && blockIdx.y == 0)
-    dw_colsum<kDwBf16Threads>(p, n0, colsum, red);
+static std::vector<DwProblem> lstm_dw_problems(const float* hs, const float* da,
+                                               float* dwhh, float* dwih,
+                                               float* db, int T, int B, int H,
+                                               int L) {
+  const size_t TBH = (size_t)T * B * H, HN = (size_t)H * 4 * H;
+  const int M = H, N = 4 * H, K = T * B;
+  std::vector<DwProblem> probs;
+  for (int z = 0; z < L; ++z)
+    probs.push_back({hs + z * TBH, da + z * TBH * 4, dwhh + z * HN,
+                     db + (size_t)z * N, nullptr, M, N, K, B, N, 0, 0});
+  for (int l = 1; l < L; ++l)
+    probs.push_back({hs + (l - 1) * TBH, da + l * TBH * 4, dwih + (l - 1) * HN,
+                     nullptr, nullptr, M, N, K, 0, N, 0, 0});
+  return probs;
 }
 
 // ---------------------------------------------------------------------------
@@ -554,15 +377,12 @@ static int bwd_launch(const void* acts, const void* hs, const void* cs,
   const int e = launch_cooperative(lstm_train_bwd_kernel<WT>, a,
                                    (H + kUnits - 1) / kUnits, smem, stream);
   if (e != 0) return e;
-  DwArgs d{static_cast<const float*>(hs), static_cast<const float*>(da),
-           static_cast<float*>(dwhh), static_cast<float*>(dwih),
-           static_cast<float*>(db), T, B, H, L};
-  const dim3 grid(4 * H / kTile, (H + kTile - 1) / kTile, 2 * L - 1);
-  if (sizeof(WT) == 2)
-    dw_bf16_kernel<<<grid, kDwBf16Threads, 0, stream>>>(d);
-  else
-    dw_f32_kernel<<<grid, kDwF32Threads, 0, stream>>>(d);
-  return cudaGetLastError();
+  return launch_dw(
+      lstm_dw_problems(static_cast<const float*>(hs),
+                       static_cast<const float*>(da), static_cast<float*>(dwhh),
+                       static_cast<float*>(dwih), static_cast<float*>(db), T, B,
+                       H, L),
+      sizeof(WT) == 2, stream);
 }
 
 }  // namespace avc

@@ -7,8 +7,9 @@ Inference (``train=False``, eval-mode BatchNorm): the decoder's lstm2
 to kernel 2 (:func:`autovc_tpu_torch.ops.lstm_kernels.lstm_stack_latency`),
 more rows to kernel 3
 (:func:`~autovc_tpu_torch.ops.lstm_kernels.lstm_stack_stream`), as
-``autoencoder.py:174-185`` routes them on the TPU; lstm1 is a plain
-recurrence.  Training (``train=True``): batch-statistics BatchNorm whose
+``autoencoder.py:174-185`` routes them on the TPU; lstm1 runs at the JAX
+scan's compute dtype (:func:`~autovc_tpu_torch.ops.lstm_kernels.
+lstm_stack_rec`: kernels 2/3 where that is bf16, else ``torch.lstm``).  Training (``train=True``): batch-statistics BatchNorm whose
 running statistics move in place (:func:`autovc_tpu_torch.ops.conv.
 batchnorm1d`), and both decoder stacks go through the training kernels 6
 and 7 (:func:`autovc_tpu_torch.ops.lstm_train_kernels.lstm_stack_train`).
@@ -100,7 +101,7 @@ def decoder(params: Params, x: torch.Tensor, mode: str = "f32",
     if train:
         h, _ = LT.lstm_stack_train(params["lstm1"], x, mode)
     else:
-        h, _, _ = R.lstm_stack(params["lstm1"], x)
+        h = LK.lstm_stack_rec(params["lstm1"], x, mode)
     h = h.transpose(1, 2)
     for p in params["convs"]:
         h = C.conv_bn(p, h, 5, activation=torch.relu, mode=mode, train=train)

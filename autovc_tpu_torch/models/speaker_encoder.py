@@ -19,6 +19,7 @@ import torch
 from autovc_tpu_torch.audio import dsp
 from autovc_tpu_torch.config import SpeakerEncoderConfig
 from autovc_tpu_torch.ops import conv as C
+from autovc_tpu_torch.ops import lstm_kernels as LK
 from autovc_tpu_torch.ops import melspec as M
 from autovc_tpu_torch.ops import rnn as R
 from autovc_tpu_torch.utils import resolve_device
@@ -38,10 +39,14 @@ def init(gen: torch.Generator,
     }
 
 
-def forward(params: Params, utterances: torch.Tensor) -> torch.Tensor:
-    """(B, n_frames, n_mels) -> L2-normalised embeddings (B, emb), f32."""
-    _, (h, _), _ = R.lstm_stack_skewed(params["lstm"], utterances)
-    raw = torch.relu(C.linear(params["linear"], h))
+def forward(params: Params, utterances: torch.Tensor,
+            mode: str = "f32") -> torch.Tensor:
+    """(B, n_frames, n_mels) -> L2-normalised embeddings (B, emb), f32.
+    ``mode`` is the precision policy, which the JAX forward reads from its
+    context: under bf16 the projections take bf16 operands and the stack
+    runs at the scan's compute dtype (``lstm_kernels.lstm_stack_rec``)."""
+    h = LK.lstm_stack_rec(params["lstm"], utterances, mode)[:, -1]
+    raw = torch.relu(C.linear(params["linear"], h, mode))
     return raw / torch.linalg.norm(raw, dim=-1, keepdim=True)
 
 

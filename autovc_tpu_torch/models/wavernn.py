@@ -1,10 +1,23 @@
-"""WaveRNN vocoder, generation only (counterpart of
-``autovc_tpu/models/wavernn.py``).
+"""WaveRNN vocoder (counterpart of ``autovc_tpu/models/wavernn.py``):
+teacher-forced training and generation.
 
-The chain is the JAX package's accelerator path (``_generate_program``,
-its pallas branch): MelResNet conditioning at frame rate, the fold of the
-mel frames into overlapping rows (``_fold_rows``, J zero-filled margin
-frames each side), the rows padded to a row bucket, the sampling loop
+Training (:func:`loss`, :func:`forward`) is the JAX package's kernel branch
+of ``forward`` (``wavernn.py:219-253``): the conditioning upsampler
+(MelResNet, whose train-mode BatchNorm moves its running statistics in
+place as :func:`autovc_tpu_torch.ops.conv.batchnorm1d` does, and the
+[stretch, smoothing conv] chain, as one banded frame -> samples kernel
+when ``pad >= J``), then the whole sample-rate chain time-major around
+the GRU pair (:func:`autovc_tpu_torch.ops.gru_train_kernels.gru_pair`:
+kernels 4/5 on the GPU), with layer 2's projection split into the hoisted
+``base2`` and the in-kernel ``h1 W_ih2x``, and the fc layers as split
+matmuls.  ``mode`` is the precision policy ("f32" or "bf16"), which the
+JAX functions read from their context.
+
+Generation follows the JAX package's accelerator path
+(``_generate_program``, its pallas branch): MelResNet conditioning at
+frame rate, the fold of the mel frames into overlapping rows
+(``_fold_rows``, J zero-filled margin frames each side), the rows padded to
+a row bucket, the sampling loop
 (:func:`autovc_tpu_torch.ops.wavernn_kernels.generate_rows`: kernel 1 on
 the GPU), then crossfade-unfold, trim and fade (:func:`_finish`).
 ``batched=False`` is the same kernel at one row.
@@ -17,6 +30,7 @@ second sampling path).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
@@ -25,6 +39,8 @@ import torch.nn.functional as F
 
 from autovc_tpu_torch.config import WaveRNNConfig
 from autovc_tpu_torch.ops import conv as C
+from autovc_tpu_torch.ops import gru_train_kernels as GT
+from autovc_tpu_torch.ops import mol as MOL
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops import rnn as R
 from autovc_tpu_torch.ops import wavernn_kernels as WK
@@ -61,16 +77,19 @@ def init(gen: torch.Generator, cfg: WaveRNNConfig = WaveRNNConfig()) -> Params:
     }
 
 
-def _mel_resnet(params: Params, m: torch.Tensor) -> torch.Tensor:
+def _mel_resnet(params: Params, m: torch.Tensor, train: bool = False,
+                mode: str = "f32") -> torch.Tensor:
     """(B, feat, F) -> (B, res_out, F - 2*pad): valid conv, then 1x1
-    residual blocks (eval-mode BatchNorm)."""
-    x = torch.relu(C.batchnorm1d(params["bn_in"],
-                                 C.conv1d(params["conv_in"], m)))
+    residual blocks.  ``train``: batch-statistics BatchNorm whose running
+    statistics move in place."""
+    def conv_bn(conv, bn, x):
+        return C.batchnorm1d(bn, C.conv1d(conv, x, mode=mode), train)
+
+    x = torch.relu(conv_bn(params["conv_in"], params["bn_in"], m))
     for blk in params["blocks"]:
-        h = torch.relu(C.batchnorm1d(blk["bn1"], C.conv1d(blk["conv1"], x)))
-        h = C.batchnorm1d(blk["bn2"], C.conv1d(blk["conv2"], h))
-        x = x + h
-    return C.conv1d(params["conv_out"], x)
+        h = torch.relu(conv_bn(blk["conv1"], blk["bn1"], x))
+        x = x + conv_bn(blk["conv2"], blk["bn2"], h)
+    return C.conv1d(params["conv_out"], x, mode=mode)
 
 
 def _upsample_margin(up_convs, factors) -> int:
@@ -88,18 +107,103 @@ def _composite_upsample_kernel(up_convs, factors):
     """The [stretch x s, (1, 2s+1) conv] upsample chain as one banded
     frame->samples kernel: out[q*S + p] = sum_j K[j, p] * mel[q - j + J].
 
-    Returns (K (2J+1, S) f32 on the CPU, J), the chain's impulse response
-    (``wavernn.py:116-149``)."""
+    Returns (K (2J+1, S) f32, J): the chain's impulse response
+    (``wavernn.py:116-149``), on the weights' device and differentiable in
+    them, as the JAX function is."""
     S = int(np.prod(factors))
     J = _upsample_margin(up_convs, factors)
-    x = torch.zeros(1, 1, 2 * J + 1)
+    x = up_convs[0].new_zeros(1, 1, 1, 2 * J + 1, dtype=torch.float32)
     x[..., J] = 1.0
     for w, s in zip(up_convs, factors):
         x = torch.repeat_interleave(x, s, dim=-1)
-        x = F.conv1d(x, w.detach().float().cpu().reshape(1, 1, -1), padding=s)
-    r = x[0, 0]
+        x = F.conv2d(x, w.float(), padding=(0, s))
+    r = x[0, 0, 0]
     K = torch.stack([r[(J + j) * S:(J + j + 1) * S] for j in range(-J, J + 1)])
     return K, J
+
+
+def upsample(params: Params, m: torch.Tensor, cfg: WaveRNNConfig,
+             train: bool = False, mode: str = "f32"):
+    """Conditioning upsampler: m (B, feat, F), pad-extended by ``pad``
+    frames a side -> (mels (B, T, feat), aux (B, T, res_out)) with
+    T = (F - 2*pad) * total_scale (``wavernn.py:152-191``).  The smoothing
+    chain runs in f32 under both policies, as in the JAX package."""
+    aux = _mel_resnet(params["resnet"], m, train, mode)
+    aux = torch.repeat_interleave(aux, cfg.total_scale, dim=-1)
+    K, J = _composite_upsample_kernel(params["up_convs"],
+                                      cfg.upsample_factors)
+    pad = cfg.pad
+    if pad >= J:
+        # the banded path: one small contraction per frame
+        B, Cc, Fr = m.shape
+        Fp = Fr - 2 * pad
+        wins = torch.stack([m[:, :, pad - j:pad - j + Fp]
+                            for j in range(-J, J + 1)])   # (2J+1, B, C, Fp)
+        out = torch.einsum("jp,jbcf->bfpc", K, wins)
+        return out.reshape(B, Fp * cfg.total_scale, Cc), aux.transpose(1, 2)
+    x = m[:, None]                                    # (B, 1, feat, F)
+    for w, s in zip(params["up_convs"], cfg.upsample_factors):
+        x = torch.repeat_interleave(x, s, dim=-1)
+        x = F.conv2d(x, w.float(), padding=(0, s))
+    indent = pad * cfg.total_scale
+    mels = x[:, 0, :, indent:-indent]                 # (B, feat, T)
+    return mels.transpose(1, 2), aux.transpose(1, 2)
+
+
+def forward(params: Params, x: torch.Tensor, mels: torch.Tensor,
+            cfg: WaveRNNConfig, train: bool = False,
+            mode: str = "f32") -> torch.Tensor:
+    """Teacher-forced pass: previous samples x (B, T) and mels (B, feat, F)
+    with T = (F - 2*pad) * total_scale -> logits (B, T, n_classes)."""
+    cond, aux = upsample(params["upsample"], mels, cfg, train, mode)
+    d, rd, fcd = cfg.aux_dims, cfg.rnn_dims, cfg.fc_dims
+    inp = torch.cat([x[..., None], cond, aux[..., :d]], dim=-1)
+    # time-major from here to the logits
+    a2, a3, a4 = (aux[..., i * d:(i + 1) * d].transpose(0, 1)
+                  for i in (1, 2, 3))
+    xI = C.linear(params["I"], inp.transpose(0, 1), mode)    # (T, B, rd)
+    w2 = params["rnn2"]["w_ih"]
+    xp1 = R.gru_project_inputs(params["rnn1"], xI, mode)
+    base2 = (PREC.dot(xI, w2[:rd], mode) + PREC.dot(a2, w2[rd:], mode)
+             + params["rnn2"]["b_ih"])
+    h1, h2 = GT.gru_pair(xp1, base2, w2[:rd], params["rnn1"]["w_hh"],
+                         params["rnn1"]["b_hh"], params["rnn2"]["w_hh"],
+                         params["rnn2"]["b_hh"], mode)
+    x1 = h1 + xI
+    x2 = h2 + x1
+    wf1, wf2 = params["fc1"]["w"], params["fc2"]["w"]
+    x3 = torch.relu(PREC.dot(x2, wf1[:, :rd].T, mode)
+                    + PREC.dot(a3, wf1[:, rd:].T, mode) + params["fc1"]["b"])
+    x4 = torch.relu(PREC.dot(x3, wf2[:, :fcd].T, mode)
+                    + PREC.dot(a4, wf2[:, fcd:].T, mode) + params["fc2"]["b"])
+    return C.linear(params["fc3"], x4, mode).transpose(0, 1)
+
+
+def encode_mu_law(x: torch.Tensor, mu: int) -> torch.Tensor:
+    """mu-law companding of a [-1, 1] signal (the encode side of
+    :func:`_finish`'s expand)."""
+    mu = mu - 1
+    return torch.sign(x) * torch.log1p(mu * torch.abs(x)) / math.log1p(mu)
+
+
+def loss(params: Params, x_in: torch.Tensor, y_target: torch.Tensor,
+         mels: torch.Tensor, cfg: WaveRNNConfig, train: bool = True,
+         mode: str = "f32") -> torch.Tensor:
+    """Vocoder training loss (``wavernn.py:279-304``): the MOL negative
+    log-likelihood (mode 'MOL') or the cross-entropy over quantised classes
+    (mode 'RAW', in the mu-law companded domain when
+    ``cfg.generate.mu_law``)."""
+    if cfg.mode == "RAW" and cfg.generate.mu_law:
+        x_in = encode_mu_law(x_in, cfg.n_classes)
+        y_target = encode_mu_law(y_target, cfg.n_classes)
+    logits = forward(params, x_in, mels, cfg, train, mode)
+    if cfg.mode == "MOL":
+        return MOL.discretized_mix_logistic_loss(logits, y_target[..., None])
+    n = cfg.n_classes
+    classes = torch.clamp(((y_target + 1.0) * (n - 1) / 2.0 + 0.5).long(),
+                          0, n - 1)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.gather(logp, -1, classes[..., None]))
 
 
 def pad_mel(mel: torch.Tensor, pad: int) -> torch.Tensor:

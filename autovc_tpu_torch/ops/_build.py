@@ -20,7 +20,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("lstm_stack.cu", "lstm_train.cu", "wavernn_sample.cu")
+SOURCES = ("gru_train.cu", "lstm_stack.cu", "lstm_train.cu",
+           "wavernn_sample.cu")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -89,6 +90,15 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _LIBS[source] = lib
         return lib
+
+
+def check_inputs(tensors, dev) -> None:
+    """Raise unless every tensor is contiguous and on ``dev``: the C side
+    reads raw pointers."""
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("all kernel inputs must be contiguous tensors "
+                             "on one CUDA device")
 
 
 class Kernel:

@@ -9,7 +9,11 @@ Counterpart of ``autovc_tpu/ops/lstm_pallas.py``:
     kernel ``lstm_stack_stream_launch``, all layers at one timestep a round.
 
 Both take a uniform-H stack (the JAX param layout) and x (B, T, I) and
-return the last layer's outputs (B, T, H).  The layer-0 projection over all
+return the last layer's outputs (B, T, H).  :func:`lstm_stack_rec` sends
+the stacks that the JAX package runs as scans at inference (the speaker
+encoder's 3 x 256, decoder lstm1) through the same two kernels when the
+scan's gate (``PREC.rec_dtype``) makes their recurrence bf16, which
+cuDNN's fused recurrence cannot round.  The layer-0 projection over all
 T plus both biases is hoisted (a plain matmul, as ``_hoist_xp0`` in the JAX
 package); layers >= 1 add ``b_ih + b_hh`` inside the recurrence.  A CUDA
 tensor launches the kernel (or raises); a CPU tensor takes
@@ -29,6 +33,7 @@ import torch
 
 from autovc_tpu_torch.ops import _build
 from autovc_tpu_torch.ops import precision as PREC
+from autovc_tpu_torch.ops import rnn as R
 
 LATENCY_MAX_ROWS = 8
 
@@ -133,10 +138,7 @@ def launch(kernel: _build.Kernel, xp0: torch.Tensor, whh: torch.Tensor,
     if tuple(wih.shape) != (L - 1, 4 * H, H) or tuple(bias.shape) != (L - 1, 4 * H):
         raise ValueError("wih/bias shapes do not match the stack")
     dev = xp0.device
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("all kernel inputs must be contiguous tensors "
-                             "on one CUDA device")
+    _build.check_inputs(tensors, dev)
     out = torch.empty(T, B, H, device=dev)
     h = torch.empty(2, L, B, H, device=dev)
     c = torch.empty(L, B, H, device=dev)
@@ -168,3 +170,20 @@ def lstm_stack_stream(params: Sequence, x: torch.Tensor,
     """Kernel 3: the same stack at serving row counts (the JAX
     ``lstm_stack_stream`` contract): (B, T, I) -> (B, T, H)."""
     return _run(STREAM, params, x, mode, packed)
+
+
+def lstm_stack_rec(params: Sequence, x: torch.Tensor,
+                   mode: str = "f32") -> torch.Tensor:
+    """A uniform-H stack that the JAX package runs as a scan, at inference:
+    (B, T, I) -> the last layer's outputs (B, T, H).  The recurrence's
+    compute dtype is the scan's gate, ``PREC.rec_dtype(mode, B, H)``: in
+    bf16 it runs kernel 2 (<= 8 rows) or kernel 3 (more) on CUDA and their
+    plain version on the CPU, with the layer-0 projection hoisted under
+    the policy; in f32 it runs ``torch.lstm`` (:func:`rnn.lstm_stack`), the
+    same f32 function."""
+    H = params[0]["w_hh"].shape[0]
+    dtype = PREC.rec_dtype(mode, x.shape[0], H)
+    if dtype == torch.float32:
+        return R.lstm_stack(params, x)[0]
+    kernel = SKEWED if x.shape[0] <= LATENCY_MAX_ROWS else STREAM
+    return _run(kernel, params, x, mode, pack_stack(params, dtype))

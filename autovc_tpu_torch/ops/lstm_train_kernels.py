@@ -150,13 +150,6 @@ def lstm_train_bwd_plain(acts: torch.Tensor, hs: torch.Tensor,
     return das[0], dwhh, dwih, das.sum(dim=(1, 2))
 
 
-def _check(tensors, dev) -> None:
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("all kernel inputs must be contiguous tensors "
-                             "on one CUDA device")
-
-
 def fwd_launch(xp0: torch.Tensor, whh: torch.Tensor, wih: torch.Tensor,
                bias: torch.Tensor):
     """Kernel 6 on CUDA tensors (checked here); the same results as
@@ -175,7 +168,7 @@ def fwd_launch(xp0: torch.Tensor, whh: torch.Tensor, wih: torch.Tensor,
             or tuple(bias.shape) != (L - 1, 4 * H)):
         raise ValueError("wih/bias shapes do not match the stack")
     dev = xp0.device
-    _check((xp0, whh, wih, bias), dev)
+    _build.check_inputs((xp0, whh, wih, bias), dev)
     ys = torch.empty(T, B, H, device=dev)
     hs = torch.empty(L, T, B, H, device=dev)
     cs = torch.empty(L, T, B, H, device=dev)
@@ -215,7 +208,7 @@ def bwd_launch(acts: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
         if t.dtype != torch.float32:
             raise ValueError("saved h, c and the cotangents must be float32")
     dev = hs.device
-    _check((acts, hs, cs, dys, dh_fin, dc_fin, whh, wih), dev)
+    _build.check_inputs((acts, hs, cs, dys, dh_fin, dc_fin, whh, wih), dev)
     da = torch.empty(L, T, B, 4 * H, device=dev)
     dwhh = torch.empty(L, H, 4 * H, device=dev)
     dwih = torch.empty(L - 1, H, 4 * H, device=dev)

@@ -12,16 +12,23 @@ Two modes, passed explicitly to the functions that use them:
 package resolves it to bf16 on its accelerator and f32 elsewhere.
 
 Under bf16 a convolution's output is rounded to bf16 before its bias, as
-the JAX bf16 conv's is.  The plain recurrences of
-:mod:`autovc_tpu_torch.ops.rnn` (encoder BLSTM, decoder lstm1 at
-inference, speaker encoder) run their recurrent products in exact float32
-in both modes — strictly more accurate than the bf16 contract; the BLSTM
-rounds its input projections' operands under bf16, as the JAX package
-does.  The decoder LSTM kernels (lstm2 at inference, lstm1 and lstm2 in
-training) follow the JAX kernels' gate: bf16 under the bf16 policy when
-H >= ``REC_BF16_MIN_HIDDEN``, at every row count (the deliberate deviation
-of ``autovc_tpu/ops/precision.py:85-94``: no ``REC_BF16_MIN_ROWS``
-clause).
+the JAX bf16 conv's is.  Recurrent products follow the JAX package's two
+gates:
+
+  * :func:`rec_dtype`, the scans' gate (``precision._rec_use_bf16``): bf16
+    under the bf16 policy when H >= ``REC_BF16_MIN_HIDDEN`` and the batch
+    has at least ``REC_BF16_MIN_ROWS`` rows, else f32.  It sets the compute
+    dtype of the speaker encoder's stack and decoder lstm1 at inference
+    under the bf16 policy (kernels 2/3 on the GPU; the f32 policy keeps
+    ``torch.lstm``, the same f32 function) and of the GRU-pair training
+    kernels 4/5.  The encoder BLSTM (H = 32) stays on ``torch.lstm`` in
+    f32, with bf16-rounded input projections under bf16, as in the JAX
+    package.
+  * :func:`lstm_kernel_dtype`, the JAX LSTM kernels' gate: bf16 under the
+    bf16 policy when H >= ``REC_BF16_MIN_HIDDEN``, at every row count (the
+    deliberate deviation of ``autovc_tpu/ops/precision.py:85-94``: no
+    ``REC_BF16_MIN_ROWS`` clause).  It sets decoder lstm2 at inference and
+    both decoder stacks in training.
 """
 from __future__ import annotations
 
@@ -77,5 +84,15 @@ def lstm_kernel_dtype(mode: str, hidden: int) -> torch.dtype:
     bf16 under the bf16 policy when
     H >= REC_BF16_MIN_HIDDEN, at every row count; else f32."""
     if mode == "bf16" and hidden >= REC_BF16_MIN_HIDDEN:
+        return torch.bfloat16
+    return torch.float32
+
+
+def rec_dtype(mode: str, rows: int, hidden: int) -> torch.dtype:
+    """Compute dtype of a recurrence that the JAX package runs as a scan
+    (``precision._rec_use_bf16``): bf16 under the bf16 policy when
+    H >= REC_BF16_MIN_HIDDEN and rows >= REC_BF16_MIN_ROWS; else f32."""
+    if (mode == "bf16" and hidden >= REC_BF16_MIN_HIDDEN
+            and rows >= REC_BF16_MIN_ROWS):
         return torch.bfloat16
     return torch.float32

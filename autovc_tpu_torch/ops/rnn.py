@@ -1,15 +1,18 @@
 """Plain recurrences (counterpart of ``autovc_tpu/ops/rnn.py``).
 
-The JAX package runs these as XLA scans, not Pallas kernels, so the port
-runs them through PyTorch's fused LSTM (``torch.lstm``: cuDNN on the GPU,
-ATen on the CPU; differentiable) — used by the speaker encoder, the
-encoder BLSTM and the decoder lstm1 at inference.  They run exact float32,
-except that under the bf16 policy the BLSTM's input projections take
-bf16-rounded operands, as the JAX package's hoisted projections do (its
-H = 32 recurrent product stays f32 there too).  The decoder lstm2 stack
-goes through the hand-written kernels of
-:mod:`autovc_tpu_torch.ops.lstm_kernels`, and both decoder stacks in
-training through :mod:`autovc_tpu_torch.ops.lstm_train_kernels`.
+The JAX package runs these as XLA scans, not Pallas kernels.  The port runs
+the LSTMs through PyTorch's fused LSTM (``torch.lstm``: cuDNN on the GPU,
+ATen on the CPU; differentiable), in exact float32: the encoder BLSTM,
+whose input projections take bf16-rounded operands under the bf16 policy
+as the JAX package's hoisted projections do (its H = 32 recurrent product
+stays f32 there too), and the speaker encoder's stack and decoder lstm1 at
+inference where the scan's gate keeps them f32.  Where that gate makes
+them bf16 they go through the kernels of
+:mod:`autovc_tpu_torch.ops.lstm_kernels` (``lstm_stack_rec``), as does the
+decoder lstm2 stack; both decoder stacks in training go through
+:mod:`autovc_tpu_torch.ops.lstm_train_kernels`.  The GRU layer here is
+plain PyTorch, differentiable by autograd (the reference of the GRU-pair
+kernels of :mod:`autovc_tpu_torch.ops.gru_train_kernels`).
 
 Parameter layout is the JAX package's: ``w_ih`` (in, 4H) / ``w_hh`` (H, 4H)
 used as ``x @ w``, gate order i, f, g, o (LSTM) and r, z, n (GRU),
@@ -141,3 +144,25 @@ def gru_cell(params: Params, xp_t: torch.Tensor,
     z = torch.sigmoid(xz + hz)
     n = torch.tanh(xn + r * hn)
     return (1.0 - z) * n + z * h
+
+
+def gru_project_inputs(params: Params, x: torch.Tensor,
+                       mode: str = "f32") -> torch.Tensor:
+    """Hoisted time-parallel input projection for :func:`gru_cell`:
+    ``x @ w_ih + b_ih`` under policy ``mode``."""
+    return PREC.dot(x, params["w_ih"], mode) + params["b_ih"]
+
+
+def gru_layer(params: Params, x: torch.Tensor,
+              h0: torch.Tensor | None = None):
+    """One GRU layer over (B, T, I) -> outputs (B, T, H), final h; f32,
+    differentiable by autograd."""
+    B, T, _ = x.shape
+    H = params["w_hh"].shape[0]
+    xp = gru_project_inputs(params, x)
+    h = x.new_zeros(B, H) if h0 is None else h0
+    ys = []
+    for t in range(T):
+        h = gru_cell(params, xp[:, t], h)
+        ys.append(h)
+    return torch.stack(ys, dim=1), h

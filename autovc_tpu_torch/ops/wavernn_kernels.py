@@ -24,7 +24,6 @@ accumulation, state and sampling math.  ``mf`` stays f32.
 from __future__ import annotations
 
 import ctypes
-import math
 from dataclasses import dataclass
 from typing import Any, Dict
 
@@ -32,8 +31,8 @@ import torch
 
 from autovc_tpu_torch.ops import _build
 from autovc_tpu_torch.ops import precision as PREC
+from autovc_tpu_torch.ops.mol import LOG_SCALE_MIN
 
-LOG_SCALE_MIN = float(math.log(1e-14))
 MAX_TAPS = 9  # kMaxTaps of csrc/wavernn_sample.cu: W = 2J + 1 <= 9
 
 SAMPLE = _build.Kernel(
@@ -83,8 +82,8 @@ class RowsInputs:
 def pack_weights(params, cfg, fast_math: bool) -> Dict[str, Any]:
     """The loop's weights in kernel layout: every :class:`RowsInputs`
     field that does not depend on the mel.  Built once per model and
-    precision (``VoiceConverter`` does it at construction); building it
-    reads the upsample kernel back to the host."""
+    precision (``VoiceConverter`` does it at construction and again after
+    vocoder training)."""
     from autovc_tpu_torch.models.wavernn import _composite_upsample_kernel
     rd, fc = cfg.rnn_dims, cfg.fc_dims
     n_classes = cfg.n_classes
@@ -92,8 +91,9 @@ def pack_weights(params, cfg, fast_math: bool) -> Dict[str, Any]:
     nr_mix = n_classes // 3
     cdt = torch.bfloat16 if fast_math else torch.float32
     f32 = torch.float32
-    K, _ = _composite_upsample_kernel(params["upsample"]["up_convs"],
-                                      cfg.upsample_factors)
+    with torch.no_grad():
+        K, _ = _composite_upsample_kernel(params["upsample"]["up_convs"],
+                                          cfg.upsample_factors)
     wI = params["I"]["w"]                      # (rd, 1 + feat + aux)
 
     def weight(w):

@@ -1,6 +1,6 @@
 """Training subsystem (counterpart of ``autovc_tpu/train``): the AutoVC
-generator's dataset, schedules, optimizer and loop, and the dispatcher
-``VoiceConverter.train`` calls."""
+generator's and the WaveRNN vocoder's datasets and loops, the schedules
+and optimizer, and the dispatcher ``VoiceConverter.train`` calls."""
 from __future__ import annotations
 
 from autovc_tpu_torch.train import data, loop, schedules  # noqa: F401
@@ -9,15 +9,14 @@ from autovc_tpu_torch.train import data, loop, schedules  # noqa: F401
 def train_model(vc, model_type: str, data_path, **kwargs):
     """Dispatcher used by ``VoiceConverter.train`` (the JAX package's
     ``train_model``).  Extra kwargs go to the training loop; dataset
-    kwargs: ``preprocess``, ``preprocess_args``, ``cut``,
-    ``data_path_excluded``, ``one_hot``, ``use_mean_speaker_embedding``.
-    Only ``auto_encoder`` is ported."""
-    if model_type in ("speaker_encoder", "vocoder"):
-        raise NotImplementedError(
-            f"{model_type} training is not ported yet (ROADMAP, Next: "
-            + ("vocoder training with the GRU-pair kernels 4/5)"
-               if model_type == "vocoder" else "speaker-encoder training)"))
-    if model_type != "auto_encoder":
+    kwargs: ``preprocess``, ``preprocess_args``, ``data_path_excluded``,
+    and for the auto-encoder ``cut``, ``one_hot``,
+    ``use_mean_speaker_embedding``.  ``auto_encoder`` and ``vocoder`` are
+    ported; ``speaker_encoder`` is not."""
+    if model_type == "speaker_encoder":
+        raise NotImplementedError("speaker_encoder training is not ported "
+                                  "yet (ROADMAP, Next)")
+    if model_type not in ("auto_encoder", "vocoder"):
         raise ValueError(f"'{model_type}' is not a supported model_type")
     if kwargs.pop("source_examples", None) or kwargs.pop("target_examples",
                                                           None):
@@ -28,6 +27,19 @@ def train_model(vc, model_type: str, data_path, **kwargs):
                     "data_path_excluded", "one_hot",
                     "use_mean_speaker_embedding"}
     ds_kwargs = {k: kwargs.pop(k) for k in list(kwargs) if k in dataset_keys}
+    if model_type == "vocoder":
+        dataset = data.VocoderDataset(
+            data_path, mel_cfg=vc.AE.config.spectrogram,
+            vocoder_cfg=vc.vocoder.config, verbose=vc.verbose,
+            **{k: v for k, v in ds_kwargs.items()
+               if k in ("preprocess", "preprocess_args",
+                        "data_path_excluded")})
+        params, info = loop.train_vocoder(
+            vc.vocoder.params, dataset, vc.vocoder.config, logger=vc.logger,
+            verbose=vc.verbose, start_step=vc.vocoder.step, **kwargs)
+        vc.vocoder.params = params
+        vc.vocoder.step = info["step"]
+        return info
     dataset = data.AutoEncoderDataset(
         data_path, speaker_encoder=vc.SE.params,
         speaker_encoder_params=vc.SE.config, speakers=vc.speakers,

@@ -1,11 +1,12 @@
-"""Training data for the AutoVC generator (counterpart of
-``autovc_tpu/train/data.py``'s ``AutoEncoderDataset``).
+"""Training data (counterpart of ``autovc_tpu/train/data.py``'s
+``AutoEncoderDataset`` and ``VocoderDataset``).
 
-Host-side mel chunks and one embedding per file, batched as numpy arrays
-with the JAX package's shuffle (``default_rng(seed)``) and drop-last rule,
-so the same files give the same batches in both packages.  Embeddings come
-from the mean-speaker registry when the filename matches a speaker's name,
-else from ``embed_utterance`` on ``device``.
+Host-side numpy, with the JAX package's random draws (``default_rng(seed)``)
+and drop rules, so the same files give the same batches in both packages.
+AutoVC: mel chunks and one embedding per file, the embedding from the
+mean-speaker registry when the filename matches a speaker's name, else
+from ``embed_utterance`` on ``device``.  WaveRNN: random aligned windows of
+mel frames and waveform samples.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Iterator, List, Tuple
 import numpy as np
 
 from autovc_tpu_torch.audio import Audio, dsp
-from autovc_tpu_torch.config import AutoEncoderConfig, SpeakerEncoderConfig
+from autovc_tpu_torch.config import (AutoEncoderConfig, MelConfig,
+                                     SpeakerEncoderConfig, WaveRNNConfig)
 from autovc_tpu_torch.utils import (close_progbar, progbar,
                                     retrieve_file_paths)
 
@@ -120,3 +122,61 @@ class AutoEncoderDataset:
         n = len(self.mels)
         return (n // batch_size if self.cut and n >= batch_size
                 else -(-n // batch_size))
+
+
+class VocoderDataset:
+    """(x_in, y_target, mel) triplets for WaveRNN teacher-forced training:
+    random aligned windows of ``seq_frames`` mel frames and the matching
+    ``seq_frames * hop`` samples, the mel window pad-extended by ``pad``
+    frames a side for the valid MelResNet convolution
+    (``autovc_tpu/train/data.py:188-242``)."""
+
+    def __init__(self, data_path, data_path_excluded=(),
+                 mel_cfg: MelConfig | None = None,
+                 vocoder_cfg: WaveRNNConfig | None = None,
+                 preprocess=("normalize_volume",),
+                 preprocess_args={"target_dBFS": -20}, verbose=True):
+        self.mel_cfg = mel_cfg or MelConfig()
+        self.cfg = vocoder_cfg or WaveRNNConfig()
+        files = retrieve_file_paths(data_path,
+                                    excluded=list(data_path_excluded))
+        self.wavs: List[np.ndarray] = []
+        self.mels: List[np.ndarray] = []
+        for f in files:
+            audio = Audio(f, sr=self.mel_cfg.sr)
+            audio.preprocess(*preprocess, **preprocess_args)
+            self.wavs.append(audio.wav)
+            self.mels.append(dsp.mel_spec_auto_encoder(audio.wav,
+                                                       self.mel_cfg))
+        if verbose:
+            print(f"Vocoder dataset: {len(files)} files")
+
+    def batches(self, batch_size: int = 8, seq_frames: int = 9,
+                n_batches: int = 50, seed: int = 0
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Yield up to ``n_batches`` float32 batches (x_in (B, T), y (B, T),
+        mel (B, n_mels, seq_frames + 2 * pad)), T = seq_frames * hop; y is
+        x_in one sample ahead.  A draw from a file too short for the window
+        is skipped (the batch is then smaller), as in the JAX package."""
+        rng = np.random.default_rng(seed)
+        hop, pad = self.cfg.hop_length, self.cfg.pad
+        F = seq_frames + 2 * pad
+        for _ in range(n_batches):
+            xs, ys, ms = [], [], []
+            for _ in range(batch_size):
+                i = rng.integers(len(self.wavs))
+                mel, wav = self.mels[i], self.wavs[i]
+                max_start = mel.shape[-1] - F - 1
+                if max_start <= 0:
+                    continue
+                s = int(rng.integers(0, max_start))
+                ms.append(mel[:, s:s + F])
+                w0 = (s + pad) * hop
+                seg = wav[w0:w0 + seq_frames * hop + 1]
+                seg = np.pad(seg, (0, seq_frames * hop + 1 - len(seg)))
+                xs.append(seg[:-1])
+                ys.append(seg[1:])
+            if xs:
+                yield (np.stack(xs).astype(np.float32),
+                       np.stack(ys).astype(np.float32),
+                       np.stack(ms).astype(np.float32))

@@ -1,14 +1,15 @@
-"""AutoVC generator training (counterpart of ``autovc_tpu/train/loop.py``'s
-``ema_update``, ``make_ae_step`` and ``train_autoencoder``).
+"""Training loops (counterpart of ``autovc_tpu/train/loop.py``'s
+``ema_update``, ``make_ae_step``, ``train_autoencoder``, ``make_vocoder_step``
+and ``train_vocoder``).
 
-The JAX step is a pure jitted function; here it runs eagerly and updates
+The JAX steps are pure jitted functions; here they run eagerly and update
 in place: the parameters and the optimizer moments (under ``no_grad``),
 the BatchNorm running statistics (inside the forward, see
-:func:`autovc_tpu_torch.ops.conv.batchnorm1d`) and the EMA.  The step
-returns the same trees it was given, so the JAX signatures hold.  As in
+:func:`autovc_tpu_torch.ops.conv.batchnorm1d`) and the EMA.  The steps
+return the same trees they were given, so the JAX signatures hold.  As in
 the JAX package the optimizer sees every leaf of the tree, BatchNorm
 statistics included (their gradient is zero, so Adam leaves them where
-the forward put them), and the EMA covers the whole tree.
+the forward put them), and the AutoVC EMA covers the whole tree.
 """
 from __future__ import annotations
 
@@ -17,10 +18,13 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from autovc_tpu_torch.config import AutoEncoderConfig
+from autovc_tpu_torch.config import (AutoEncoderConfig, OptimizerConfig,
+                                     WaveRNNConfig)
+from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.train import schedules
 from autovc_tpu_torch.utils import (close_progbar, progbar, tree_clone,
                                     tree_leaves)
+from autovc_tpu_torch.utils.bridge import from_jax_params
 
 
 @torch.no_grad()
@@ -29,6 +33,29 @@ def ema_update(ema, params, decay: float):
     for e, p in zip(tree_leaves(ema), tree_leaves(params)):
         e.copy_(decay * e + (1.0 - decay) * p)
     return ema
+
+
+def _value_and_grads(params, fn):
+    """``fn(params)`` (a scalar tensor) and its gradient with respect to
+    every leaf of ``params`` (``tree_leaves`` order; zeros for the leaves
+    it does not reach, such as the BatchNorm statistics)."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        value = fn(params)
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return value, [torch.zeros_like(p) if g is None else g
+                   for g, p in zip(grads, leaves)]
+
+
+def _on_device(params, *arrays):
+    dev = tree_leaves(params)[0].device
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in arrays]
 
 
 def loss_and_grads(params, x, c_org, cfg: AutoEncoderConfig,
@@ -40,20 +67,15 @@ def loss_and_grads(params, x, c_org, cfg: AutoEncoderConfig,
     (aux of detached device scalars, gradients)."""
     from autovc_tpu_torch.models import autoencoder as AE
 
-    leaves = tree_leaves(params)
-    dev = leaves[0].device
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    c_org = torch.as_tensor(c_org, dtype=torch.float32, device=dev)
-    for p in leaves:
-        p.requires_grad_(True)
-    try:
-        total, aux = AE.loss(params, x, c_org, cfg, mode=precision)
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    finally:
-        for p in leaves:
-            p.requires_grad_(False)
-    grads = [torch.zeros_like(p) if g is None else g
-             for g, p in zip(grads, leaves)]
+    x, c_org = _on_device(params, x, c_org)
+    aux = {}
+
+    def total(p):
+        value, out = AE.loss(p, x, c_org, cfg, mode=precision)
+        aux.update(out)
+        return value
+
+    _, grads = _value_and_grads(params, total)
     return {k: v.detach() for k, v in aux.items()}, grads
 
 
@@ -77,19 +99,32 @@ def make_ae_step(cfg: AutoEncoderConfig, tx: schedules.Optimizer,
     return step
 
 
+def _adam_state(saved):
+    """The Adam state ``{count, mu, nu}`` inside a saved optimizer state:
+    the port's own dict, or the JAX package's optax chain (a tuple of
+    states, one of them Adam's, with ``mu``/``nu`` parameter trees)."""
+    if isinstance(saved, dict):
+        return saved if {"count", "mu", "nu"} <= set(saved) else None
+    if isinstance(saved, (list, tuple)):
+        for s in saved:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
 def _restore(blob, params, opt_state):
-    """Parameters, EMA and optimizer state from a checkpoint payload, on
-    the device of ``params``."""
-    from autovc_tpu_torch.utils.bridge import from_jax_params
+    """Parameters, EMA and optimizer state from a checkpoint payload of
+    either package, on the device of ``params``."""
     dev = tree_leaves(params)[0].device
     params = from_jax_params(blob["params"], dev, torch.float32)
     ema = (from_jax_params(blob["ema_params"], dev, torch.float32)
            if "ema_params" in blob else tree_clone(params))
-    saved = blob.get("opt_state")
-    if isinstance(saved, dict) and {"count", "mu", "nu"} <= set(saved):
-        opt_state = {"count": int(saved["count"]),
-                     "mu": from_jax_params(saved["mu"], dev, torch.float32),
-                     "nu": from_jax_params(saved["nu"], dev, torch.float32)}
+    adam = _adam_state(blob.get("opt_state"))
+    if adam is not None:
+        opt_state = {"count": int(adam["count"]), **{
+            k: tree_leaves(from_jax_params(adam[k], dev, torch.float32))
+            for k in ("mu", "nu")}}
     return params, ema, opt_state
 
 
@@ -182,3 +217,98 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
     if verbose:
         close_progbar()
     return params, ema, {"step": step, "opt_state": opt_state}
+
+
+def vocoder_loss_and_grads(params, x_in, y, mels, cfg: WaveRNNConfig,
+                           precision: str):
+    """``WR.loss`` in training mode and its gradient with respect to every
+    leaf of ``params``; the batch (numpy arrays or tensors) goes to the
+    parameters' device.  Returns (detached device loss, gradients)."""
+    from autovc_tpu_torch.models import wavernn as WR
+
+    x_in, y, mels = _on_device(params, x_in, y, mels)
+    value, grads = _value_and_grads(params, lambda p: WR.loss(
+        p, x_in, y, mels, cfg, train=True, mode=precision))
+    return value.detach(), grads
+
+
+def make_vocoder_step(cfg: WaveRNNConfig, tx: schedules.Optimizer,
+                      precision: str = "bf16") -> Callable:
+    """WaveRNN train step: ``step(params, opt_state, x_in, y, mels) ->
+    (params, opt_state, aux)``, aux carrying ``loss`` and ``grad_norm``
+    (before clipping) as device scalars.  ``precision`` is the matmul /
+    recurrence policy; parameters, gradients and Adam moments stay f32."""
+
+    def step(params, opt_state, x_in, y, mels):
+        loss, grads = vocoder_loss_and_grads(params, x_in, y, mels, cfg,
+                                             precision)
+        grad_norm = tx.step(tree_leaves(params), grads, opt_state)
+        return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
+
+    return step
+
+
+def train_vocoder(params, dataset, cfg: WaveRNNConfig,
+                  n_epochs: int = 1, batch_size: int = 8,
+                  steps_per_epoch: int = 50, seq_frames: int = 9,
+                  lr: float = 1e-4, log_freq: int = 10,
+                  model_name: str | None = None,
+                  save_dir: str | None = None, logger=None,
+                  verbose: bool = True, start_step: int = 0,
+                  resume: bool = False, mesh=None):
+    """WaveRNN teacher-forced training, bf16 policy, Adam at a constant
+    ``lr`` with global-norm clip 4.  Returns (params, info-dict).
+
+    The loss stays on the device and is pulled to the host only at the
+    steps that log it (every ``log_freq``-th).  With ``model_name`` the
+    loop saves ``{step, params, opt_state}`` after each epoch;
+    ``resume=True`` restores them from the newest checkpoint in
+    ``save_dir`` (the JAX package's vocoder checkpoints too).  ``mesh``
+    (the data-parallel loop) is not ported."""
+    if mesh is not None:
+        raise NotImplementedError("the data-parallel training loop (mesh=) "
+                                  "is not ported yet (ROADMAP, Next)")
+    oc = OptimizerConfig(lr=lr, lr_scheduler="constant", grad_clip_norm=4.0)
+    tx = schedules.make_optimizer(oc, steps_per_epoch)
+    opt_state = tx.init(tree_leaves(params))
+    save_dir = save_dir or cfg.model_dir
+    if resume:
+        from autovc_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                       load_checkpoint)
+        latest = latest_checkpoint(save_dir)
+        if latest is not None:
+            blob = load_checkpoint(latest)
+            params, _, opt_state = _restore(blob, params, opt_state)
+            start_step = int(blob.get("step", start_step) or 0)
+            if verbose:
+                print(f"Resumed from '{latest}' at step {start_step}")
+    if tree_leaves(params)[0].device.type == "cuda":
+        PREC.exact_f32()
+
+    step_fn = make_vocoder_step(cfg, tx)
+    step = start_step
+    n_total = n_epochs * steps_per_epoch
+    for epoch in range(1, n_epochs + 1):
+        for x_in, y, mels in dataset.batches(batch_size, seq_frames,
+                                             n_batches=steps_per_epoch,
+                                             seed=epoch):
+            params, opt_state, aux = step_fn(params, opt_state, x_in, y,
+                                             mels)
+            step += 1
+            log_now = step % max(log_freq, 1) == 0
+            if verbose:
+                progbar(step - start_step, n_total,
+                        {"loss": round(float(aux["loss"]), 4)}
+                        if log_now else {})
+            if logger is not None and log_now:
+                logger.log({"loss": float(aux["loss"]),
+                            "grad_norm": float(aux["grad_norm"]),
+                            "epoch": epoch, "step": step}, step=step)
+        if model_name:
+            from autovc_tpu_torch.utils.checkpoint import save_checkpoint
+            save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
+                            {"step": step, "params": params,
+                             "opt_state": opt_state})
+    if verbose:
+        close_progbar()
+    return params, {"step": step, "opt_state": opt_state}

@@ -1,7 +1,7 @@
 """VoiceConverter (counterpart of ``autovc_tpu/voice_converter.py``):
 ``__init__``, ``_embed``, ``_speaker_embedding``, ``convert`` on its
-``cut=True`` path, ``train`` (the AutoVC generator), ``setup_logging`` and
-``save``.
+``cut=True`` path, ``train`` (the AutoVC generator and the vocoder),
+``setup_logging`` and ``save``.
 
 ``convert`` runs the JAX package's fused accelerator chain
 (``_fused_convert``): host preprocessing and slice geometry, then on the
@@ -254,17 +254,24 @@ class VoiceConverter:
         return audio_out
 
     def train(self, data_path, model_type: str = "auto_encoder", **kwargs):
-        """Train one of the models (``autovc_tpu.train.train_model``); only
-        ``model_type="auto_encoder"`` is ported.  Runs on the converter's
-        device; the kernels' packed lstm2 weights are rebuilt afterwards."""
+        """Train one of the models (``autovc_tpu.train.train_model``):
+        ``"auto_encoder"`` or ``"vocoder"`` (``"speaker_encoder"`` is not
+        ported).  Runs on the converter's device; the kernels' packed
+        weights of the trained model (lstm2's, the sampling loop's) are
+        rebuilt afterwards, so ``convert`` samples with them."""
         from autovc_tpu_torch import train as train_mod
         if model_type not in ("auto_encoder", "speaker_encoder", "vocoder"):
             raise ValueError(f"'{model_type}' is not a supported model_type")
         self.setup_logging()
         info = train_mod.train_model(self, model_type, data_path, **kwargs)
         with torch.no_grad():
-            self._lstm2_packed = LK.pack(self.AE.params["decoder"]["lstm2"],
-                                         self.ae_precision)
+            if model_type == "auto_encoder":
+                self._lstm2_packed = LK.pack(
+                    self.AE.params["decoder"]["lstm2"], self.ae_precision)
+            else:
+                self._vocoder_packed = WK.pack_weights(
+                    self.vocoder.params, self.vocoder.config,
+                    self.vocoder_precision == "bf16")
         return info
 
     def setup_logging(self, **params) -> MetricsLogger:

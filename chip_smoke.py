@@ -10,7 +10,9 @@ Phases (any failure exits non-zero):
      same inputs and noise, at full model width: the inference kernels
      1-3, and the training kernels 6 (forward) and 7 (backward) at the
      decoder's lstm2 (f32 and bf16) and lstm1 geometries and the speaker
-     encoder's;
+     encoder's, and the GRU-pair training kernels 4 (forward) and 5
+     (backward) at the vocoder's geometry (f32 and bf16, 8 x 2475) and the
+     JAX bench's (bf16, 32 x 1375);
   4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
      seeded weights) converts a ~4 s wav (decoder lstm2 through kernel 2)
      and a ~24 s wav (9 mel chunks: kernel 3), with every kernel's launch
@@ -21,7 +23,12 @@ Phases (any failure exits non-zero):
      generator on synthetic wavs, bf16, batch 16 x 400 frames, at least 8
      steps (kernels 6 and 7 twice a step each), with the loss falling;
      one step profiled (device idle share, kernel time); then one f32
-     full-width step on the card against the same step on the CPU.
+     full-width step on the card against the same step on the CPU;
+  6. end to end, vocoder training: ``VoiceConverter().train(...,
+     model_type="vocoder")`` on synthetic wavs, bf16, batch 8 x 9 frames
+     (2475 samples a row), 16 steps (kernels 4 and 5 once a step each),
+     with the loss falling; one step profiled; then one f32 full-width
+     step on the card against the same step on the CPU.
 It prints one JSON line per comparison, then the per-kernel summary line,
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
@@ -36,6 +43,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -45,10 +53,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from autovc_tpu_torch import Audio, VoiceConverter  # noqa: E402
 from autovc_tpu_torch.audio import dsp, io as audio_io  # noqa: E402
 from autovc_tpu_torch.config import (AutoEncoderConfig,  # noqa: E402
-                                     WaveRNNConfig)
+                                     OptimizerConfig, WaveRNNConfig)
 from autovc_tpu_torch.models import autoencoder as AE  # noqa: E402
 from autovc_tpu_torch.models import wavernn as WR  # noqa: E402
 from autovc_tpu_torch.ops import _build  # noqa: E402
+from autovc_tpu_torch.ops import gru_train_kernels as GT  # noqa: E402
 from autovc_tpu_torch.ops import lstm_kernels as LK  # noqa: E402
 from autovc_tpu_torch.ops import lstm_train_kernels as LT  # noqa: E402
 from autovc_tpu_torch.ops import precision as PREC  # noqa: E402
@@ -80,9 +89,16 @@ KERNELS = {
     "lstm_train_bwd": dict(
         kernel=LT.BWD, source="autovc_tpu_torch/csrc/lstm_train.cu",
         replaces="autovc_tpu/ops/lstm_train_pallas.py:434"),
+    "gru_train_fwd": dict(
+        kernel=GT.FWD, source="autovc_tpu_torch/csrc/gru_train.cu",
+        replaces="autovc_tpu/ops/gru_train_pallas.py:357"),
+    "gru_train_bwd": dict(
+        kernel=GT.BWD, source="autovc_tpu_torch/csrc/gru_train.cu",
+        replaces="autovc_tpu/ops/gru_train_pallas.py:429"),
 }
 CONVERT_KERNELS = ("wavernn_sample", "lstm_stack_skewed", "lstm_stack_stream")
 TRAIN_KERNELS = ("lstm_train_fwd", "lstm_train_bwd")
+VOCODER_KERNELS = ("gru_train_fwd", "gru_train_bwd")
 
 
 def log(obj) -> None:
@@ -270,6 +286,102 @@ def compare_lstm_train(geom: str, L: int, H: int, I: int, rows: int, T: int,
            "bwd": {"max_abs_err": bwd_err, "err_over_bar": bwd_ratio,
                    "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": lib_bwd,
                    "bound_ms": b_ms, "bound_by": b_by},
+           "tolerance": ("bf16: max err / max|ref| <= 2e-2" if bf16 else
+                         "f32: forward atol 1e-5, gradients 1e-4 of max|ref|"),
+           "ok": True}
+    log(res)
+    return res
+
+
+def compare_gru_train(rows: int, T: int, dtype, gen, dev) -> dict:
+    """Kernels 4 and 5 against their plain versions on the same inputs, at
+    the vocoder's width (H = rd = 512): weights from the GRU init, xp1 and
+    base2 ~ N(0, 0.5^2), cotangents on h1 and h2 ~ N(0, 1); kernel 5 runs
+    on the plain forward's saved state.  Bars, written before the first
+    run: f32 forward atol 1e-5 and each gradient within 1e-4 of its max
+    |ref|; bf16 within 2e-2 of max |ref|, as kernels 6/7.  Timed against
+    two cuDNN ``torch.gru`` calls (layer 1 over xI, then layer 2 over
+    [x1, a2], with their input projections), forward and autograd
+    backward (``library_ms``; the port never calls them)."""
+    H, aux = 512, 32
+    mode = "bf16" if dtype == torch.bfloat16 else "f32"
+    if PREC.rec_dtype(mode, rows, H) != dtype:
+        raise ValueError(f"{rows} rows at H={H} do not run {dtype} kernels")
+    p1, p2 = (from_jax_params(R.init_gru_layer(gen, n, H), dev)
+              for n in (H, H + aux))
+    xp1, base2 = (0.5 * torch.randn(T, rows, 3 * H, generator=gen)).to(dev), \
+        (0.5 * torch.randn(T, rows, 3 * H, generator=gen)).to(dev)
+    whh1, wih2x, whh2 = p1["w_hh"], p2["w_ih"][:H], p2["w_hh"]
+    bhh1, bhh2 = p1["b_hh"], p2["b_hh"]
+    wf = GT.pack_fwd(whh1, wih2x, whh2, dtype)
+    wb = GT.pack_bwd(whh1, wih2x, whh2, dtype)
+    cts = tuple(torch.randn(T, rows, H, generator=gen).to(dev)
+                for _ in range(2))
+    bf16 = dtype == torch.bfloat16
+    info = dict(geometry="wavernn", dtype=str(dtype), H=H, rows=rows, T=T)
+    out = GT.fwd_launch(xp1, base2, *wf, bhh1, bhh2)
+    ref = GT.gru_pair_fwd_plain(xp1, base2, *wf, bhh1, bhh2)
+    fwd_ratio = held("gru_train_fwd", out, ref,
+                     (lambda s: 2e-2 * s) if bf16 else (lambda s: 1e-5),
+                     **info)
+    fwd_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(out, ref))
+    saved = (ref[1], ref[0])
+    got = GT.bwd_launch(*saved, *cts, *wb)
+    want = GT.gru_pair_bwd_plain(*saved, *cts, *wb)
+    bwd_ratio = held("gru_train_bwd", got, want,
+                     (lambda s: 2e-2 * s) if bf16 else (lambda s: 1e-4 * s),
+                     **info)
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+    fwd_ms = timed_ms(lambda: GT.fwd_launch(xp1, base2, *wf, bhh1, bhh2), 3)
+    bwd_ms = timed_ms(lambda: GT.bwd_launch(*saved, *cts, *wb), 3)
+    fwd_plain = timed_ms(lambda: GT.gru_pair_fwd_plain(xp1, base2, *wf, bhh1,
+                                                       bhh2), 1)
+    bwd_plain = timed_ms(lambda: GT.gru_pair_bwd_plain(*saved, *cts, *wb), 1)
+    # two cuDNN GRU calls in the working dtype; backward through autograd
+    # to their inputs and every weight
+    lib = [[t.to(dtype).contiguous().requires_grad_(True)
+            for t in (p["w_ih"].T, p["w_hh"].T, p["b_ih"], p["b_hh"])]
+           for p in (p1, p2)]
+    xI = (0.5 * torch.randn(T, rows, H, generator=gen)).to(dev, dtype)
+    a2 = (0.5 * torch.randn(T, rows, aux, generator=gen)).to(dev, dtype)
+    xI.requires_grad_(True)
+    h0 = torch.zeros(1, rows, H, device=dev, dtype=dtype)
+
+    def two_grus():
+        with warnings.catch_warnings():
+            # cuDNN compacts the per-call weight list (timed as it is)
+            warnings.filterwarnings("ignore", "RNN module weights")
+            h1, _ = torch.gru(xI, h0, lib[0], True, 1, 0.0, True, False,
+                              False)
+            x1 = h1 + xI
+            h2, _ = torch.gru(torch.cat([x1, a2], dim=-1), h0, lib[1], True,
+                              1, 0.0, True, False, False)
+        return h1, h2
+
+    with torch.no_grad():
+        lib_fwd = timed_ms(two_grus, 3)
+    h1_lib, h2_lib = two_grus()
+    leaves = [xI] + [w for ws in lib for w in ws]
+    lib_bwd = timed_ms(lambda: torch.autograd.grad(
+        (h1_lib, h2_lib), leaves, tuple(c.to(dtype) for c in cts),
+        retain_graph=True), 3)
+
+    ops_seq = 2.0 * T * rows * 3 * H * 3 * H   # three (H, 3H) products
+    f_ms, f_by = bound(nbytes(xp1, base2, *wf, bhh1, bhh2, *out), ops_seq,
+                       dtype)
+    b_ms, b_by = bound(nbytes(*saved, *cts, *wb, *got), 2 * ops_seq, dtype)
+    res = {"phase": "compare", "kernel": "gru_train", **info,
+           "fwd": {"max_abs_err": fwd_err, "err_over_bar": fwd_ratio,
+                   "ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": lib_fwd,
+                   "bound_ms": f_ms, "bound_by": f_by},
+           "bwd": {"max_abs_err": bwd_err, "err_over_bar": bwd_ratio,
+                   "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": lib_bwd,
+                   "bound_ms": b_ms, "bound_by": b_by},
+           "library": "two cuDNN torch.gru calls (layer 1, layer 2 over "
+                      "[x1, a2]) with their input projections",
            "tolerance": ("bf16: max err / max|ref| <= 2e-2" if bf16 else
                          "f32: forward atol 1e-5, gradients 1e-4 of max|ref|"),
            "ok": True}
@@ -656,13 +768,6 @@ def phase_train(card: str, steps_min: int = 8) -> dict:
     return counts
 
 
-def _loss_grads(params, x, c, cfg):
-    """f32 ``AE.loss`` in training mode and its gradient for every leaf
-    (on the host), from a copy of ``params`` (the BN statistics move)."""
-    aux, grads = TRL.loss_and_grads(tree_clone(params), x, c, cfg, "f32")
-    return float(aux["loss"]), [g.cpu() for g in grads]
-
-
 def leaf_names(tree, path="") -> list[str]:
     """Leaf paths of a parameter tree in ``tree_leaves`` order."""
     if isinstance(tree, dict):
@@ -674,47 +779,46 @@ def leaf_names(tree, path="") -> list[str]:
     return [path.lstrip("/")]
 
 
-def phase_train_f32_vs_cpu(card: str) -> dict:
-    """One f32 full-width training step's loss and gradients (batch 4 x 400
-    frames) on the card (kernels 6 and 7) against the same step on the CPU
-    (their plain versions), from the same weights:
+def hold_f32_step(phase: str, grads_of, params_cpu, arrays, perturbed,
+                  zero_grad, card: str, **info) -> dict:
+    """One f32 full-width training step's loss and gradients on the card
+    (the kernels) against the same step on the CPU (their plain versions),
+    from the same weights.  ``grads_of(params, *arrays)`` gives (loss, host
+    gradients) from a copy of ``params`` (the BN statistics move), on the
+    batch ``arrays``.  Bars:
       * the loss: relative 1e-4;
       * each gradient leaf: its relative L2 error ``|a - b| / |b|`` at most
-        1e-3, or at most the CPU's own relative L2 change when the batch is
-        perturbed by 1e-5 relative (the larger of two draws), whichever is
-        larger.  The AE's f32 gradients are ill-conditioned at this batch:
+        1e-3, or at most the CPU's own relative L2 change when the
+        arrays at ``perturbed`` are scaled by 1 + 1e-5 N(0, 1) (the larger
+        of two draws), whichever is larger.  f32 training gradients through
         train-mode batch-norms (one-pass variance, as in the JAX package)
-        and the encoder re-run of the content term amplify rounding, so a
-        change of summation order anywhere moves every leaf by about a
-        part in a thousand, and the largest element of a leaf by up to a
-        few percent of its max |ref|: a max-abs bar of 1e-3 of max |ref|
-        fails the CPU against itself under a 1e-6 perturbation;
-      * the conv biases that feed a batch-norm have an analytically zero
-        gradient (rounding noise on both sides): both below 1e-5 of the
-        largest gradient; the BN running statistics get none."""
-    cfg = AutoEncoderConfig()
-    params_cpu = AE.init(torch.Generator().manual_seed(11), cfg)
+        are ill-conditioned at small batches: a change of summation order
+        anywhere moves every leaf by about a part in a thousand, and the
+        largest element of a leaf by up to a few percent of its max |ref|,
+        so a max-abs bar of 1e-3 of max |ref| fails the CPU against itself
+        under a 1e-6 perturbation;
+      * BN running statistics get no gradient; the leaves named by
+        ``zero_grad`` (conv biases that feed a batch-norm) have an
+        analytically zero gradient: both sides below 1e-5 of the largest
+        gradient."""
     params_gpu = from_jax_params(params_cpu, torch.device("cuda"))
-    rng = np.random.default_rng(12)
-    x = rng.random((4, 80, 400), dtype=np.float32)
-    c = rng.standard_normal((4, 256)).astype(np.float32)
-    c /= np.linalg.norm(c, axis=1, keepdims=True)
     t0 = time.perf_counter()
-    loss_g, grads_g = _loss_grads(params_gpu, x, c, cfg)
+    loss_g, grads_g = grads_of(params_gpu, *arrays)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    loss_c, grads_c = _loss_grads(params_cpu, x, c, cfg)
+    loss_c, grads_c = grads_of(params_cpu, *arrays)
     cpu_s = time.perf_counter() - t0
 
     def rel_l2(a, b):
         return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
+    rng = np.random.default_rng(13)
     spread = [0.0] * len(grads_c)
     for _ in range(2):
-        shaken = (x * (1 + 1e-5 * rng.standard_normal(x.shape))).astype(
-            np.float32)
-        _, grads_s = _loss_grads(params_cpu, shaken, c, cfg)
+        shaken = [(a * (1 + 1e-5 * rng.standard_normal(a.shape))).astype(
+            np.float32) if i in perturbed else a for i, a in enumerate(arrays)]
+        _, grads_s = grads_of(params_cpu, *shaken)
         spread = [max(s, rel_l2(g, r))
                   for s, g, r in zip(spread, grads_s, grads_c)]
     noise = 1e-5 * max(float(g.abs().max()) for g in grads_c)
@@ -722,11 +826,11 @@ def phase_train_f32_vs_cpu(card: str) -> dict:
     for name, a, b, s in zip(leaf_names(params_cpu), grads_g, grads_c,
                              spread):
         scale = float(b.abs().max())
-        if name.endswith("/bn/mean") or name.endswith("/bn/var"):
+        if name.endswith("/mean") or name.endswith("/var"):
             if scale or float(a.abs().max()):
                 failed.append(f"{name}: running statistic has a gradient")
             continue
-        if name.endswith("/conv/b"):
+        if zero_grad(name):
             if max(float(a.abs().max()), scale) > noise:
                 failed.append(f"{name}: gradient not ~0")
             continue
@@ -741,7 +845,7 @@ def phase_train_f32_vs_cpu(card: str) -> dict:
     loss_rel = abs(loss_g - loss_c) / abs(loss_c)
     if loss_rel > 1e-4:
         failed.append(f"loss rel err {loss_rel:.3g}")
-    res = {"phase": "train_f32_card_vs_cpu", "batch": [4, 80, 400],
+    res = {"phase": phase, **info,
            "loss_card": loss_g, "loss_cpu": loss_c, "loss_rel_err": loss_rel,
            "grads_max_rel_l2": max_err, "grads_worst_leaf": worst_leaf,
            "grads_worst_err_over_bar": worst,
@@ -754,6 +858,136 @@ def phase_train_f32_vs_cpu(card: str) -> dict:
     if failed:
         raise AssertionError(f"f32 card step disagrees with the CPU: {res}")
     return res
+
+
+def phase_train_f32_vs_cpu(card: str) -> dict:
+    """The AutoVC generator's f32 step (batch 4 x 400 frames; kernels 6 and
+    7 on the card) held against the CPU's by :func:`hold_f32_step`, the
+    mel batch perturbed; the conv biases before a batch-norm have zero
+    gradient."""
+    cfg = AutoEncoderConfig()
+    rng = np.random.default_rng(12)
+    x = rng.random((4, 80, 400), dtype=np.float32)
+    c = rng.standard_normal((4, 256)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+
+    def grads_of(params, x, c):
+        aux, grads = TRL.loss_and_grads(tree_clone(params), x, c, cfg, "f32")
+        return float(aux["loss"]), [g.cpu() for g in grads]
+
+    return hold_f32_step(
+        "train_f32_card_vs_cpu", grads_of,
+        AE.init(torch.Generator().manual_seed(11), cfg), (x, c), (0,),
+        lambda name: name.endswith("/conv/b"), card, batch=[4, 80, 400])
+
+
+def phase_vocoder_train(card: str, steps: int = 16) -> dict:
+    """``VoiceConverter().train(..., model_type="vocoder")`` at the default
+    config (rnn / fc 512, MOL, 10 res blocks; bf16) and the JAX loop's
+    defaults (batch 8 x 9 frames = 2475 samples a row, lr 1e-4, constant,
+    clip 4) on synthetic wavs, 2 epochs of ``steps / 2``: every loss
+    finite, the mean of the last two below the first, kernels 4 and 5
+    launched once a step each.  Then one step of the same step function
+    profiled (device idle share, kernels 4/5's share of device time)."""
+    sr = 22050
+    vc = VoiceConverter(verbose=False)
+    clock = StepClock()
+    vc.logger = clock
+    batch, frames = 8, 9
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(8):
+            audio_io.save_wav(os.path.join(tmp, f"voice{i}.wav"),
+                              synthetic_wav(3.0, sr, 200 + i), sr)
+        for name in VOCODER_KERNELS:
+            KERNELS[name]["kernel"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = vc.train(tmp, model_type="vocoder", n_epochs=2,
+                        steps_per_epoch=steps // 2, batch_size=batch,
+                        seq_frames=frames, log_freq=1, model_name="")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {n: KERNELS[n]["kernel"].launches for n in VOCODER_KERNELS}
+    n_steps = info["step"]
+    losses = [m["loss"] for _, m in clock.records]
+    times = [t for t, _ in clock.records]
+    step_s = statistics.median(b - a for a, b in zip(times, times[1:]))
+    samples = batch * frames * vc.vocoder.config.hop_length
+    ok = (n_steps == steps and len(losses) == steps
+          and all(math.isfinite(v) for v in losses)
+          and (losses[-1] + losses[-2]) / 2 < losses[0]
+          and all(c == steps for c in counts.values()))
+
+    # one more step of the same step function, profiled (a random batch of
+    # the same shape; the first call warms up)
+    cfg = vc.vocoder.config
+    tx = TRS.make_optimizer(OptimizerConfig(
+        lr=1e-4, lr_scheduler="constant", grad_clip_norm=4.0), 1)
+    step_fn = TRL.make_vocoder_step(cfg, tx)
+    params = vc.vocoder.params
+    opt_state = tx.init(tree_leaves(params))
+    g = torch.Generator().manual_seed(4)
+    x = (0.3 * torch.randn(batch, samples // batch, generator=g)).clamp(-1, 1)
+    y = torch.roll(x, -1, 1)
+    mels = torch.rand(batch, 80, frames + 2 * cfg.pad, generator=g)
+    x, y, mels = x.cuda(), y.cuda(), mels.cuda()
+    step_fn(params, opt_state, x, y, mels)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        step_fn(params, opt_state, x, y, mels)
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = device_busy(prof)
+    kernel_ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for tag in ("gru_train_fwd_kernel", "gru_train_bwd_kernel",
+                        "dw_bf16_kernel"):
+                if tag in e.name:
+                    kernel_ms[tag] = kernel_ms.get(tag, 0.0) + \
+                        e.time_range.elapsed_us() / 1e3
+    res = {"phase": "vocoder_train", "steps": n_steps, "epochs": 2,
+           "batch": [batch, frames, samples // batch], "precision": "bf16",
+           "losses": losses, "launches": counts, "wall_s": wall,
+           "median_step_s": step_s, "samples_per_s": samples / step_s,
+           "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / prof_ms,
+           "device_idle_share_of_median_step":
+               1.0 - busy_ms / (step_s * 1e3),
+           "device_ms_by_kernel": top, "gru_kernel_ms": kernel_ms,
+           "gru_kernel_share_of_busy": sum(kernel_ms.values()) / busy_ms,
+           "card": card, "ok": ok}
+    log(res)
+    if not ok:
+        raise AssertionError(f"vocoder training phase failed: {res}")
+    return counts
+
+
+def phase_vocoder_f32_vs_cpu(card: str) -> dict:
+    """The vocoder's f32 step at full width (batch 2 x 3 frames, 825
+    samples a row: small enough for the CPU's plain GRU loop; kernels 4
+    and 5 on the card) held against the CPU's by :func:`hold_f32_step`,
+    the teacher-forced samples and the mels perturbed."""
+    cfg = WaveRNNConfig()
+    rng = np.random.default_rng(14)
+    frames = 3
+    T = frames * cfg.hop_length
+    x = np.clip(0.3 * rng.standard_normal((2, T)), -1, 1).astype(np.float32)
+    y = np.roll(x, -1, 1)
+    mels = rng.random((2, 80, frames + 2 * cfg.pad), dtype=np.float32)
+
+    def grads_of(params, x, y, mels):
+        loss, grads = TRL.vocoder_loss_and_grads(tree_clone(params), x, y,
+                                                 mels, cfg, "f32")
+        return float(loss), [g.cpu() for g in grads]
+
+    return hold_f32_step(
+        "vocoder_f32_card_vs_cpu", grads_of,
+        WR.init(torch.Generator().manual_seed(15), cfg), (x, y, mels), (0, 2),
+        lambda name: False, card, batch=[2, frames, T])
 
 
 def main() -> int:
@@ -784,10 +1018,17 @@ def main() -> int:
                        dev)
     compare_lstm_train("speaker_encoder", 3, 256, 40, 48, 160,
                        torch.bfloat16, gen, dev, cotangents="h_fin")
+    # kernels 4 and 5 at the vocoder's training geometry, f32 and bf16
+    # (the summary's), and the JAX bench's
+    compare_gru_train(8, 9 * 275, torch.float32, gen, dev)
+    k45 = compare_gru_train(8, 9 * 275, torch.bfloat16, gen, dev)
+    compare_gru_train(32, 5 * 275, torch.bfloat16, gen, dev)
     k1 = compare_wavernn(gen, dev)
     launches = phase_end_to_end(card)
     launches.update(phase_train(card))
     phase_train_f32_vs_cpu(card)
+    launches.update(phase_vocoder_train(card))
+    phase_vocoder_f32_vs_cpu(card)
 
     def entry(name, cmp, err):
         return {"name": name, "route": "cuda",
@@ -802,6 +1043,8 @@ def main() -> int:
         entry("wavernn_sample", k1, k1["max_abs_err"]),
         entry("lstm_stack_skewed", k2, k2["max_abs_err"]),
         entry("lstm_stack_stream", k3, k3["max_abs_err"]),
+        entry("gru_train_fwd", k45["fwd"], k45["fwd"]["max_abs_err"]),
+        entry("gru_train_bwd", k45["bwd"], k45["bwd"]["max_abs_err"]),
         entry("lstm_train_fwd", k67["fwd"], k67["fwd"]["max_abs_err"]),
         entry("lstm_train_bwd", k67["bwd"], k67["bwd"]["max_abs_err"])]}
     for e in summary["kernels"]:

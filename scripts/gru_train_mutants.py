@@ -1,0 +1,56 @@
+"""Mutation check of the GRU-pair training kernels (kernels 4 and 5).
+
+    python3 scripts/gru_train_mutants.py         # from the repository root
+
+Needs an NVIDIA GPU and nvcc.  As ``scripts/lstm_train_mutants.py`` (whose
+runner it uses): for each mutant the port is copied into a temporary
+directory, one edit is made to the copy's ``csrc/gru_train.cu``, and a
+subprocess holds the mutated kernels against their plain versions with
+``chip_smoke.compare_gru_train`` at the smoke run's three geometries (f32
+and bf16 at 8 x 2475, bf16 at 32 x 1375).  The first "mutant" is an
+unmutated copy.  Prints one JSON line per mutant: each geometry's "pass"
+or the first failure's message.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from lstm_train_mutants import main  # noqa: E402
+
+SOURCE = os.path.join("autovc_tpu_torch", "csrc", "gru_train.cu")
+
+# name -> (text in gru_train.cu, its replacement)
+MUTANTS = {
+    "none": ("", ""),
+    # layer 1's saved hn without b_hn (the reset product's bias)
+    "hn_without_bhh": ("store_cs(act + 3 * H, hp1[2]);",
+                       "store_cs(act + 3 * H, "
+                       "hp1[2] - __ldg(a.bhh1 + 2 * H + j));"),
+    # the carried dh of both layers drops its dh z term
+    "dh_next_without_dh_z": ("  return dh * z;\n}", "  return 0.0f;\n}"),
+    # dW_ih2x from h1_{t-1} instead of h1_t
+    "dwih2x_from_h1_prev": ("{hs, dxp2, dwih2x, nullptr, nullptr, M, N, K, 0,",
+                            "{hs, dxp2, dwih2x, nullptr, nullptr, M, N, K, B,"),
+}
+
+CHECK = """
+import json, torch
+import chip_smoke as S
+S.PREC.exact_f32()
+gen, dev, out = torch.Generator().manual_seed(0), torch.device("cuda"), {}
+for rows, T, dtype in ((8, 2475, torch.float32), (8, 2475, torch.bfloat16),
+                       (32, 1375, torch.bfloat16)):
+    key = f"{rows} x {T} {dtype}"
+    try:
+        S.compare_gru_train(rows, T, dtype, gen, dev)
+        out[key] = "pass"
+    except AssertionError as e:
+        out[key] = "FAIL: " + str(e).split("; {")[0]
+print("RESULT " + json.dumps(out))
+"""
+
+if __name__ == "__main__":
+    sys.exit(main(MUTANTS, SOURCE, CHECK))

@@ -30,8 +30,8 @@ MUTANTS = {
     "h_saved_bf16": ("store_cs(h_out + idx, h_new);",
                      "store_cs(h_out + idx, "
                      "__bfloat162float(__float2bfloat16_rn(h_new)));"),
-    "dwih_wrong_layer": ("return {a.hs + (l - 1) * TBH, a.da + l * TBH * 4",
-                         "return {a.hs + l * TBH, a.da + l * TBH * 4"),
+    "dwih_wrong_layer": ("push_back({hs + (l - 1) * TBH, da + l * TBH * 4",
+                         "push_back({hs + l * TBH, da + l * TBH * 4"),
     "dys_off_by_one": ("__ldg(a.dys + (size_t)(t - 1) * BH + idx)",
                        "__ldg(a.dys + (size_t)t * BH + idx)"),
 }
@@ -56,21 +56,25 @@ print("RESULT " + json.dumps(out))
 """
 
 
-def run(name: str, old: str, new: str, tmp: str) -> dict:
+def run(name: str, old: str, new: str, tmp: str, source: str = SOURCE,
+        check: str = CHECK) -> dict:
+    """One mutant: a copy of the port with ``old`` replaced by ``new`` in
+    ``source`` (once), checked by the script ``check`` in a subprocess,
+    which prints its result as a ``RESULT`` JSON line."""
     copy = os.path.join(tmp, name)
     shutil.copytree(os.path.join(ROOT, "autovc_tpu_torch"),
                     os.path.join(copy, "autovc_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), copy)
     if old:
-        path = os.path.join(copy, SOURCE)
+        path = os.path.join(copy, source)
         with open(path) as f:
             text = f.read()
         if text.count(old) != 1:
             raise RuntimeError(f"mutant {name}: the edit does not apply once")
         with open(path, "w") as f:
             f.write(text.replace(old, new))
-    proc = subprocess.run([sys.executable, "-c", CHECK], cwd=copy,
+    proc = subprocess.run([sys.executable, "-c", check], cwd=copy,
                           capture_output=True, text=True)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):
@@ -78,10 +82,11 @@ def run(name: str, old: str, new: str, tmp: str) -> dict:
     return {"error": (proc.stderr or proc.stdout)[-2000:]}
 
 
-def main() -> int:
+def main(mutants=MUTANTS, source: str = SOURCE, check: str = CHECK) -> int:
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (old, new) in MUTANTS.items():
-            print(json.dumps({"mutant": name, **run(name, old, new, tmp)}),
+        for name, (old, new) in mutants.items():
+            print(json.dumps({"mutant": name,
+                              **run(name, old, new, tmp, source, check)}),
                   flush=True)
     return 0
 

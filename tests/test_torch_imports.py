@@ -41,9 +41,13 @@ def test_port_imports_and_converts_without_jax():
         import importlib, pkgutil
         import numpy as np
         import autovc_tpu_torch
-        for m in pkgutil.walk_packages(autovc_tpu_torch.__path__,
-                                       "autovc_tpu_torch."):
-            importlib.import_module(m.name)
+        names = {m.name for m in pkgutil.walk_packages(
+            autovc_tpu_torch.__path__, "autovc_tpu_torch.")}
+        for name in sorted(names):
+            importlib.import_module(name)
+        assert {"autovc_tpu_torch.ops.gru_train_kernels",
+                "autovc_tpu_torch.ops.mol",
+                "autovc_tpu_torch.train.loop"} <= names, names
         from autovc_tpu_torch import Audio, ConverterConfig, VoiceConverter
         cfg = ConverterConfig().with_overrides(vocoder={
             "rnn_dims": 32, "fc_dims": 32,

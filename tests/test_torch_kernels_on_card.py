@@ -15,6 +15,7 @@ import torch
 
 from autovc_tpu_torch.config import WaveRNNConfig
 from autovc_tpu_torch.models import wavernn as WR
+from autovc_tpu_torch.ops import gru_train_kernels as GT
 from autovc_tpu_torch.ops import lstm_kernels as LK
 from autovc_tpu_torch.ops import lstm_train_kernels as LT
 from autovc_tpu_torch.ops import precision as PREC
@@ -114,6 +115,89 @@ def test_lstm_stack_train_runs_the_kernels(cuda_device):
         grads[str(dev)] = [v.grad.cpu() for lp in p for v in lp.values()]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _close(a, b, bar_of):
+    assert a.shape == b.shape
+    a, b = a.float(), b.float()
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    assert err <= bar_of(scale), (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,dtype", [
+    (3, 64, torch.float32), (11, 128, torch.float32),
+    (8, 512, torch.float32), (10, 256, torch.bfloat16),
+    (8, 512, torch.bfloat16)])
+def test_gru_train_kernels_match_plain(cuda_device, B, H, dtype):
+    """Kernels 4 and 5 against their plain versions, cotangents on h1 and
+    h2: f32 forward atol 1e-5 and each gradient within 1e-4 of its max
+    |ref| (dW sums T * B products in another order); bf16 within 2e-2 of
+    max |ref|.  B = 10, 11 take two row tiles."""
+    T = 13
+    gen = torch.Generator().manual_seed(B * 1000 + H)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(cuda_device)
+
+    xp1, base2 = rand(T, B, 3 * H), rand(T, B, 3 * H)
+    whh1, wih2x, whh2 = (rand(H, 3 * H, scale=H ** -0.5) for _ in range(3))
+    bhh1, bhh2 = rand(3 * H, scale=0.1), rand(3 * H, scale=0.1)
+    bf16 = dtype == torch.bfloat16
+    wf = GT.pack_fwd(whh1, wih2x, whh2, dtype)
+    out = GT.fwd_launch(xp1, base2, *wf, bhh1, bhh2)
+    ref = GT.gru_pair_fwd_plain(xp1, base2, *wf, bhh1, bhh2)
+    for a, b in zip(out, ref):
+        _close(a, b, (lambda s: 2e-2 * s) if bf16 else (lambda s: 1e-5))
+    cts = (rand(T, B, H), rand(T, B, H))
+    wb = GT.pack_bwd(whh1, wih2x, whh2, dtype)
+    got = GT.bwd_launch(ref[1], ref[0], *cts, *wb)
+    want = GT.gru_pair_bwd_plain(ref[1], ref[0], *cts, *wb)
+    for a, b in zip(got, want):
+        _close(a, b, (lambda s: 2e-2 * s) if bf16 else (lambda s: 1e-4 * s))
+
+
+@pytest.mark.cuda
+def test_gru_pair_runs_the_kernels(cuda_device):
+    """On CUDA tensors ``gru_pair`` launches kernel 4 once forward and
+    kernel 5 once backward, and its gradients match the CPU path's."""
+    B, T, H = 4, 21, 64
+    gen = torch.Generator().manual_seed(9)
+    args = [torch.randn(T, B, 3 * H, generator=gen),
+            torch.randn(T, B, 3 * H, generator=gen)] + [
+        0.1 * torch.randn(*s, generator=gen)
+        for s in ((H, 3 * H), (H, 3 * H), (3 * H,), (H, 3 * H), (3 * H,))]
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        a = [t.to(dev, copy=True).requires_grad_(True) for t in args]
+        GT.FWD.launches = GT.BWD.launches = 0
+        h1, h2 = GT.gru_pair(*a)
+        (torch.sum(torch.sin(h2)) + torch.sum(h1 * h1)).backward()
+        launched = (GT.FWD.launches, GT.BWD.launches)
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads[str(dev)] = [t.grad.cpu() for t in a]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        _close(a, b, lambda s: 1e-4 * s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,I,H,rows,kernel", [(3, 40, 256, 3, "SKEWED"),
+                                               (1, 320, 512, 9, "STREAM")])
+def test_bf16_scan_stacks_run_the_kernels(cuda_device, L, I, H, rows,
+                                          kernel):
+    """The speaker encoder's stack and decoder lstm1 at inference under the
+    bf16 policy: kernel 2 (<= 8 rows) or 3 in bf16, against the plain
+    version on the CPU within 2e-2 of max |ref|."""
+    gen = torch.Generator().manual_seed(L)
+    params = R.init_lstm_stack(gen, I, H, L)
+    x = torch.randn(rows, 30, I, generator=gen)
+    ref = LK.lstm_stack_rec(params, x, "bf16")
+    k = getattr(LK, kernel)
+    k.launches = 0
+    out = LK.lstm_stack_rec(from_jax_params(params, cuda_device),
+                            x.to(cuda_device), "bf16")
+    assert k.launches == 1
+    _close(out.cpu(), ref, lambda s: 2e-2 * s)
 
 
 @pytest.mark.cuda

@@ -109,6 +109,23 @@ def test_gru_parity():
         _np(JR.gru_cell(jp, jnp.asarray(xp), jnp.asarray(h0))), atol=ATOL)
 
 
+def test_gru_layer_parity():
+    """The plain GRU layer (hoisted input projection, then the cell over
+    time) against the JAX scan, from zero and from a given state."""
+    rng = np.random.default_rng(5)
+    jp = JR.init_gru_layer(jax.random.PRNGKey(5), 12, 16)
+    tp = from_jax_params(jp)
+    x = rng.standard_normal((3, 20, 12)).astype(np.float32)
+    h0 = rng.standard_normal((3, 16)).astype(np.float32)
+    for h in (None, h0):
+        ref, ref_h = JR.gru_layer(jp, jnp.asarray(x),
+                                  None if h is None else jnp.asarray(h))
+        out, out_h = TR.gru_layer(tp, torch.from_numpy(x),
+                                  None if h is None else torch.from_numpy(h))
+        np.testing.assert_allclose(out.numpy(), _np(ref), atol=ATOL)
+        np.testing.assert_allclose(out_h.numpy(), _np(ref_h), atol=ATOL)
+
+
 def test_precision_policy():
     assert TPREC.resolve("auto", "cpu") == "f32"
     assert TPREC.resolve("auto", "cuda") == "bf16"
