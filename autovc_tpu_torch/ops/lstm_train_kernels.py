@@ -10,8 +10,9 @@ differentiates it, as in the JAX package.  The recurrence is a
 
   * on a CUDA tensor its forward launches kernel 6
     (``lstm_train_fwd_launch`` of ``csrc/lstm_train.cu``) and its backward
-    kernel 7 (``lstm_train_bwd_launch``: the reverse-time recurrence, then
-    the hand-written dW / db products), or raises;
+    kernel 7 (``lstm_train_bwd_launch``: the reverse-time recurrence on the
+    launch plan of :func:`bwd_plan`, then the hand-written dW / db
+    products), or raises;
   * on a CPU tensor it runs :func:`lstm_train_fwd_plain` and
     :func:`lstm_train_bwd_plain`, the same arithmetic in PyTorch (the CPU
     path and the kernels' oracle).
@@ -27,10 +28,15 @@ in bf16, and h, c, the dc chain and db stay f32.
 Saved state (time-major): ``hs`` and ``cs`` (L, T, B, H) f32 — the JAX
 kernel's ``h || c`` stream — and ``acts`` (L, T, B, 4H) in the compute
 dtype.  The weights change every step, so they are packed per call.
+
+Geometry on the card: H % 16 == 0, and at most :data:`MAX_LAYERS` layers
+(kernel 7 carries each layer's dc / dh in registers).  A deeper stack is
+refused before kernel 6 launches, not half-way through a step.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -42,7 +48,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 FWD = _build.Kernel("lstm_train.cu", "lstm_train_fwd_launch",
                     [_P] * 9 + [_I] * 5 + [_P])
 BWD = _build.Kernel("lstm_train.cu", "lstm_train_bwd_launch",
-                    [_P] * 15 + [_I] * 5 + [_P])
+                    [_P] * 14 + [_I] * 9 + [_P])
 
 
 def pack_fwd(whh: torch.Tensor, wih: torch.Tensor, dtype: torch.dtype):
@@ -186,11 +192,86 @@ def fwd_launch(xp0: torch.Tensor, whh: torch.Tensor, wih: torch.Tensor,
             acts)
 
 
+# Kernel 7's launch geometry (csrc/lstm_train.cu, kernel 7 (a)): 256
+# threads a block, at most 4 (row, unit) pairs a thread and 4 layers of
+# carried state, resident weight rows of pitch 4H + 32 values, an H100's
+# opt-in shared memory per block.
+THREADS, MAX_PAIRS, MAX_LAYERS, PITCH_PAD = 256, 4, 4, 32
+WARPS, SPLIT, ROW_TILE_F32 = 8, 2, 8
+SMEM_MAX = 232448
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How kernel 7's recurrence covers an (L, B, H) stack.
+
+    ``route``: "mma_smem" (bf16 tensor-core product, the block's weight
+    rows resident in shared memory), "mma_l2" (the same product, weights
+    read from L2: they do not fit) or "fma" (f32).  A block owns ``units``
+    hidden units; ``rows`` rows go through the product at once
+    (``m_tiles`` 16-row tiles in bf16), ``groups`` times over the batch."""
+    route: str
+    units: int
+    blocks: int
+    rows: int
+    groups: int
+    m_tiles: int
+    pairs: int             # (row, unit) pairs a thread owns
+    resident_bytes: int
+    smem_bytes: int
+
+
+def check_depth(L: int) -> None:
+    """Raise unless kernel 7 can carry ``L`` layers' state."""
+    if L > MAX_LAYERS:
+        raise ValueError(f"kernel 7 carries at most {MAX_LAYERS} layers' "
+                         f"state, not {L}")
+
+
+def bwd_plan(B: int, H: int, L: int, bf16: bool, sms: int) -> BwdPlan:
+    """Kernel 7's plan for ``sms`` streaming multiprocessors: the fewest
+    row groups whose state fits, resident weights where they fit beside
+    the partial sums."""
+    if H % 16 or L < 1 or B < 1:
+        raise ValueError(f"bad LSTM geometry: L={L}, B={B}, H={H}")
+    check_depth(L)
+    units = 8 * -(-H // (8 * sms))
+    tile = 16 if bf16 else ROW_TILE_F32
+    nparts = WARPS if bf16 else SPLIT
+    weights = (2 * L - 1) * units * (4 * H + PITCH_PAD) * 2
+    cap = MAX_PAIRS * THREADS // units // tile * tile
+    if cap < 1:
+        raise ValueError(f"H={H} needs {units} units a block: too many for "
+                         f"kernel 7's pairs")
+    groups = -(-B // cap)
+    while True:
+        rows = -(-B // groups)
+        mpad = -(-rows // tile) * tile
+        parts = nparts * 2 * mpad * units * 4
+        if not bf16:
+            route, base = "fma", (ROW_TILE_F32 * 4 * H + WARPS * 2
+                                  * ROW_TILE_F32) * 4
+        elif weights + parts <= SMEM_MAX:
+            route, base = "mma_smem", weights
+        else:
+            route, base = "mma_l2", 0
+        if base + parts <= SMEM_MAX:
+            break
+        if rows == 1:
+            raise ValueError(f"kernel 7 does not fit H={H} in shared memory")
+        groups += 1
+    return BwdPlan(route=route, units=units, blocks=-(-H // units), rows=rows,
+                   groups=groups, m_tiles=mpad // 16 if bf16 else 0,
+                   pairs=-(-mpad * units // THREADS),
+                   resident_bytes=base if route == "mma_smem" else 0,
+                   smem_bytes=base + parts)
+
+
 def bwd_launch(acts: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
                dys: torch.Tensor, dh_fin: torch.Tensor, dc_fin: torch.Tensor,
                whh: torch.Tensor, wih: torch.Tensor):
-    """Kernel 7 on CUDA tensors (checked here); the same results as
-    :func:`lstm_train_bwd_plain`."""
+    """Kernel 7 on CUDA tensors (checked here), on the device's
+    :func:`bwd_plan`; the same results as :func:`lstm_train_bwd_plain`."""
     L, T, B, H = hs.shape
     if H % 16 or tuple(whh.shape) != (L, H, 4 * H) \
             or tuple(wih.shape) != (L - 1, H, 4 * H):
@@ -209,21 +290,23 @@ def bwd_launch(acts: torch.Tensor, hs: torch.Tensor, cs: torch.Tensor,
             raise ValueError("saved h, c and the cotangents must be float32")
     dev = hs.device
     _build.check_inputs((acts, hs, cs, dys, dh_fin, dc_fin, whh, wih), dev)
+    bf16 = whh.dtype == torch.bfloat16
+    plan = bwd_plan(B, H, L, bf16,
+                    torch.cuda.get_device_properties(dev).multi_processor_count)
     da = torch.empty(L, T, B, 4 * H, device=dev)
+    ring = torch.empty(2, L, B, 4 * H, device=dev, dtype=whh.dtype)
     dwhh = torch.empty(L, H, 4 * H, device=dev)
     dwih = torch.empty(L - 1, H, 4 * H, device=dev)
     db = torch.empty(L, 4 * H, device=dev)
-    dhr = torch.empty(L, B, H, device=dev)
-    dcs = torch.empty(L, B, H, device=dev)
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         BWD(acts.data_ptr(), hs.data_ptr(), cs.data_ptr(), dys.data_ptr(),
             dh_fin.data_ptr(), dc_fin.data_ptr(), whh.data_ptr(),
             wih.data_ptr() if wih.numel() else whh.data_ptr(),
-            da.data_ptr(), dwhh.data_ptr(),
+            da.data_ptr(), ring.data_ptr(), dwhh.data_ptr(),
             dwih.data_ptr() if dwih.numel() else dwhh.data_ptr(),
-            db.data_ptr(), dhr.data_ptr(), dcs.data_ptr(), bar.data_ptr(),
-            T, B, H, L, int(whh.dtype == torch.bfloat16),
+            db.data_ptr(), bar.data_ptr(), T, B, H, L, plan.units, plan.rows,
+            int(plan.route == "mma_smem"), plan.smem_bytes, int(bf16),
             torch.cuda.current_stream(dev).cuda_stream)
     return da[0], dwhh, dwih, db
 
@@ -241,6 +324,7 @@ class StackTrain(torch.autograd.Function):
     def forward(ctx, xp0, whh, wih, bias, dtype):
         wf = pack_fwd(whh, wih, dtype)
         if xp0.device.type == "cuda":
+            check_depth(whh.shape[0])
             ys, h_fin, c_fin, hs, cs, acts = fwd_launch(
                 xp0.contiguous(), *wf, bias.contiguous())
         elif xp0.device.type == "cpu":

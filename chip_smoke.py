@@ -9,8 +9,10 @@ Phases (any failure exits non-zero):
   3. each kernel against its plain PyTorch version on the card, on the
      same inputs and noise, at full model width: the inference kernels
      1-3, and the training kernels 6 (forward) and 7 (backward) at the
-     decoder's lstm2 (f32 and bf16) and lstm1 geometries and the speaker
-     encoder's, and the GRU-pair training kernels 4 (forward) and 5
+     decoder's lstm2 (f32 and bf16, and bf16 at a ragged 33 rows) and
+     lstm1 geometries and the speaker encoder's (kernel 7's launch plan,
+     its recurrence and dW times apart and the recurrence's time per
+     round), and the GRU-pair training kernels 4 (forward) and 5
      (backward) at the vocoder's geometry (f32 and bf16, 8 x 2475) and the
      JAX bench's (bf16, 32 x 1375);
   4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
@@ -35,6 +37,7 @@ the card's name and power limit, and as its last line
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -130,6 +133,25 @@ def bound(bytes_moved: int, ops: float, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def kernel_launch_ms(prof, tags) -> dict:
+    """Device ms of each launch of the kernels whose names hold each tag,
+    from a ``torch.profiler`` run."""
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for tag in tags:
+                if tag in e.name:
+                    out.setdefault(tag, []).append(
+                        e.time_range.elapsed_us() / 1e3)
+    return out
+
+
+def kernel_ms_of(prof, tags) -> dict:
+    """Device ms of the kernels whose names hold each tag, summed over a
+    ``torch.profiler`` run."""
+    return {tag: sum(ms) for tag, ms in kernel_launch_ms(prof, tags).items()}
+
+
 def phase_environment() -> str:
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
@@ -150,7 +172,8 @@ def phase_build() -> None:
     log({"phase": "build", "seconds": round(time.time() - t0, 2)})
     for src, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"  {src}: {line.strip()}")
 
 
@@ -256,6 +279,26 @@ def compare_lstm_train(geom: str, L: int, H: int, I: int, rows: int, T: int,
 
     fwd_ms = timed_ms(lambda: LT.fwd_launch(xp0, *wf, bias), 3)
     bwd_ms = timed_ms(lambda: LT.bwd_launch(*saved, *cts, *wb), 3)
+    # kernel 7's two launches, (a) the recurrence and (b) the dW / db tiles
+    # (one launch each a call), apart: the mean device time of the launches
+    # the profiler recorded over 3 calls (it may drop some)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            LT.bwd_launch(*saved, *cts, *wb)
+        torch.cuda.synchronize()
+    split = kernel_launch_ms(prof, ("lstm_train_bwd_kernel", "dw_"))
+    rec, dw = (split.get(tag, [float("nan")])
+               for tag in ("lstm_train_bwd_kernel", "dw_"))
+    rec_ms = statistics.fmean(rec)
+    plan = LT.bwd_plan(rows, H, L, bf16, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    log({"phase": "compare", "kernel": "lstm_train_bwd split", **info,
+         "plan": dataclasses.asdict(plan), "recurrence_ms": rec_ms,
+         "dw_ms": statistics.fmean(dw),
+         "launches_profiled": [len(rec), len(dw)],
+         "per_round_us": rec_ms * 1e3 / (T * L)})
     fwd_plain = timed_ms(lambda: LT.lstm_train_fwd_plain(xp0, *wf, bias), 1)
     bwd_plain = timed_ms(lambda: LT.lstm_train_bwd_plain(*saved, *cts, *wb),
                          1)
@@ -742,14 +785,9 @@ def phase_train(card: str, steps_min: int = 8) -> dict:
         torch.cuda.synchronize()
     prof_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top = device_busy(prof)
-    kernel_ms = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for tag in ("lstm_train_fwd_kernel", "lstm_train_bwd_kernel",
-                        "dw_bf16_kernel", "dw_f32_kernel"):
-                if tag in e.name:
-                    kernel_ms[tag] = kernel_ms.get(tag, 0.0) + \
-                        e.time_range.elapsed_us() / 1e3
+    kernel_ms = kernel_ms_of(prof, ("lstm_train_fwd_kernel",
+                                    "lstm_train_bwd_kernel", "dw_bf16_kernel",
+                                    "dw_f32_kernel"))
     res = {"phase": "train", "steps": steps, "epochs": n_epochs,
            "batch": [16, 80, 400], "precision": cfg.learn.precision,
            "losses": losses, "launches": counts, "wall_s": wall,
@@ -760,6 +798,8 @@ def phase_train(card: str, steps_min: int = 8) -> dict:
            # device time it records set against the unprofiled median step
            "device_idle_share_of_median_step":
                1.0 - busy_ms / (step_s * 1e3),
+           # kernel 7 of lstm1 and lstm2 is lstm_train_bwd_kernel (the
+           # recurrence) and dw_*_kernel (its dW / db products)
            "device_ms_by_kernel": top, "train_kernel_ms": kernel_ms,
            "card": card, "ok": ok}
     log(res)
@@ -941,14 +981,8 @@ def phase_vocoder_train(card: str, steps: int = 16) -> dict:
         torch.cuda.synchronize()
     prof_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top = device_busy(prof)
-    kernel_ms = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for tag in ("gru_train_fwd_kernel", "gru_train_bwd_kernel",
-                        "dw_bf16_kernel"):
-                if tag in e.name:
-                    kernel_ms[tag] = kernel_ms.get(tag, 0.0) + \
-                        e.time_range.elapsed_us() / 1e3
+    kernel_ms = kernel_ms_of(prof, ("gru_train_fwd_kernel",
+                                    "gru_train_bwd_kernel", "dw_bf16_kernel"))
     res = {"phase": "vocoder_train", "steps": n_steps, "epochs": 2,
            "batch": [batch, frames, samples // batch], "precision": "bf16",
            "losses": losses, "launches": counts, "wall_s": wall,
@@ -1008,13 +1042,16 @@ def main() -> int:
     k2 = compare_lstm("lstm_stack_skewed", 1, torch.bfloat16, gen, dev)
     k3 = compare_lstm("lstm_stack_stream", 9, torch.bfloat16, gen, dev)
     # kernels 6 and 7 at the training path's geometries: decoder lstm2 in
-    # f32 and bf16, lstm1 (input 2 * 32 + 256) and the speaker encoder's
-    # stack (cotangent on h_fin only); the bf16 lstm2 run is the summary's
+    # f32 and bf16, lstm1 (input 2 * 32 + 256), the speaker encoder's stack
+    # (cotangent on h_fin only) and lstm2 at a ragged 33 rows (kernel 7's
+    # last M-tile part-filled); the bf16 lstm2 run is the summary's
     compare_lstm_train("lstm2", 2, 1024, 512, 16, 400, torch.float32, gen,
                        dev)
     k67 = compare_lstm_train("lstm2", 2, 1024, 512, 16, 400, torch.bfloat16,
                              gen, dev)
     compare_lstm_train("lstm1", 1, 512, 320, 16, 400, torch.bfloat16, gen,
+                       dev)
+    compare_lstm_train("ragged", 2, 1024, 512, 33, 400, torch.bfloat16, gen,
                        dev)
     compare_lstm_train("speaker_encoder", 3, 256, 40, 48, 160,
                        torch.bfloat16, gen, dev, cotangents="h_fin")

@@ -6,9 +6,11 @@ Needs an NVIDIA GPU and nvcc.  For each mutant the port is copied into a
 temporary directory, one edit is made to the copy's
 ``csrc/lstm_train.cu``, and a subprocess holds the mutated kernels against
 their plain versions with ``chip_smoke.compare_lstm_train`` at the smoke
-run's four training geometries (lstm2 f32 and bf16, lstm1 bf16, the speaker
-encoder's stack bf16).  The first "mutant" is an unmutated copy.  Prints
-one JSON line per mutant: each geometry's "pass" or the failure message.
+run's five training geometries (lstm2 f32 and bf16, lstm1 bf16, the speaker
+encoder's stack bf16, lstm2 bf16 at a ragged 33 rows, last: a mutant that
+writes out of bounds may leave the device unusable).  The first "mutant" is
+an unmutated copy.  Prints one JSON line per mutant: each geometry's "pass"
+or the failure message.
 """
 from __future__ import annotations
 
@@ -32,8 +34,18 @@ MUTANTS = {
                      "__bfloat162float(__float2bfloat16_rn(h_new)));"),
     "dwih_wrong_layer": ("push_back({hs + (l - 1) * TBH, da + l * TBH * 4",
                          "push_back({hs + l * TBH, da + l * TBH * 4"),
-    "dys_off_by_one": ("__ldg(a.dys + (size_t)(t - 1) * BH + idx)",
-                       "__ldg(a.dys + (size_t)t * BH + idx)"),
+    # the top layer's step s reads dys of the neighbouring step s ^ 1
+    "dys_off_by_one": ("__ldcs(a.dys + (size_t)t * BH",
+                       "__ldcs(a.dys + (size_t)(t ^ 1) * BH"),
+    # kernel 7's next-round inputs loaded for the current step at each
+    # step boundary
+    "prefetch_wrong_step": ("nt = l > 0 ? t : t - 1;", "nt = t;"),
+    # the products read da from the ring slot the epilogue did not write
+    "ring_slots_swapped": ("const int slot = t & 1;",
+                           "const int slot = (t & 1) ^ 1;"),
+    # the epilogue also runs the padded rows of the last M-tile
+    "row_mask_dropped": ("ok[k] = pin[k] && prow[k] < rows_g;",
+                         "ok[k] = pin[k];"),
 }
 
 CHECK = """
@@ -45,13 +57,14 @@ for geom, L, H, I, rows, T, dtype, cts in (
         ("lstm2", 2, 1024, 512, 16, 400, torch.float32, "all"),
         ("lstm2", 2, 1024, 512, 16, 400, torch.bfloat16, "all"),
         ("lstm1", 1, 512, 320, 16, 400, torch.bfloat16, "all"),
-        ("speaker_encoder", 3, 256, 40, 48, 160, torch.bfloat16, "h_fin")):
+        ("speaker_encoder", 3, 256, 40, 48, 160, torch.bfloat16, "h_fin"),
+        ("ragged", 2, 1024, 512, 33, 400, torch.bfloat16, "all")):
     key = f"{geom} {dtype}"
     try:
         S.compare_lstm_train(geom, L, H, I, rows, T, dtype, gen, dev, cts)
         out[key] = "pass"
-    except AssertionError as e:
-        out[key] = "FAIL: " + str(e).split("; {")[0]
+    except Exception as e:   # a disagreement, or a CUDA error
+        out[key] = f"FAIL ({type(e).__name__}): " + str(e).split("; {")[0]
 print("RESULT " + json.dumps(out))
 """
 

@@ -56,7 +56,13 @@ def test_lstm_kernel_matches_plain(cuda_device, rows, kernel, dtype):
 @pytest.mark.parametrize("L,B,H,dtype", [
     (1, 3, 64, torch.float32), (2, 11, 256, torch.float32),
     (3, 5, 128, torch.float32), (2, 11, 256, torch.bfloat16),
-    (1, 16, 512, torch.bfloat16)])
+    (1, 16, 512, torch.bfloat16),
+    # kernel 7's bf16 edges: lstm2 width, a ragged M-tile, the speaker
+    # encoder's stack (3 M-tiles), weights too large to be resident (the
+    # "mma_l2" route), two row groups
+    (2, 16, 1024, torch.bfloat16), (2, 33, 1024, torch.bfloat16),
+    (3, 48, 256, torch.bfloat16), (3, 16, 1024, torch.bfloat16),
+    (1, 150, 256, torch.bfloat16)])
 def test_lstm_train_kernels_match_plain(cuda_device, L, B, H, dtype):
     """Kernels 6 and 7 against their plain versions, with cotangents on ys,
     h_fin and c_fin: f32 forward at atol 1e-5 and each gradient within 1e-4
@@ -115,6 +121,20 @@ def test_lstm_stack_train_runs_the_kernels(cuda_device):
         grads[str(dev)] = [v.grad.cpu() for lp in p for v in lp.values()]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_lstm_stack_train_refuses_a_deep_stack_before_launching(cuda_device):
+    """Kernel 7 carries at most ``MAX_LAYERS`` layers' state: a deeper
+    stack raises in the forward, before kernel 6 launches."""
+    gen = torch.Generator().manual_seed(6)
+    params = from_jax_params(
+        R.init_lstm_stack(gen, 16, 32, LT.MAX_LAYERS + 1), cuda_device)
+    x = torch.randn(2, 5, 16, generator=gen).to(cuda_device)
+    LT.FWD.launches = 0
+    with pytest.raises(ValueError, match="at most"):
+        LT.lstm_stack_train(params, x, "f32")
+    assert LT.FWD.launches == 0
 
 
 def _close(a, b, bar_of):
