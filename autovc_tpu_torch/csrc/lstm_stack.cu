@@ -4,19 +4,21 @@
 //   * lstm_stack_skewed_launch  <- lstm_stack_pallas / _stack_core / _kernel
 //     (<= 8 rows; round s advances layer l at timestep t = s - l, so the
 //     L-layer stack runs in T + L - 1 rounds, ONE grid barrier a round);
+//     the kernel below;
 //   * lstm_stack_stream_launch  <- lstm_stack_stream / _stream_kernel
-//     (> 8 rows; all layers at one timestep a round, a grid barrier after
-//     each layer, rows processed in 8-row tiles).
+//     (> 8 rows): the layer-skewed tensor-core routine of lstm_fwd.cuh,
+//     shared with kernel 6, saving nothing but the top layer's h.
 // The layer-0 input projection over all T (plus both biases) is hoisted
 // by the caller (one large matmul); the kernel's own work is h @ W_hh for
 // every layer, y_{l-1} @ W_ih (+ b_ih + b_hh) for layers >= 1, and the
 // cell update.
 //
-// What bounds it on an H100: every round re-reads the recurrent weights —
-// 25 MB in bf16 for the 2 x 1024 decoder stack (two W_hh and one W_ih),
-// 50 MB in f32 — against only B <= 64 rows of arithmetic, so a round is
-// weight-streaming bound (about 7.5 us at the 3.35 TB/s HBM rate), and a
-// dependent chain of T + L - 1 rounds has no parallelism across rounds.
+// Kernel 2.  What bounds it on an H100: every round re-reads the
+// recurrent weights — 25 MB in bf16 for the 2 x 1024 decoder stack (two
+// W_hh and one W_ih), 50 MB in f32 — against only B <= 64 rows of
+// arithmetic, so a round is weight-streaming bound (about 7.5 us at the
+// 3.35 TB/s HBM rate), and a dependent chain of T + L - 1 rounds has no
+// parallelism across rounds.
 // What the design does about it: the stack fits the 50 MB L2, so after
 // the first round the weights stream from L2, not HBM; one persistent
 // cooperative grid (one block per SM) keeps every round inside one
@@ -26,7 +28,7 @@
 // meet in shared memory and the cell update is the block's epilogue, c
 // staying with the thread that owns (row, j).  h is double-buffered in
 // global memory between rounds.
-#include "common.cuh"
+#include "lstm_fwd.cuh"
 
 namespace avc {
 
@@ -170,26 +172,7 @@ __global__ void __launch_bounds__(kThreads) lstm_skewed_kernel(LstmArgs<WT> a) {
 }
 
 template <typename WT>
-__global__ void __launch_bounds__(kThreads) lstm_stream_kernel(LstmArgs<WT> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  WT* smem = reinterpret_cast<WT*>(smem_raw);
-  zero_state(a);
-  grid_sync(a.bar);
-  const size_t BH = (size_t)a.B * a.H, LBH = (size_t)a.L * BH;
-  for (int t = 0; t < a.T; ++t) {
-    const float* hc = a.h + (t & 1) * LBH;
-    float* hn = a.h + ((t + 1) & 1) * LBH;
-    for (int l = 0; l < a.L; ++l) {
-      // layer l-1's output at this same t was written just before
-      layer_phase(a, l, t, true, hc + l * BH,
-                  l > 0 ? hn + (l - 1) * BH : nullptr, hn + l * BH, smem);
-      grid_sync(a.bar);
-    }
-  }
-}
-
-template <typename WT>
-static int launch(bool skewed, const void* xp0, const void* whh,
+static int launch_skewed(const void* xp0, const void* whh,
                   const void* wih, const void* bias, void* out, void* h,
                   void* c, void* bar, int T, int B, int H, int L,
                   cudaStream_t stream) {
@@ -201,8 +184,7 @@ static int launch(bool skewed, const void* xp0, const void* whh,
   const size_t smem = (size_t)2 * kRB * H * sizeof(WT) +
                       (size_t)kWarps * 4 * kRB * sizeof(float);
   const int want = (H + kUnits - 1) / kUnits;
-  return skewed ? launch_cooperative(lstm_skewed_kernel<WT>, a, want, smem, stream)
-                : launch_cooperative(lstm_stream_kernel<WT>, a, want, smem, stream);
+  return launch_cooperative(lstm_skewed_kernel<WT>, a, want, smem, stream);
 }
 
 }  // namespace avc
@@ -215,20 +197,22 @@ extern "C" int lstm_stack_skewed_launch(const void* xp0, const void* whh,
                                         int T, int B, int H, int L, int bf16,
                                         void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? avc::launch<__nv_bfloat16>(true, xp0, whh, wih, bias, out, h,
-                                           c, bar, T, B, H, L, st)
-              : avc::launch<float>(true, xp0, whh, wih, bias, out, h, c, bar,
-                                   T, B, H, L, st);
+  return bf16 ? avc::launch_skewed<__nv_bfloat16>(xp0, whh, wih, bias, out,
+                                                   h, c, bar, T, B, H, L, st)
+              : avc::launch_skewed<float>(xp0, whh, wih, bias, out, h, c, bar,
+                                          T, B, H, L, st);
 }
 
+// Kernel 3: the layer-skewed routine of lstm_fwd.cuh with nothing saved
+// but the top layer's h, on the plan of ops/lstm_kernels.py:fwd_plan.
 extern "C" int lstm_stack_stream_launch(const void* xp0, const void* whh,
                                         const void* wih, const void* bias,
-                                        void* out, void* h, void* c, void* bar,
-                                        int T, int B, int H, int L, int bf16,
-                                        void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? avc::launch<__nv_bfloat16>(false, xp0, whh, wih, bias, out, h,
-                                           c, bar, T, B, H, L, st)
-              : avc::launch<float>(false, xp0, whh, wih, bias, out, h, c, bar,
-                                   T, B, H, L, st);
+                                        void* out, void* ring, void* bar,
+                                        int T, int B, int H, int L, int units,
+                                        int rows, int resident, int smem_bytes,
+                                        int bf16, void* stream) {
+  return avc::lstm_fwd_entry<false>(xp0, whh, wih, bias, out, nullptr,
+                                    nullptr, nullptr, ring, bar, T, B, H, L,
+                                    units, rows, resident, smem_bytes, bf16,
+                                    stream);
 }

@@ -15,155 +15,28 @@
 //     kernel forms them in its own body.
 //
 // What bounds them on an H100: the recurrences are a dependent chain of
-// T * L rounds, each re-reading a layer's weights (8 MB per layer in bf16
-// for the 2 x 1024 decoder stack) for B <= 64 rows of work, so a round is
-// latency- and weight-streaming-bound, never compute-bound; the saved
-// state (~210 MB per call at lstm2, B = 16, T = 400) must leave and come
-// back through HBM.  The dW products are the only dense work (3 x 54
-// GFLOP at lstm2) and are compute-bound.  What the design does about it:
-// kernel 3's structure (one persistent cooperative grid, all layers at one
-// timestep a round, a grid barrier after each layer, a warp pair per hidden
-// unit, the cell update as the epilogue) keeps the forward's weights in the
-// 50 MB L2 across rounds; the saved state is written with streaming stores
-// so it does not evict them.  The backward's recurrence costs ONE product,
-// one epilogue and one grid barrier per (step, layer): a block owns a fixed
-// set of units, all rows go through one tensor-core pass (bf16), the
-// block's weight rows stay in shared memory for the whole call, the operand
-// da is read from a bf16 ring in L2, and the epilogue's owner of (row,
-// unit) keeps the carried dc / dh in registers and loads the next round's
-// saved state before the barrier (details at kernel 7 (a) below).  The dW
-// products run after the recurrence as one launch of independent tiles.
+// rounds, each a product of B <= 64 rows with every layer's weights (8 MB
+// per matrix in bf16 for the 2 x 1024 decoder stack), so a round is
+// latency-bound, never compute-bound; the saved state (~210 MB per call at
+// lstm2, B = 16, T = 400) must leave and come back through HBM.  The dW
+// products are the only dense work (3 x 54 GFLOP at lstm2) and are
+// compute-bound.  What the design does about it: the forward is the
+// layer-skewed routine of lstm_fwd.cuh (T + L - 1 rounds, one grid barrier
+// each; a block owns a fixed set of units; all rows in one tensor-core
+// pass; weight rows resident in shared memory; h exchanged through a ring
+// in L2), saving the state with streaming stores so it does not evict the
+// ring.  The backward's recurrence costs ONE product, one epilogue and one
+// grid barrier per (step, layer): a block owns a fixed set of units, all
+// rows go through one tensor-core pass (bf16), the block's weight rows
+// stay in shared memory for the whole call, the operand da is read from a
+// bf16 ring in L2, and the epilogue's owner of (row, unit) keeps the
+// carried dc / dh in registers and loads the next round's saved state
+// before the barrier (details at kernel 7 (a) below).  The dW products run
+// after the recurrence as one launch of independent tiles.
 #include "dw_tiles.cuh"
+#include "lstm_fwd.cuh"
 
 namespace avc {
-
-// ---------------------------------------------------------------------------
-// kernel 6: forward
-// ---------------------------------------------------------------------------
-
-template <typename WT>
-struct TrainFwdArgs {
-  const float* xp0;   // (T, B, 4H) f32: layer-0 gate pre-activations
-  const WT* whh;      // (L, 4H, H): W_hh transposed, per layer
-  const WT* wih;      // (L-1, 4H, H): W_ih transposed, layers >= 1
-  const float* bias;  // (L-1, 4H): b_ih + b_hh, layers >= 1
-  float* ys;          // (T, B, H): last layer's h
-  float* hs;          // (L, T, B, H): saved h
-  float* cs;          // (L, T, B, H): saved c
-  WT* acts;           // (L, T, B, 4H): saved i, f, g, o
-  unsigned int* bar;  // (2,): grid barrier, bar[0] == 0 at launch
-  int T, B, H, L;
-};
-
-// Layer l at step t for all rows: reads h_{l,t-1}, c_{l,t-1} (zero at
-// t = 0) and y_{l-1,t}; writes h_{l,t}, c_{l,t}, the activations, and ys.
-template <typename WT>
-__device__ void fwd_phase(const TrainFwdArgs<WT>& a, int l, int t, WT* smem) {
-  const int H = a.H, B = a.B;
-  if (blockIdx.x * kUnits >= H) return;  // no unit of this block here
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int V = 4 * kRB;
-  const int slot = warp % kUnits, part = warp / kUnits;
-  const int kpart = H / kSplit, k0 = part * kpart;
-  const size_t BH = (size_t)B * H, TBH = (size_t)a.T * BH;
-  WT* hsm = smem;
-  WT* ysm = smem + kRB * H;
-  float* red = reinterpret_cast<float*>(smem + 2 * kRB * H);  // (kWarps, V)
-  float* h_out = a.hs + l * TBH + (size_t)t * BH;
-  float* c_out = a.cs + l * TBH + (size_t)t * BH;
-  const float* h_in = t > 0 ? h_out - BH : nullptr;   // h_{l,t-1}
-  const float* c_in = t > 0 ? c_out - BH : nullptr;   // c_{l,t-1}
-  const float* y_in = l > 0 ? h_out - TBH : nullptr;  // h_{l-1,t}
-  WT* act_out = a.acts + (l * TBH + (size_t)t * BH) * 4;
-  const WT* whh = a.whh + (size_t)l * 4 * H * H;
-  const WT* wih = l > 0 ? a.wih + (size_t)(l - 1) * 4 * H * H : nullptr;
-  for (int r0 = 0; r0 < B; r0 += kRB) {
-    const int nr = min(kRB, B - r0);
-    if (t > 0) stage_rows(hsm, h_in, r0, nr, H);
-    if (l > 0) stage_rows(ysm, y_in, r0, nr, H);
-    __syncthreads();
-    for (int j0 = blockIdx.x * kUnits; j0 < H; j0 += gridDim.x * kUnits) {
-      const int j = j0 + slot;
-      const bool epi = part == 0 && j < H && lane < nr;
-      float in[4], c_old = 0.0f;
-      if (epi) {
-        const int row = r0 + lane;
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          in[g] = l == 0
-              ? __ldg(a.xp0 + ((size_t)t * B + row) * 4 * H + g * H + j)
-              : __ldg(a.bias + (size_t)(l - 1) * 4 * H + g * H + j);
-        if (t > 0) c_old = __ldcg(c_in + (size_t)row * H + j);
-      }
-      if (j < H) {
-        float acc[4][kRB] = {};
-        if (t > 0) {
-          const WT* const wh[4] = {whh + (size_t)j * H,
-                                   whh + (size_t)(H + j) * H,
-                                   whh + (size_t)(2 * H + j) * H,
-                                   whh + (size_t)(3 * H + j) * H};
-          warp_dot(wh, hsm, H, k0, k0 + kpart, nr, acc);
-        }
-        if (l > 0) {
-          const WT* const wi[4] = {wih + (size_t)j * H,
-                                   wih + (size_t)(H + j) * H,
-                                   wih + (size_t)(2 * H + j) * H,
-                                   wih + (size_t)(3 * H + j) * H};
-          warp_dot(wi, ysm, H, k0, k0 + kpart, nr, acc);
-        }
-        float v[V];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-#pragma unroll
-          for (int r = 0; r < kRB; ++r) v[g * kRB + r] = acc[g][r];
-        }
-        warp_sum_to_smem(v, red + warp * V);
-      }
-      __syncthreads();
-      if (epi) {
-        float pre[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          float sum = 0.0f;
-#pragma unroll
-          for (int p = 0; p < kSplit; ++p)
-            sum += red[(p * kUnits + slot) * V + g * kRB + lane];
-          pre[g] = in[g] + sum;
-        }
-        const float ig = sigmoidf_(pre[0]);
-        const float fg = sigmoidf_(pre[1]);
-        const float gg = tanhf(pre[2]);
-        const float og = sigmoidf_(pre[3]);
-        const int row = r0 + lane;
-        const size_t idx = (size_t)row * H + j;
-        const float c_new = fg * c_old + ig * gg;
-        const float h_new = og * tanhf(c_new);
-        store_cs(c_out + idx, c_new);
-        store_cs(h_out + idx, h_new);
-        WT* act = act_out + (size_t)row * 4 * H + j;
-        store_cs(act, ig);
-        store_cs(act + H, fg);
-        store_cs(act + 2 * H, gg);
-        store_cs(act + 3 * H, og);
-        if (l == a.L - 1) store_cs(a.ys + (size_t)t * BH + idx, h_new);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-template <typename WT>
-__global__ void __launch_bounds__(kThreads)
-    lstm_train_fwd_kernel(TrainFwdArgs<WT> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  WT* smem = reinterpret_cast<WT*>(smem_raw);
-  for (int t = 0; t < a.T; ++t) {
-    for (int l = 0; l < a.L; ++l) {
-      fwd_phase(a, l, t, smem);
-      grid_sync(a.bar);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // kernel 7 (a): the reverse-time recurrence
@@ -642,23 +515,6 @@ static std::vector<DwProblem> lstm_dw_problems(const float* hs, const float* da,
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename WT>
-static int fwd_launch(const void* xp0, const void* whh, const void* wih,
-                      const void* bias, void* ys, void* hs, void* cs,
-                      void* acts, void* bar, int T, int B, int H, int L,
-                      cudaStream_t stream) {
-  TrainFwdArgs<WT> a{static_cast<const float*>(xp0),
-                     static_cast<const WT*>(whh), static_cast<const WT*>(wih),
-                     static_cast<const float*>(bias), static_cast<float*>(ys),
-                     static_cast<float*>(hs), static_cast<float*>(cs),
-                     static_cast<WT*>(acts),
-                     static_cast<unsigned int*>(bar), T, B, H, L};
-  const size_t smem = (size_t)2 * kRB * H * sizeof(WT) +
-                      (size_t)kWarps * 4 * kRB * sizeof(float);
-  return launch_cooperative(lstm_train_fwd_kernel<WT>, a,
-                            (H + kUnits - 1) / kUnits, smem, stream);
-}
-
 // Kernel 7 (a) on the plan of bwd_plan (units per block, rows per group,
 // resident weights, shared-memory bytes: checked against the kernel's own
 // layout), then (b).
@@ -718,13 +574,13 @@ static int bwd_launch(const void* acts, const void* hs, const void* cs,
 extern "C" int lstm_train_fwd_launch(const void* xp0, const void* whh,
                                      const void* wih, const void* bias,
                                      void* ys, void* hs, void* cs, void* acts,
-                                     void* bar, int T, int B, int H, int L,
-                                     int bf16, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? avc::fwd_launch<__nv_bfloat16>(xp0, whh, wih, bias, ys, hs,
-                                               cs, acts, bar, T, B, H, L, st)
-              : avc::fwd_launch<float>(xp0, whh, wih, bias, ys, hs, cs, acts,
-                                       bar, T, B, H, L, st);
+                                     void* ring, void* bar, int T, int B,
+                                     int H, int L, int units, int rows,
+                                     int resident, int smem_bytes, int bf16,
+                                     void* stream) {
+  return avc::lstm_fwd_entry<true>(xp0, whh, wih, bias, ys, hs, cs, acts,
+                                   ring, bar, T, B, H, L, units, rows,
+                                   resident, smem_bytes, bf16, stream);
 }
 
 extern "C" int lstm_train_bwd_launch(const void* acts, const void* hs,

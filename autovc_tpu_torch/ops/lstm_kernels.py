@@ -6,7 +6,9 @@ Counterpart of ``autovc_tpu/ops/lstm_pallas.py``:
     the single-utterance decoder lstm2): kernel ``lstm_stack_skewed_launch``
     of ``csrc/lstm_stack.cu``, layer-skewed rounds;
   * :func:`lstm_stack_stream` replaces ``lstm_stack_stream`` (> 8 rows):
-    kernel ``lstm_stack_stream_launch``, all layers at one timestep a round.
+    kernel ``lstm_stack_stream_launch``, the layer-skewed tensor-core
+    routine of ``csrc/lstm_fwd.cuh`` that kernel 6 shares, on the launch
+    plan of :func:`fwd_plan`, at any depth.
 
 Both take a uniform-H stack (the JAX param layout) and x (B, T, I) and
 return the last layer's outputs (B, T, H).  :func:`lstm_stack_rec` sends
@@ -27,6 +29,7 @@ it does not fit the TPU's VMEM, the port runs the kernels in f32 too.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -37,9 +40,84 @@ from autovc_tpu_torch.ops import rnn as R
 
 LATENCY_MAX_ROWS = 8
 
-_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-SKEWED = _build.Kernel("lstm_stack.cu", "lstm_stack_skewed_launch", _ARGS)
-STREAM = _build.Kernel("lstm_stack.cu", "lstm_stack_stream_launch", _ARGS)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SKEWED = _build.Kernel("lstm_stack.cu", "lstm_stack_skewed_launch",
+                       [_P] * 8 + [_I] * 5 + [_P])
+STREAM = _build.Kernel("lstm_stack.cu", "lstm_stack_stream_launch",
+                       [_P] * 7 + [_I] * 9 + [_P])
+
+# The layer-skewed forward's geometry (csrc/lstm_fwd.cuh): 8 warps a
+# block, at most 64 rows (4 16-row M-tiles) a row group, resident weight
+# rows of pitch H + 32 values, partial-sum rows of pitch 4 units + 8, the
+# f32 route's 8-row stage, an H100's opt-in shared memory per block.
+WARPS, MAX_ROWS, PITCH_PAD, SUMS_PAD, ROW_TILE_F32 = 8, 64, 32, 8, 8
+SMEM_MAX = 232448
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """How the layer-skewed forward (kernels 3 and 6) covers an (L, B, H)
+    stack.
+
+    ``route``: "mma_smem" (bf16 tensor-core product, the block's weight
+    rows resident in shared memory), "mma_l2" (the same product, weights
+    read from L2: they do not fit) or "fma" (f32).  A block owns ``units``
+    hidden units of every layer; ``rows`` rows go through the product at
+    once (``m_tiles`` 16-row tiles in bf16), ``groups`` times over the
+    batch."""
+    route: str
+    units: int
+    blocks: int
+    rows: int
+    groups: int
+    m_tiles: int
+    resident_bytes: int
+    smem_bytes: int
+
+
+def fwd_plan(B: int, H: int, L: int, bf16: bool, sms: int) -> FwdPlan:
+    """The forward's plan for ``sms`` streaming multiprocessors: the
+    fewest row groups that fit, resident weights where they fit beside the
+    partial sums and the carried c."""
+    if H % 16 or L < 1 or B < 1:
+        raise ValueError(f"bad LSTM geometry: L={L}, B={B}, H={H} (H % 16 "
+                         f"== 0)")
+    units = 8 * -(-H // (8 * sms))
+    tile = 16 if bf16 else ROW_TILE_F32
+    weights = (2 * L - 1) * 4 * units * (H + PITCH_PAD) * 2
+    groups = -(-B // MAX_ROWS)
+    while True:
+        rows = -(-B // groups)
+        mpad = -(-rows // tile) * tile
+        # partial sums of each warp's 16-row tile (bf16) or the gate sums
+        # (f32), then the carried c, all f32
+        sums = (WARPS * 16 * (4 * units + SUMS_PAD) if bf16
+                else L * mpad * 4 * units)
+        state = (sums + L * mpad * units) * 4
+        if not bf16:
+            route, base = "fma", (2 * ROW_TILE_F32 * H
+                                  + WARPS * 4 * ROW_TILE_F32) * 4
+        elif weights + state <= SMEM_MAX:
+            route, base = "mma_smem", weights
+        else:
+            route, base = "mma_l2", 0
+        if base + state <= SMEM_MAX:
+            break
+        if rows == 1:
+            raise ValueError(f"the forward does not fit L={L}, H={H} in "
+                             f"shared memory")
+        groups += 1
+    return FwdPlan(route=route, units=units, blocks=-(-H // units),
+                   rows=rows, groups=groups,
+                   m_tiles=mpad // 16 if bf16 else 0,
+                   resident_bytes=base if route == "mma_smem" else 0,
+                   smem_bytes=base + state)
+
+
+def device_plan(B: int, H: int, L: int, bf16: bool, dev) -> FwdPlan:
+    """:func:`fwd_plan` for the SM count of CUDA device ``dev``."""
+    return fwd_plan(B, H, L, bf16,
+                    torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 def pack_stack(params: Sequence, dtype: torch.dtype):
@@ -124,7 +202,8 @@ def _run(kernel: _build.Kernel, params: Sequence, x: torch.Tensor,
 
 def launch(kernel: _build.Kernel, xp0: torch.Tensor, whh: torch.Tensor,
            wih: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Launch one of the two kernels on CUDA tensors (checked here)."""
+    """Launch kernel 2 (``SKEWED``) or 3 (``STREAM``, on the device's
+    :func:`fwd_plan`) on CUDA tensors (checked here)."""
     T, B, H4 = xp0.shape
     L, _, H = whh.shape
     tensors = (xp0, whh, wih, bias)
@@ -139,17 +218,26 @@ def launch(kernel: _build.Kernel, xp0: torch.Tensor, whh: torch.Tensor,
         raise ValueError("wih/bias shapes do not match the stack")
     dev = xp0.device
     _build.check_inputs(tensors, dev)
+    bf16 = whh.dtype == torch.bfloat16
     out = torch.empty(T, B, H, device=dev)
-    h = torch.empty(2, L, B, H, device=dev)
-    c = torch.empty(L, B, H, device=dev)
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
     wih_ptr = wih.data_ptr() if wih.numel() else whh.data_ptr()
     bias_ptr = bias.data_ptr() if bias.numel() else xp0.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):      # the C side launches on the current device
-        kernel(xp0.data_ptr(), whh.data_ptr(), wih_ptr, bias_ptr,
-               out.data_ptr(), h.data_ptr(), c.data_ptr(), bar.data_ptr(),
-               T, B, H, L, int(whh.dtype == torch.bfloat16),
-               torch.cuda.current_stream(dev).cuda_stream)
+        if kernel is STREAM:
+            plan = device_plan(B, H, L, bf16, dev)
+            ring = torch.empty(2, L, B, H, device=dev, dtype=whh.dtype)
+            kernel(xp0.data_ptr(), whh.data_ptr(), wih_ptr, bias_ptr,
+                   out.data_ptr(), ring.data_ptr(), bar.data_ptr(), T, B, H,
+                   L, plan.units, plan.rows, int(plan.route == "mma_smem"),
+                   plan.smem_bytes, int(bf16), stream)
+        else:
+            h = torch.empty(2, L, B, H, device=dev)
+            c = torch.empty(L, B, H, device=dev)
+            kernel(xp0.data_ptr(), whh.data_ptr(), wih_ptr, bias_ptr,
+                   out.data_ptr(), h.data_ptr(), c.data_ptr(), bar.data_ptr(),
+                   T, B, H, L, int(bf16), stream)
     return out
 
 

@@ -9,7 +9,9 @@ differentiates it, as in the JAX package.  The recurrence is a
 ``torch.autograd.Function`` (:class:`StackTrain`):
 
   * on a CUDA tensor its forward launches kernel 6
-    (``lstm_train_fwd_launch`` of ``csrc/lstm_train.cu``) and its backward
+    (``lstm_train_fwd_launch`` of ``csrc/lstm_train.cu``: the layer-skewed
+    routine of ``csrc/lstm_fwd.cuh``, shared with kernel 3, on the launch
+    plan of :func:`lstm_kernels.fwd_plan`) and its backward
     kernel 7 (``lstm_train_bwd_launch``: the reverse-time recurrence on the
     launch plan of :func:`bwd_plan`, then the hand-written dW / db
     products), or raises;
@@ -42,11 +44,12 @@ from typing import Sequence
 import torch
 
 from autovc_tpu_torch.ops import _build
+from autovc_tpu_torch.ops import lstm_kernels as LK
 from autovc_tpu_torch.ops import precision as PREC
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FWD = _build.Kernel("lstm_train.cu", "lstm_train_fwd_launch",
-                    [_P] * 9 + [_I] * 5 + [_P])
+                    [_P] * 10 + [_I] * 9 + [_P])
 BWD = _build.Kernel("lstm_train.cu", "lstm_train_bwd_launch",
                     [_P] * 14 + [_I] * 9 + [_P])
 
@@ -158,7 +161,8 @@ def lstm_train_bwd_plain(acts: torch.Tensor, hs: torch.Tensor,
 
 def fwd_launch(xp0: torch.Tensor, whh: torch.Tensor, wih: torch.Tensor,
                bias: torch.Tensor):
-    """Kernel 6 on CUDA tensors (checked here); the same results as
+    """Kernel 6 on CUDA tensors (checked here), on the device's
+    :func:`lstm_kernels.fwd_plan`; the same results as
     :func:`lstm_train_fwd_plain`."""
     T, B, H4 = xp0.shape
     L, _, H = whh.shape
@@ -179,15 +183,19 @@ def fwd_launch(xp0: torch.Tensor, whh: torch.Tensor, wih: torch.Tensor,
     hs = torch.empty(L, T, B, H, device=dev)
     cs = torch.empty(L, T, B, H, device=dev)
     acts = torch.empty(L, T, B, 4 * H, device=dev, dtype=whh.dtype)
+    ring = torch.empty(2, L, B, H, device=dev, dtype=whh.dtype)
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    bf16 = whh.dtype == torch.bfloat16
+    plan = LK.device_plan(B, H, L, bf16, dev)
     # the C side launches on the current device
     with torch.cuda.device(dev):
         FWD(xp0.data_ptr(), whh.data_ptr(),
             wih.data_ptr() if wih.numel() else whh.data_ptr(),
             bias.data_ptr() if bias.numel() else xp0.data_ptr(),
             ys.data_ptr(), hs.data_ptr(), cs.data_ptr(), acts.data_ptr(),
-            bar.data_ptr(), T, B, H, L, int(whh.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            ring.data_ptr(), bar.data_ptr(), T, B, H, L, plan.units,
+            plan.rows, int(plan.route == "mma_smem"), plan.smem_bytes,
+            int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     return (ys, hs[L - 1, T - 1].clone(), cs[L - 1, T - 1].clone(), hs, cs,
             acts)
 

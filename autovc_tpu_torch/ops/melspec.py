@@ -70,11 +70,12 @@ def mel_spec_auto_encoder_sliced(wav: np.ndarray,
                                  cfg: MelConfig = MelConfig(),
                                  overlap: float = 0.5,
                                  min_pad_coverage: float = 0.75,
-                                 pcm16: bool = True, device=None):
+                                 pcm16: bool = False, device=None):
     """``cut=True`` AE mel path: (n_chunks, n_mels, N) chunks on ``device``
     (None: the GPU, or raise; ``"cpu"`` on request) plus the mel slices.
     The slice index math is the host's (:func:`dsp.compute_partial_slices`);
-    only the (PCM16) wav goes to the device."""
+    only the wav goes to the device, as int16 PCM when ``pcm16`` (the
+    serving paths' choice; the JAX function's default is False too)."""
     wav_slices, mel_slices = dsp.compute_partial_slices(
         len(wav), cfg.sr,
         partial_utterance_n_frames=cfg.partial_utterance_n_frames,

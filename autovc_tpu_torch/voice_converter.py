@@ -245,7 +245,11 @@ class VoiceConverter:
                         if isinstance(source, str) else "source")
             trg_name = os.path.splitext(os.path.basename(str(target)))[0]
             save_name = f"{src_name}_to_{trg_name}.wav"
-        save_dir = save_dir or "results"
+        # as the JAX package: under results/ unless save_dir already is
+        if save_dir is None:
+            save_dir = "results"
+        elif not save_dir.startswith("results"):
+            save_dir = os.path.join("results", save_dir)
         os.makedirs(save_dir, exist_ok=True)
         out_path = os.path.join(save_dir, save_name)
         audio_out.save(out_path)

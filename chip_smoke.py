@@ -8,11 +8,13 @@ Phases (any failure exits non-zero):
   2. build: every CUDA kernel of the port, compiled with nvcc for sm_90a;
   3. each kernel against its plain PyTorch version on the card, on the
      same inputs and noise, at full model width: the inference kernels
-     1-3, and the training kernels 6 (forward) and 7 (backward) at the
-     decoder's lstm2 (f32 and bf16, and bf16 at a ragged 33 rows) and
-     lstm1 geometries and the speaker encoder's (kernel 7's launch plan,
-     its recurrence and dW times apart and the recurrence's time per
-     round), and the GRU-pair training kernels 4 (forward) and 5
+     1-3 (kernel 3's launch plan and time per round), and the training
+     kernels 6 (forward) and 7 (backward) at the decoder's lstm2 (f32 and
+     bf16, and bf16 at a ragged 33 rows) and lstm1 geometries and the
+     speaker encoder's (kernel 6's and kernel 7's launch plans, kernel 7's
+     recurrence and dW times apart, each recurrence's time per round;
+     kernels 3 and 6 are one layer-skewed routine, csrc/lstm_fwd.cuh), and
+     the GRU-pair training kernels 4 (forward) and 5
      (backward) at the vocoder's geometry (f32 and bf16, 8 x 2475) and the
      JAX bench's (bf16, 32 x 1375);
   4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
@@ -84,10 +86,10 @@ KERNELS = {
         kernel=LK.SKEWED, source="autovc_tpu_torch/csrc/lstm_stack.cu",
         replaces="autovc_tpu/ops/lstm_pallas.py:136"),
     "lstm_stack_stream": dict(
-        kernel=LK.STREAM, source="autovc_tpu_torch/csrc/lstm_stack.cu",
+        kernel=LK.STREAM, source="autovc_tpu_torch/csrc/lstm_fwd.cuh",
         replaces="autovc_tpu/ops/lstm_pallas.py:271"),
     "lstm_train_fwd": dict(
-        kernel=LT.FWD, source="autovc_tpu_torch/csrc/lstm_train.cu",
+        kernel=LT.FWD, source="autovc_tpu_torch/csrc/lstm_fwd.cuh",
         replaces="autovc_tpu/ops/lstm_train_pallas.py:356"),
     "lstm_train_bwd": dict(
         kernel=LT.BWD, source="autovc_tpu_torch/csrc/lstm_train.cu",
@@ -194,6 +196,13 @@ def compare_lstm(name: str, rows: int, dtype, gen, dev) -> dict:
     scale = float(ref.abs().max())
     ok = err < 1e-4 if dtype == torch.float32 else err / scale < 2e-2
     ms = timed_ms(lambda: LK.launch(kernel, xp0, whh, wih, bias), 5)
+    if kernel is LK.STREAM:
+        # kernel 3's plan and its time per round (T + L - 1 rounds)
+        log({"phase": "compare", "kernel": f"{name} plan", "rows": rows,
+             "dtype": str(dtype),
+             "plan": dataclasses.asdict(LK.device_plan(
+                 rows, H, L, dtype == torch.bfloat16, dev)),
+             "per_round_us": ms * 1e3 / (T + L - 1)})
     plain_ms = timed_ms(lambda: LK.lstm_stack_plain(xp0, whh, wih, bias), 1)
     lib_params = [{k: v.to(dtype) for k, v in p.items()} for p in params]
     xl = x.to(dtype)
@@ -278,6 +287,9 @@ def compare_lstm_train(geom: str, L: int, H: int, I: int, rows: int, T: int,
     torch.cuda.synchronize()
 
     fwd_ms = timed_ms(lambda: LT.fwd_launch(xp0, *wf, bias), 3)
+    log({"phase": "compare", "kernel": "lstm_train_fwd plan", **info,
+         "plan": dataclasses.asdict(LK.device_plan(rows, H, L, bf16, dev)),
+         "per_round_us": fwd_ms * 1e3 / (T + L - 1)})
     bwd_ms = timed_ms(lambda: LT.bwd_launch(*saved, *cts, *wb), 3)
     # kernel 7's two launches, (a) the recurrence and (b) the dW / db tiles
     # (one launch each a call), apart: the mean device time of the launches
@@ -785,7 +797,7 @@ def phase_train(card: str, steps_min: int = 8) -> dict:
         torch.cuda.synchronize()
     prof_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, top = device_busy(prof)
-    kernel_ms = kernel_ms_of(prof, ("lstm_train_fwd_kernel",
+    kernel_ms = kernel_ms_of(prof, ("lstm_fwd_kernel",
                                     "lstm_train_bwd_kernel", "dw_bf16_kernel",
                                     "dw_f32_kernel"))
     res = {"phase": "train", "steps": steps, "epochs": n_epochs,
@@ -798,8 +810,9 @@ def phase_train(card: str, steps_min: int = 8) -> dict:
            # device time it records set against the unprofiled median step
            "device_idle_share_of_median_step":
                1.0 - busy_ms / (step_s * 1e3),
-           # kernel 7 of lstm1 and lstm2 is lstm_train_bwd_kernel (the
-           # recurrence) and dw_*_kernel (its dW / db products)
+           # kernel 6 of lstm1 and lstm2 is lstm_fwd_kernel, kernel 7
+           # lstm_train_bwd_kernel (the recurrence) and dw_*_kernel (its
+           # dW / db products)
            "device_ms_by_kernel": top, "train_kernel_ms": kernel_ms,
            "card": card, "ok": ok}
     log(res)

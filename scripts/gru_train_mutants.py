@@ -4,8 +4,9 @@
 
 Needs an NVIDIA GPU and nvcc.  As ``scripts/lstm_train_mutants.py`` (whose
 runner it uses): for each mutant the port is copied into a temporary
-directory, one edit is made to the copy's ``csrc/gru_train.cu``, and a
-subprocess holds the mutated kernels against their plain versions with
+directory and one edit is made to the copy's ``csrc/gru_train.cu``; every
+copy's kernels are built at once, then for each a subprocess holds the
+mutated kernels against their plain versions with
 ``chip_smoke.compare_gru_train`` at the smoke run's three geometries (f32
 and bf16 at 8 x 2475, bf16 at 32 x 1375).  The first "mutant" is an
 unmutated copy.  Prints one JSON line per mutant: each geometry's "pass"
@@ -53,4 +54,4 @@ print("RESULT " + json.dumps(out))
 """
 
 if __name__ == "__main__":
-    sys.exit(main(MUTANTS, SOURCE, CHECK))
+    sys.exit(main(MUTANTS, SOURCE, CHECK, ("gru_train.cu",)))

@@ -10,6 +10,8 @@ backend="pallas", interpret=True, fast_math=False)``.  Both sides load the
 same .ckpt files written by the JAX package, and the port's sampling noise
 is the JAX draw.  Bars: embedding MSE < 1e-8, post-mel MSE < 1e-6,
 waveform atol 1e-3."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,9 +19,11 @@ import pytest
 import torch
 
 from autovc_tpu import models as JM
+from autovc_tpu.audio import Audio as JAudio
 from autovc_tpu.audio import io as jio
 from autovc_tpu.audio import tools as jtools
 from autovc_tpu.config import ConverterConfig as JConv
+from autovc_tpu.voice_converter import VoiceConverter as JVC
 from autovc_tpu.models import autoencoder as JAE
 from autovc_tpu.models import speaker_encoder as JSE
 from autovc_tpu.models import wavernn as JW
@@ -113,7 +117,7 @@ def slice_run(tmp_path_factory):
     finally:
         mp.undo()
     stage_times, vc.stage_times = vc.stage_times, None
-    return dict(vc=vc, src_p=src_p, trg_p=trg_p, c_src=c_src, c_trg=c_trg,
+    return dict(vc=vc, paths=paths, src_p=src_p, trg_p=trg_p, c_src=c_src, c_trg=c_trg,
                 post=np.asarray(post), ref_wav=ref_wav, out=out,
                 stage_times=stage_times)
 
@@ -130,7 +134,7 @@ def test_slice_post_mel(slice_run):
     vc = slice_run["vc"]
     chunks, _ = TMEL.mel_spec_auto_encoder_sliced(
         slice_run["src_p"], vc.AE.config.spectrogram, overlap=0.5,
-        device="cpu")
+        pcm16=True, device="cpu")
     post = TAE.batch_forward(vc.AE.params, chunks,
                              torch.from_numpy(slice_run["c_src"][None]),
                              torch.from_numpy(slice_run["c_trg"][None]),
@@ -154,3 +158,46 @@ def test_slice_stage_times(slice_run):
     assert set(times) == {"preprocess", "embed_source", "embed_target", "mel",
                           "autoencoder", "vocoder", "download", "outprocess"}
     assert all(t >= 0.0 for t in times.values())
+
+
+@pytest.mark.parametrize("save_dir,where", [
+    ("x", "results/x"), ("results/x", "results/x"), (None, "results"),
+    ("results", "results")])
+def test_convert_saves_where_the_jax_package_does(slice_run, tmp_path,
+                                                  monkeypatch, save_dir,
+                                                  where):
+    """``convert(save_name=..., save_dir=...)`` writes its wav to the same
+    path relative to the working directory in both packages.  The JAX
+    converter runs its own ``convert`` unchanged; only its model stages
+    are stubbed with zeros (their outputs do not decide the path), and so
+    are the port's."""
+    monkeypatch.chdir(tmp_path)
+    mel_n = 80
+    jvc = JVC(slice_run["paths"]["auto_encoder"],
+              slice_run["paths"]["speaker_encoder"],
+              slice_run["paths"]["vocoder"],
+              config=JConv().with_overrides(vocoder=VOC), verbose=False,
+              ae_precision="f32", vocoder_backend="xla")
+    emb = np.zeros(256, np.float32)
+    monkeypatch.setattr(jvc, "_embed", lambda audio: emb)
+    monkeypatch.setattr(jvc, "_speaker_embedding", lambda *a: emb)
+    monkeypatch.setattr(JAE, "batch_forward_jit",
+                        lambda *a, **k: jnp.zeros((mel_n, 10)))
+    monkeypatch.setattr(JW, "generate",
+                        lambda *a, **k: np.zeros(2750, np.float32))
+    vc = slice_run["vc"]
+    monkeypatch.setattr(vc, "_embed", lambda audio: emb)
+    monkeypatch.setattr(vc, "_speaker_embedding", lambda *a: emb)
+    monkeypatch.setattr(vc, "_fused_convert",
+                        lambda *a, **k: np.zeros(2750, np.float32))
+    src = slice_run["src_p"]
+    written = {}
+    for name, conv, audio_cls in (("jax", jvc, JAudio), ("torch", vc, Audio)):
+        out = f"{name}.wav"
+        conv.convert(audio_cls(src.copy(), sr_org=SR), "target",
+                     save_name=out, save_dir=save_dir, preprocess=(),
+                     outprocess=())
+        found = sorted(str(p.relative_to(tmp_path))
+                       for p in tmp_path.rglob(out))
+        written[name] = [os.path.dirname(f) for f in found]
+    assert written["jax"] == written["torch"] == [where]

@@ -57,12 +57,16 @@ def test_lstm_kernel_matches_plain(cuda_device, rows, kernel, dtype):
     (1, 3, 64, torch.float32), (2, 11, 256, torch.float32),
     (3, 5, 128, torch.float32), (2, 11, 256, torch.bfloat16),
     (1, 16, 512, torch.bfloat16),
-    # kernel 7's bf16 edges: lstm2 width, a ragged M-tile, the speaker
+    # kernels 6/7's bf16 edges: lstm2 width, a ragged M-tile, the speaker
     # encoder's stack (3 M-tiles), weights too large to be resident (the
-    # "mma_l2" route), two row groups
+    # "mma_l2" route, up to the deepest stack StackTrain takes), row groups
+    # (kernel 6: 3 groups at 150 rows, 2 at 100)
     (2, 16, 1024, torch.bfloat16), (2, 33, 1024, torch.bfloat16),
     (3, 48, 256, torch.bfloat16), (3, 16, 1024, torch.bfloat16),
-    (1, 150, 256, torch.bfloat16)])
+    (4, 16, 1024, torch.bfloat16), (1, 150, 256, torch.bfloat16),
+    (2, 100, 256, torch.bfloat16),
+    # H % 32 == 16: the forward's last K chunk is half full
+    (2, 20, 272, torch.bfloat16)])
 def test_lstm_train_kernels_match_plain(cuda_device, L, B, H, dtype):
     """Kernels 6 and 7 against their plain versions, with cotangents on ys,
     h_fin and c_fin: f32 forward at atol 1e-5 and each gradient within 1e-4
@@ -100,6 +104,23 @@ def test_lstm_train_kernels_match_plain(cuda_device, L, B, H, dtype):
     want = LT.lstm_train_bwd_plain(ref[5], ref[3], ref[4], *cts, *wb)
     for a, b in zip(got, want):
         close(a, b, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [9, 33])
+def test_lstm_stream_at_lstm2_width(cuda_device, rows):
+    """Kernel 3 at the decoder lstm2's width (2 x 1024, input 512), bf16:
+    one M-tile at 9 rows, a ragged third at 33; within 2e-2 of max |ref|."""
+    gen = torch.Generator().manual_seed(rows)
+    params = from_jax_params(R.init_lstm_stack(gen, 512, 1024, 2),
+                             cuda_device)
+    x = torch.randn(rows, 24, 512, generator=gen).to(cuda_device)
+    xp0 = LK.hoist_xp0(params[0], x, "bf16")
+    packed = LK.pack_stack(params, torch.bfloat16)
+    LK.STREAM.launches = 0
+    out = LK.launch(LK.STREAM, xp0, *packed)
+    assert LK.STREAM.launches == 1
+    _close(out, LK.lstm_stack_plain(xp0, *packed), lambda s: 2e-2 * s)
 
 
 @pytest.mark.cuda
@@ -201,8 +222,13 @@ def test_gru_pair_runs_the_kernels(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,I,H,rows,kernel", [(3, 40, 256, 3, "SKEWED"),
-                                               (1, 320, 512, 9, "STREAM")])
+@pytest.mark.parametrize("L,I,H,rows,kernel", [
+    (3, 40, 256, 3, "SKEWED"), (1, 320, 512, 9, "STREAM"),
+    # kernel 3 at the speaker encoder's stack, and deeper than kernel 7's
+    # MAX_LAYERS (at 9 layers a round's layers take two waves of warps):
+    # inference has no depth limit
+    (3, 40, 256, 12, "STREAM"), (5, 64, 256, 10, "STREAM"),
+    (9, 32, 256, 10, "STREAM")])
 def test_bf16_scan_stacks_run_the_kernels(cuda_device, L, I, H, rows,
                                           kernel):
     """The speaker encoder's stack and decoder lstm1 at inference under the

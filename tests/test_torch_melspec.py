@@ -53,11 +53,26 @@ def test_sliced_chunks_parity(seconds, overlap):
                                                       overlap=overlap,
                                                       pcm16=True)
     out, slices = TM.mel_spec_auto_encoder_sliced(wav, cfg, overlap=overlap,
-                                                  device="cpu")
+                                                  pcm16=True, device="cpu")
     assert [s.start for s in slices] == [s.start for s in ref_slices]
     assert out.shape == ref.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL,
                                atol=1e-5)
+
+
+def test_sliced_chunks_parity_at_the_defaults():
+    """Both functions called with their defaults (no PCM16 re-quantisation
+    in either) give the same chunks."""
+    wav = _wav(2.3, 22050, 4)
+    ref, ref_slices = JM.mel_spec_auto_encoder_sliced(wav)
+    out, slices = TM.mel_spec_auto_encoder_sliced(wav, device="cpu")
+    assert [s.start for s in slices] == [s.start for s in ref_slices]
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL,
+                               atol=1e-5)
+    # the float path is not the PCM16 one: a re-quantised call differs
+    pcm, _ = TM.mel_spec_auto_encoder_sliced(wav, pcm16=True, device="cpu")
+    assert float((pcm - out).abs().max()) > 0
 
 
 @pytest.mark.parametrize("n", [0, 1, 274, 275, 22050, 88200, 529200])
