@@ -242,6 +242,46 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Grid-wide barrier on a monotonic arrival count: the k-th barrier of a
+// launch waits for k x gridDim.x arrivals (count == 0 at launch).  One
+// release reduction arrives and acquire loads wait: one L2 round trip
+// fewer on the critical path than grid_sync's count-reset-generation
+// scheme.  A barrier that never opens aborts the launch (~2^26 polls).
+__device__ __forceinline__ void grid_sync_count(unsigned int* count,
+                                                unsigned int& k) {
+  __syncthreads();
+  ++k;
+  if (threadIdx.x == 0) {
+    const unsigned int target = k * gridDim.x;
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
+                 :: "l"(count) : "memory");
+    unsigned int v, polls = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(v) : "l"(count) : "memory");
+      if (++polls == (1u << 26)) __trap();
+    } while (v < target);
+  }
+  __syncthreads();
+}
+
+// Streaming loads (each value is read once: evict-first, so they do not
+// push the ring or the weights out of L2).
+__device__ __forceinline__ float ld_stream(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// A 16-byte weight fragment: from shared memory (resident) or, read-only,
+// from L2.
+__device__ __forceinline__ uint4 ld_w16(const __nv_bfloat16* p,
+                                        bool resident) {
+  return resident ? *reinterpret_cast<const uint4*>(p)
+                  : __ldg(reinterpret_cast<const uint4*>(p));
+}
+
 // Launch a persistent cooperative kernel: at most one block per SM and no
 // more blocks than `want`.  Returns a cudaError_t value.
 template <typename Kern, typename Args>

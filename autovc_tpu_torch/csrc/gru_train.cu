@@ -15,22 +15,25 @@
 //     as hand-written products over K = T * B (dw_tiles.cuh, shared with
 //     kernel 7), as the TPU kernel forms them in its own body.
 //
-// What bounds them on an H100: the recurrences are a dependent chain of
-// 2 T stages, each a matvec of B rows (8 on the training path) against up
-// to two 512 x 1536 weight blocks (1.5 MB each in bf16), so a stage is
-// latency-bound (staging, FMA issue, a grid barrier), never compute- or
-// HBM-bound; the saved state (~243 MB per call at 8 x 2475) and the
+// What bounds them on an H100: the recurrences are dependent chains of
+// rounds, each a product of B rows (8 on the training path) with up to
+// two 512 x 1536 weight blocks (1.5 MB each in bf16), so a round is
+// latency-bound (operand loads, products, a grid barrier), never compute-
+// or HBM-bound; the saved state (~243 MB per call at 8 x 2475) and the
 // streams of the backward must leave and come back through HBM.  The dW
 // products are the only dense work (3 x 31 GFLOP at 8 x 2475).  What the
-// design does about it: the structure of kernels 6/7 (one persistent
-// cooperative grid, a warp pair per hidden unit's r, z, n columns over
-// halves of K, the cell update as the epilogue), with the three weight
-// blocks (4.7 MB in bf16) resident in the 50 MB L2 across all rounds and
-// the saved state written with streaming stores so it does not evict them;
-// rows and steps are not padded (the TPU's 8-row / 32-step blocks were for
-// VMEM).  dhp, which the recurrence and the dW products both need, is the
-// dxp stream with its n lane times the saved r: the recurrence keeps one
-// step of it in a (B, 3H) scratch, the dW products form it as they stage.
+// designs do about it: one persistent cooperative grid, the saved state
+// written with streaming stores so it does not evict what stays in L2,
+// rows and steps not padded (the TPU's 8-row / 32-step blocks were for
+// VMEM).  Kernel 4 runs two stages a step on the CUDA cores (a warp pair
+// per hidden unit's r, z, n columns over halves of K, the cell update as
+// the epilogue, the weights in L2).  Kernel 5's chain is layer-skewed: one
+// round a step for both layers, T barriers in all, all rows in one
+// tensor-core pass in bf16, each block's weight rows resident in shared
+// memory, the operands exchanged through a bf16 ring in L2 (details at
+// kernel 5 (a) below).  dhp, which the recurrence and the dW products both
+// need, is the dxp stream with its n lane times the saved r: the
+// recurrence writes it to the ring, the dW products form it as they stage.
 #include "dw_tiles.cuh"
 
 namespace avc {
@@ -226,15 +229,64 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// kernel 5 (a): the reverse-time chain.  Per step t, two rounds, each
-// followed by a grid barrier:
-//   R2(t): dhp2_t W_hh2^T (layer 2's dh for t-1) and dxp2_t W_ih2x^T (layer
-//          1's dh at t); epilogue: layer 1's gate derivatives at t;
-//   R1(t): dhp1_t W_hh1^T (layer 1's dh for t-1); epilogue: layer 2's gate
-//          derivatives at t-1.
-// The carried dh of each layer (dh z, then plus the matvec) lives in a
-// (B, H) scratch; dhp of the current step in a (B, 3H) scratch.
+// kernel 5 (a): the reverse-time chain, layer-skewed
 // ---------------------------------------------------------------------------
+//
+// Layer 2's chain never reads layer 1: at step t it needs only dh2s[t] and,
+// from itself at t + 1, dh2 z2 + dhp2 W_hh2^T.  Layer 1 at t needs dxp2_t
+// W_ih2x^T (layer 2 at t) and dhp1_{t+1} W_hh1^T (itself at t + 1).  So
+// round s does layer 2 at t = T - 1 - s and layer 1 at t + 1 = T - s, and
+// every operand comes from round s - 1:
+//   * round 0 (the prologue): layer 2 at T - 1, from its cotangent alone;
+//   * round s = 1 .. T: layer 2 at T - 1 - s (s < T), from dhp2_{t+1}
+//     W_hh2^T; layer 1 at T - s, from dxp2_{T-s} W_ih2x^T + dhp1_{T-s+1}
+//     W_hh1^T (the second product from s = 2 on);
+//   * a grid barrier after rounds 0 .. T - 1: T barriers, where a round per
+//     (step, layer) took 2 T - 1.
+// The arithmetic and operand rounding of each value are those of
+// gru_train_pallas._bwd_kernel: dxp2, dhp2 and dhp1 rounded to the compute
+// dtype as product operands, f32 accumulation, gate derivatives in f32.
+//
+//   * dxp2, dhp1 and dhp2 pass between rounds through a two-slot ring in L2
+//     in the compute dtype, (2, 3, B, 3H): round s writes slot s & 1 and
+//     reads (s + 1) & 1, written with ordinary stores so it stays in L2;
+//     the f32 outputs dxp1, dxp2 (also the dW products' inputs) leave by
+//     streaming stores;
+//   * a block owns `units` hidden units (a multiple of 8, one n8 tile per
+//     8) for the whole call: of ONE layer where both layers' blocks fit on
+//     the card ("split": 64 + 64 blocks at H = 512; a layer-1 block runs
+//     two products a round, a layer-2 block one), else of both;
+//   * bf16: mma.sync m16n8k16 over ceil(rows / 16) M-tiles, rows past the
+//     group read as zero.  The round's products are a list of 32-value K
+//     chunks (48 per product at H = 512), split in 8 contiguous ranges,
+//     one a warp; the K loop is outermost, so each B fragment feeds every
+//     M-tile.  B is the param-layout weight row (row j = unit j's 3H
+//     weights: the col-major B operand), resident in shared memory for the
+//     whole call ("mma_smem", pitch 3H + 32 values: conflict-free 16-byte
+//     fragment loads) or read from L2 ("mma_l2");
+//   * f32 ("fma"): each product's operand staged 8 rows at a time, FMA dot
+//     products by a warp pair per unit over the two halves of K;
+//   * the epilogue: thread i owns the (layer, row, unit) items i, i + 256,
+//     ..., units fastest; it keeps each item's carried dh z in a register,
+//     sums the warps' partial tiles in a fixed order (no shared-memory
+//     atomics: they compile to compare-and-swap loops), and loads the next
+//     round's saved r, z, n, hn, h_{t-1} and cotangent before the barrier.
+// Kernel 7's product (lstm_train.cu:bwd_product_mma) is not shared: it
+// runs the M-tiles outermost and feeds two weight matrices from one A
+// operand, where this round feeds each matrix its own A; sharing it would
+// change kernel 7's loop order and its measured times (a separate
+// redesign).
+// The launch plan (route, split, units, rows per group, shared-memory
+// bytes) is ops/gru_train_kernels.py:gru_bwd_plan; the kernel recomputes
+// its layout and refuses a plan that disagrees.  Batches above one group
+// run the rounds once per row group (rows are independent sequences).
+
+constexpr int kBwdPitchPad = 32;    // resident weight row pitch 3H + 32
+constexpr int kBwdMaxMTiles = 4;    // 16-row M-tiles of one row group
+constexpr int kBwdMaxPairs = 4;     // (layer, row, unit) items a thread
+// Matrix m multiplies ring entry m: W_ih2x <- dxp2 and W_hh1 <- dhp1
+// (layer 1's dh), W_hh2 <- dhp2 (layer 2's).
+constexpr int kMatX = 0, kMatH1 = 1, kMatH2 = 2, kMats = 3;
 
 template <typename WT>
 struct GruBwdArgs {
@@ -242,178 +294,407 @@ struct GruBwdArgs {
   const float* hs;     // (2, T, B, H): saved h1, h2
   const float* dh1s;   // (T, B, H): cotangent of h1
   const float* dh2s;   // (T, B, H): cotangent of h2
-  const WT* whh1;      // (H, 3H): W_hh1 in the param layout (row j = unit
-                       //   j's 3H weights, contiguous)
-  const WT* wih2x;     // (H, 3H)
-  const WT* whh2;      // (H, 3H)
+  const WT* wih2x;     // (H, 3H) in the param layout (row j = unit j's 3H
+  const WT* whh1;      //   weights, contiguous)
+  const WT* whh2;
   float* dxp1;         // (T, B, 3H) out
   float* dxp2;         // (T, B, 3H) out: dbase2
-  float* dhp1;         // scratch (B, 3H): layer 1's dhp of the current step
-  float* dhp2;         // scratch (B, 3H)
-  float* dh1c;         // scratch (B, H): layer 1's carried dh
-  float* dh2c;         // scratch (B, H)
-  unsigned int* bar;   // (2,): grid barrier, bar[0] == 0 at launch
+  WT* ring;            // (2, 3, B, 3H) scratch: dxp2, dhp1, dhp2 by slot
+  unsigned int* bar;   // arrival count, 0 at launch
   int T, B, H;
+  int units;           // hidden units per block, a multiple of 8
+  int rows;            // rows per group
+  int mpad;            // rows padded to the row tile (16 mma, 8 fma)
+  int resident;        // bf16: the weights live in shared memory
+  int split;           // a block holds one layer (else both)
 };
 
-// Gate derivatives of layer l (0 or 1), unit j, row `row`, step t, given
-// its total dh (arithmetic and order of gru_train_pallas._bwd_kernel):
-// writes dxp (out) and dhp (scratch); returns dh z, the part of the next
-// (earlier) step's dh that does not go through W_hh.
+// Shared-memory layout in bytes: [resident weight rows (bf16) | f32 stage
+// and warp sums (f32)], then the partial sums (parts, 8 warps or kSplit
+// halves of them, each (layers, mpad, units) f32).  gru_bwd_plan computes
+// the same sizes.
+__host__ __device__ inline int bwd_block_layers(int split) {
+  return split ? 1 : 2;
+}
+__host__ __device__ inline size_t bwd_parts_offset(bool mma, int resident,
+                                                   int H, int units,
+                                                   int split) {
+  const size_t K = 3 * (size_t)H;
+  if (mma)
+    return resident ? (size_t)(split ? 2 : 3) * units * (K + kBwdPitchPad) * 2
+                    : 0;
+  return ((size_t)kRB * K + kWarps * kRB) * sizeof(float);
+}
+__host__ __device__ inline size_t bwd_smem_bytes(bool mma, int resident,
+                                                 int H, int units, int mpad,
+                                                 int split) {
+  const int nparts = mma ? kWarps : kSplit;
+  return bwd_parts_offset(mma, resident, H, units, split) +
+         (size_t)nparts * bwd_block_layers(split) * mpad * units *
+             sizeof(float);
+}
+
+// The schedule.  Layer index 0 is layer 1, 1 is layer 2.
+__device__ __forceinline__ int bwd_layer(int m) { return m == kMatH2; }
+// The step layer l finishes in round s (valid when 0 <= step < T).
+__device__ __forceinline__ int bwd_step(int l, int s, int T) {
+  return l ? T - 1 - s : T - s;
+}
+// Whether round s runs the product of matrix m.
+__device__ __forceinline__ bool bwd_job(int m, int s, int T) {
+  return m == kMatX ? s >= 1 : m == kMatH1 ? s >= 2 : s >= 1 && s < T;
+}
+// The ring slot round s writes, the slot it reads (written in round
+// s - 1), and the slot of layer 1's dxp2 (also written in round s - 1).
+__device__ __forceinline__ int bwd_write_slot(int s) { return s & 1; }
+__device__ __forceinline__ int bwd_read_slot(int s) { return (s + 1) & 1; }
+__device__ __forceinline__ int bwd_x_slot(int s) { return bwd_read_slot(s); }
+
 template <typename WT>
-__device__ __forceinline__ float gate_grads(const GruBwdArgs<WT>& a, int l,
-                                            int t, int row, int j,
-                                            float dh) {
+__device__ __forceinline__ WT* ring_entry(const GruBwdArgs<WT>& a, int slot,
+                                          int m, int row) {
+  return a.ring + ((size_t)(slot * kMats + m) * a.B + row) * 3 * a.H;
+}
+
+template <typename WT>
+__device__ __forceinline__ const WT* bwd_weights(const GruBwdArgs<WT>& a,
+                                                 int m) {
+  return m == kMatX ? a.wih2x : m == kMatH1 ? a.whh1 : a.whh2;
+}
+
+// What a block owns: units j0 .. j0 + nu - 1 of layers llo .. llo + nl - 1,
+// the matrices mlo .. mhi - 1.  Split: layer 2's blocks first.
+struct BwdRole {
+  int j0, nu, llo, nl, mlo, mhi;
+};
+
+template <typename WT>
+__device__ __forceinline__ BwdRole bwd_role(const GruBwdArgs<WT>& a) {
+  const int per = (a.H + a.units - 1) / a.units;   // blocks per layer
+  BwdRole r;
+  int b = blockIdx.x;
+  r.llo = a.split && b < per ? 1 : 0;
+  r.nl = bwd_block_layers(a.split);
+  if (a.split) b %= per;
+  r.j0 = b * a.units;
+  r.nu = min(a.units, a.H - r.j0);
+  r.mlo = r.llo ? kMatH2 : kMatX;
+  r.mhi = r.llo + r.nl - 1 ? kMats : kMatH2;
+  return r;
+}
+
+// Chunks [lo, hi) of one product into acc (one m16n8 tile per M-tile):
+// lane (gid, tq) loads values 8 tq .. 8 tq + 7 of a chunk of its two A
+// rows and of its B row (one 16-byte load each) and feeds them to two k16
+// steps as the fragment's k = (2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9): A and
+// B take the same permutation of k, so the sum is the same.  KB chunks'
+// loads are issued together; values past K and rows past the group read
+// as zero.
+template <int MT>
+__device__ __forceinline__ void bwd_chunks_mma(const __nv_bfloat16* A,
+                                               int K, int rows_g,
+                                               const __nv_bfloat16* W,
+                                               bool resident, bool u_ok,
+                                               int lo, int hi,
+                                               float (&acc)[MT][4]) {
+  constexpr int KB = MT == 1 ? 8 : MT == 2 ? 4 : 2;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tq = lane & 3;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int c = lo; c < hi; c += KB) {
+    uint4 x[KB][MT][2], y[KB];
+#pragma unroll
+    for (int q = 0; q < KB; ++q) {
+      const int k = (c + q) * 32 + 8 * tq;
+      const bool in = c + q < hi && k < K;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int rlo = mt * 16 + gid, rhi = rlo + 8;
+        x[q][mt][0] = in && rlo < rows_g
+            ? __ldcg(reinterpret_cast<const uint4*>(A + (size_t)rlo * K + k))
+            : zero;
+        x[q][mt][1] = in && rhi < rows_g
+            ? __ldcg(reinterpret_cast<const uint4*>(A + (size_t)rhi * K + k))
+            : zero;
+      }
+      y[q] = in && u_ok ? ld_w16(W + k, resident) : zero;
+    }
+#pragma unroll
+    for (int q = 0; q < KB; ++q) {
+      if (c + q >= hi) break;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4* xa = x[q][mt];
+        const uint32_t s0[4] = {xa[0].x, xa[1].x, xa[0].y, xa[1].y};
+        const uint32_t s1[4] = {xa[0].z, xa[1].z, xa[0].w, xa[1].w};
+        mma_bf16(acc[mt], s0, y[q].x, y[q].y);
+        mma_bf16(acc[mt], s1, y[q].z, y[q].w);
+      }
+    }
+  }
+}
+
+// The bf16 products of round s for n8 tile cg of the block's units: this
+// warp's range of the round's K chunks (the active products' chunk lists,
+// in matrix order) into acc[li] (li: the block's layer).
+template <int MT>
+__device__ void bwd_product_mma(const GruBwdArgs<__nv_bfloat16>& a,
+                                const BwdRole& r, int s, int g0, int rows_g,
+                                int cg, const __nv_bfloat16* wsm,
+                                float (&acc)[2][MT][4]) {
+  using WT = __nv_bfloat16;
+  const int K = 3 * a.H, nch = (K + 31) / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int li = 0; li < 2; ++li) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[li][mt][e] = 0.0f;
+    }
+  }
+  int jobs = 0;
+  for (int m = r.mlo; m < r.mhi; ++m) jobs += bwd_job(m, s, a.T) ? 1 : 0;
+  const int n = jobs * nch;
+  const int c0 = warp * n / kWarps, c1 = (warp + 1) * n / kWarps;
+  const int u = cg * 8 + (lane >> 2);   // this lane's B row (unit)
+  const size_t wp = a.resident ? (size_t)K + kBwdPitchPad : (size_t)K;
+  int base = 0;
+  for (int m = r.mlo; m < r.mhi; ++m) {
+    if (!bwd_job(m, s, a.T)) continue;
+    const int lo = max(c0, base) - base, hi = min(c1, base + nch) - base;
+    base += nch;
+    if (lo >= hi) continue;
+    const int slot = m == kMatX ? bwd_x_slot(s) : bwd_read_slot(s);
+    const WT* A = ring_entry(a, slot, m, g0);
+    const WT* W = a.resident
+        ? wsm + (size_t)(m - r.mlo) * a.units * wp + (size_t)u * wp
+        : bwd_weights(a, m) + (size_t)(r.j0 + u) * K;
+    if (bwd_layer(m) == r.llo)
+      bwd_chunks_mma<MT>(A, K, rows_g, W, a.resident, u < r.nu, lo, hi,
+                         acc[0]);
+    else
+      bwd_chunks_mma<MT>(A, K, rows_g, W, a.resident, u < r.nu, lo, hi,
+                         acc[1]);
+  }
+}
+
+// The f32 products of round s: each product's operand staged 8 rows at a
+// time, a warp pair (the two halves of K) per unit; the pair's sums are
+// added to parts[(part * nl + li) ...] (layer 1's two products in matrix
+// order).
+__device__ void bwd_product_fma(const GruBwdArgs<float>& a, const BwdRole& r,
+                                int s, int g0, int rows_g, float* stage,
+                                float* red, float* parts) {
+  const int K = 3 * a.H, U = a.units;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp % kUnits, part = warp / kUnits;
+  const int kpart = K / kSplit, k0 = part * kpart;
+  for (int i = threadIdx.x; i < kSplit * r.nl * a.mpad * U; i += kThreads)
+    parts[i] = 0.0f;
+  for (int m = r.mlo; m < r.mhi; ++m) {
+    if (!bwd_job(m, s, a.T)) continue;
+    const int li = bwd_layer(m) - r.llo;
+    const float* A = ring_entry(
+        a, m == kMatX ? bwd_x_slot(s) : bwd_read_slot(s), m, g0);
+    const float* W = bwd_weights(a, m);
+    for (int r0 = 0; r0 < rows_g; r0 += kRB) {
+      const int nr = min(kRB, rows_g - r0);
+      stage_rows(stage, A, r0, nr, K);
+      __syncthreads();
+      for (int u = slot; u < r.nu; u += kUnits) {
+        float acc[1][kRB] = {};
+        const float* const w[1] = {W + (size_t)(r.j0 + u) * K};
+        warp_dot(w, stage, K, k0, k0 + kpart, nr, acc);
+        float v[kRB];
+#pragma unroll
+        for (int i = 0; i < kRB; ++i) v[i] = acc[0][i];
+        float* rw = red + warp * kRB;
+        warp_sum_to_smem(v, rw);
+        if (lane < nr)
+          parts[((size_t)(part * r.nl + li) * a.mpad + r0 + lane) * U + u] +=
+              rw[lane];
+        __syncwarp();
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The saved forward state one gate-derivative update reads: layer l, step
+// t, row `row`, unit j (dy: the cotangent of h).
+struct GruIn {
+  float r, z, n, hn, hp, dy;
+};
+
+template <typename WT>
+__device__ __forceinline__ GruIn load_gru_in(const GruBwdArgs<WT>& a, int l,
+                                             int t, int row, int j) {
   const int H = a.H;
-  const size_t BH = (size_t)a.B * H, TBH = (size_t)a.T * BH;
-  const size_t at = l * TBH + (size_t)t * BH + (size_t)row * H;  // (l,t,row)
-  const WT* ac = a.acts + at * 4;
-  const float r = to_float(ac[j]), z = to_float(ac[H + j]);
-  const float n = to_float(ac[2 * H + j]), hn = to_float(ac[3 * H + j]);
-  const float h_prev = t > 0 ? __ldg(a.hs + at - BH + j) : 0.0f;
+  const size_t BH = (size_t)a.B * H;
+  const size_t at = ((size_t)l * a.T + t) * BH + (size_t)row * H;
+  const WT* ac = a.acts + at * 4 + j;
+  GruIn in;
+  in.r = ld_stream(ac);
+  in.z = ld_stream(ac + H);
+  in.n = ld_stream(ac + 2 * H);
+  in.hn = ld_stream(ac + 3 * H);
+  in.hp = t > 0 ? __ldcs(a.hs + at - BH + j) : 0.0f;
+  in.dy = __ldcs((l ? a.dh2s : a.dh1s) + (size_t)t * BH + (size_t)row * H +
+                 j);
+  return in;
+}
+
+// Gate derivatives (da_r, da_z, da_n) of one item given its total dh
+// (arithmetic and order of gru_train_pallas._bwd_kernel); returns dh z,
+// the part of the earlier step's dh that does not go through W_hh.
+__device__ __forceinline__ float gate_grads(const GruIn& in, float dh,
+                                            float (&d)[3]) {
+  const float r = in.r, z = in.z, n = in.n;
   const float da_n = dh * (1.0f - z) * (1.0f - n * n);
-  const float da_z = dh * (h_prev - n) * z * (1.0f - z);
-  const float da_r = da_n * hn * r * (1.0f - r);
-  float* dx = (l == 0 ? a.dxp1 : a.dxp2) + ((size_t)t * a.B + row) * 3 * H + j;
-  dx[0] = da_r;
-  dx[H] = da_z;
-  dx[2 * H] = da_n;
-  float* dp = (l == 0 ? a.dhp1 : a.dhp2) + (size_t)row * 3 * H + j;
-  dp[0] = da_r;
-  dp[H] = da_z;
-  dp[2 * H] = da_n * r;
+  const float da_z = dh * (in.hp - n) * z * (1.0f - z);
+  d[0] = da_n * in.hn * r * (1.0f - r);
+  d[1] = da_z;
+  d[2] = da_n;
   return dh * z;
 }
 
+// dxp of (l, t, row), unit j: f32 by streaming stores, and into ring slot
+// bwd_write_slot(s) as dhp (the n lane times r) and, for layer 2, dxp.
 template <typename WT>
-__device__ void bwd_round2(const GruBwdArgs<WT>& a, int t, WT* smem) {
-  const int H = a.H, B = a.B, K = 3 * H;
-  if (blockIdx.x * kUnits >= H) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int V = 2 * kRB;
-  const int slot = warp % kUnits, part = warp / kUnits;
-  const int kpart = K / kSplit, k0 = part * kpart;
-  const size_t BH = (size_t)B * H;
-  WT* hsm = smem;                  // dhp2_t rows
-  WT* xsm = smem + kRB * K;        // dxp2_t rows
-  float* red = reinterpret_cast<float*>(smem + 2 * kRB * K);
-  const float* dxp2_t = a.dxp2 + (size_t)t * B * K;
-  for (int r0 = 0; r0 < B; r0 += kRB) {
-    const int nr = min(kRB, B - r0);
-    if (t > 0) stage_rows(hsm, a.dhp2, r0, nr, K);
-    stage_rows(xsm, dxp2_t, r0, nr, K);
-    __syncthreads();
-    for (int j0 = blockIdx.x * kUnits; j0 < H; j0 += gridDim.x * kUnits) {
-      const int j = j0 + slot;
-      const bool epi = part == 0 && j < H && lane < nr;
-      if (j < H) {
-        float acc_h[1][kRB] = {}, acc_x[1][kRB] = {};
-        if (t > 0) {
-          const WT* const wh[1] = {a.whh2 + (size_t)j * K};
-          warp_dot(wh, hsm, K, k0, k0 + kpart, nr, acc_h);
-        }
-        const WT* const wx[1] = {a.wih2x + (size_t)j * K};
-        warp_dot(wx, xsm, K, k0, k0 + kpart, nr, acc_x);
-        float v[V];
-#pragma unroll
-        for (int r = 0; r < kRB; ++r) {
-          v[r] = acc_h[0][r];
-          v[kRB + r] = acc_x[0][r];
-        }
-        warp_sum_to_smem(v, red + warp * V);
-      }
-      __syncthreads();
-      if (epi) {
-        const int row = r0 + lane;
-        float dh_rec = 0.0f, dh_x = 0.0f;
-#pragma unroll
-        for (int p = 0; p < kSplit; ++p) {
-          dh_rec += red[(p * kUnits + slot) * V + lane];
-          dh_x += red[(p * kUnits + slot) * V + kRB + lane];
-        }
-        const size_t idx = (size_t)row * H + j;
-        // layer 1 at step t: its dh takes dxp2_t W_ih2x^T of the SAME step
-        const float dh1 = __ldg(a.dh1s + (size_t)t * BH + idx) +
-                          __ldcg(a.dh1c + idx) + dh_x;
-        a.dh1c[idx] = gate_grads(a, 0, t, row, j, dh1);
-        // layer 2's dh for step t-1: dh2 z2 (carried) + dhp2_t W_hh2^T
-        if (t > 0) a.dh2c[idx] = __ldcg(a.dh2c + idx) + dh_rec;
-      }
-      __syncthreads();
-    }
+__device__ __forceinline__ void store_grads(const GruBwdArgs<WT>& a, int l,
+                                            int t, int s, int row, int j,
+                                            const float (&d)[3], float r) {
+  const int H = a.H;
+  float* o = (l ? a.dxp2 : a.dxp1) + ((size_t)t * a.B + row) * 3 * H + j;
+  __stcs(o, d[0]);
+  __stcs(o + H, d[1]);
+  __stcs(o + 2 * H, d[2]);
+  const int ws = bwd_write_slot(s);
+  WT* p = ring_entry(a, ws, l ? kMatH2 : kMatH1, row) + j;
+  p[0] = from_float<WT>(d[0]);
+  p[H] = from_float<WT>(d[1]);
+  p[2 * H] = from_float<WT>(d[2] * r);
+  if (l) {
+    WT* x = ring_entry(a, ws, kMatX, row) + j;
+    x[0] = from_float<WT>(d[0]);
+    x[H] = from_float<WT>(d[1]);
+    x[2 * H] = from_float<WT>(d[2]);
   }
 }
 
+// The epilogue inputs of round s for this thread's items.
 template <typename WT>
-__device__ void bwd_round1(const GruBwdArgs<WT>& a, int t, WT* smem) {
-  const int H = a.H, B = a.B, K = 3 * H;
-  if (blockIdx.x * kUnits >= H) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int V = kRB;
-  const int slot = warp % kUnits, part = warp / kUnits;
-  const int kpart = K / kSplit, k0 = part * kpart;
-  const size_t BH = (size_t)B * H;
-  WT* hsm = smem;                  // dhp1_t rows
-  float* red = reinterpret_cast<float*>(smem + 2 * kRB * K);
-  for (int r0 = 0; r0 < B; r0 += kRB) {
-    const int nr = min(kRB, B - r0);
-    stage_rows(hsm, a.dhp1, r0, nr, K);
-    __syncthreads();
-    for (int j0 = blockIdx.x * kUnits; j0 < H; j0 += gridDim.x * kUnits) {
-      const int j = j0 + slot;
-      const bool epi = part == 0 && j < H && lane < nr;
-      if (j < H) {
-        float acc[1][kRB] = {};
-        const WT* const wh[1] = {a.whh1 + (size_t)j * K};
-        warp_dot(wh, hsm, K, k0, k0 + kpart, nr, acc);
-        float v[V];
+__device__ __forceinline__ void load_round_inputs(
+    const GruBwdArgs<WT>& a, const BwdRole& r, int s, int g0,
+    const bool (&ok)[kBwdMaxPairs], const int (&pli)[kBwdMaxPairs],
+    const int (&prow)[kBwdMaxPairs], const int (&punit)[kBwdMaxPairs],
+    GruIn (&in)[kBwdMaxPairs]) {
 #pragma unroll
-        for (int r = 0; r < kRB; ++r) v[r] = acc[0][r];
-        warp_sum_to_smem(v, red + warp * V);
-      }
-      __syncthreads();
-      if (epi) {
-        const int row = r0 + lane;
-        float dh_rec = 0.0f;
-#pragma unroll
-        for (int p = 0; p < kSplit; ++p)
-          dh_rec += red[(p * kUnits + slot) * V + lane];
-        const size_t idx = (size_t)row * H + j;
-        // layer 1's dh for step t-1: dh1 z1 (carried) + dhp1_t W_hh1^T
-        a.dh1c[idx] = __ldcg(a.dh1c + idx) + dh_rec;
-        // layer 2 at step t-1
-        const float dh2 = __ldg(a.dh2s + (size_t)(t - 1) * BH + idx) +
-                          __ldcg(a.dh2c + idx);
-        a.dh2c[idx] = gate_grads(a, 1, t - 1, row, j, dh2);
-      }
-      __syncthreads();
-    }
+  for (int k = 0; k < kBwdMaxPairs; ++k) {
+    const int l = r.llo + pli[k], t = bwd_step(l, s, a.T);
+    if (ok[k] && t >= 0 && t < a.T)
+      in[k] = load_gru_in(a, l, t, g0 + prow[k], r.j0 + punit[k]);
   }
 }
 
-template <typename WT>
-__global__ void __launch_bounds__(kThreads)
+template <typename WT, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
     gru_train_bwd_kernel(GruBwdArgs<WT> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  WT* smem = reinterpret_cast<WT*>(smem_raw);
-  const size_t BH = (size_t)a.B * a.H;
-  const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t nthreads = (size_t)gridDim.x * blockDim.x;
-  // layer 1 enters the last step with no carried dh; layer 2's gate
-  // derivatives at the last step need only its cotangent
-  for (size_t i = tid; i < BH; i += nthreads) {
-    a.dh1c[i] = 0.0f;
-    a.dh2c[i] = gate_grads(a, 1, a.T - 1, (int)(i / a.H), (int)(i % a.H),
-                           a.dh2s[(size_t)(a.T - 1) * BH + i]);
-  }
-  grid_sync(a.bar);
-  for (int t = a.T - 1; t >= 0; --t) {
-    bwd_round2(a, t, smem);
-    grid_sync(a.bar);
-    if (t > 0) {
-      bwd_round1(a, t, smem);
-      grid_sync(a.bar);
+  constexpr bool kMma = sizeof(WT) == 2;
+  constexpr int P = kBwdMaxPairs;
+  const int H = a.H, T = a.T, K = 3 * H, U = a.units;
+  const BwdRole r = bwd_role(a);
+  WT* wsm = reinterpret_cast<WT*>(smem_raw);
+  float* stage = reinterpret_cast<float*>(smem_raw);
+  float* parts = reinterpret_cast<float*>(
+      smem_raw + bwd_parts_offset(kMma, a.resident, H, U, a.split));
+  const int nparts = kMma ? kWarps : kSplit;
+  if constexpr (kMma) {
+    if (a.resident) {   // this block's rows of its matrices
+      const int vec = K / 8, pitch = K + kBwdPitchPad;
+      for (int i = threadIdx.x; i < (r.mhi - r.mlo) * U * vec;
+           i += kThreads) {
+        const int v = i % vec, row = i / vec, u = row % U;
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (u < r.nu)
+          x = __ldg(reinterpret_cast<const uint4*>(
+                        bwd_weights(a, r.mlo + row / U) +
+                        (size_t)(r.j0 + u) * K) + v);
+        *reinterpret_cast<uint4*>(wsm + (size_t)row * pitch + 8 * v) = x;
+      }
+      __syncthreads();
     }
+  }
+  const int MU = a.mpad * U;
+  int pli[P], prow[P], punit[P];
+  bool pin[P];   // the item lies in the padded tile and in this block
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int p = threadIdx.x + k * kThreads;
+    pli[k] = p / MU;
+    prow[k] = p % MU / U;
+    punit[k] = p % U;
+    pin[k] = pli[k] < r.nl && punit[k] < r.nu;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned int nbar = 0;   // barriers passed
+  for (int g0 = 0; g0 < a.B; g0 += a.rows) {
+    const int rows_g = min(a.rows, a.B - g0);
+    bool ok[P];
+    float carry[P];   // dh z of the item's layer, handed to its next step
+    GruIn in[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      ok[k] = pin[k] && prow[k] < rows_g;
+      carry[k] = 0.0f;
+    }
+    load_round_inputs(a, r, 0, g0, ok, pli, prow, punit, in);
+    for (int s = 0; s <= T; ++s) {
+      if constexpr (kMma) {
+        for (int cg = 0; cg < U / 8; ++cg) {
+          float acc[2][MT][4];
+          bwd_product_mma<MT>(a, r, s, g0, rows_g, cg, wsm, acc);
+          const int gid = lane >> 2, tq = lane & 3;
+#pragma unroll
+          for (int li = 0; li < 2; ++li) {
+            if (li >= r.nl) break;
+            float* p = parts + (size_t)(warp * r.nl + li) * MU + cg * 8 +
+                       2 * tq;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              const int rlo = mt * 16 + gid, rhi = rlo + 8;
+              p[rlo * U] = acc[li][mt][0];
+              p[rlo * U + 1] = acc[li][mt][1];
+              p[rhi * U] = acc[li][mt][2];
+              p[rhi * U + 1] = acc[li][mt][3];
+            }
+          }
+        }
+      } else {
+        bwd_product_fma(a, r, s, g0, rows_g, stage, stage + kRB * K, parts);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const int l = r.llo + pli[k], t = bwd_step(l, s, T);
+        if (!ok[k] || t < 0 || t >= T) continue;
+        float dh_prod = 0.0f;
+        for (int p = 0; p < nparts; ++p)
+          dh_prod += parts[((size_t)(p * r.nl + pli[k]) * a.mpad + prow[k]) *
+                               U + punit[k]];
+        const float dh = in[k].dy + (carry[k] + dh_prod);
+        float d[3];
+        carry[k] = gate_grads(in[k], dh, d);
+        store_grads(a, l, t, s, g0 + prow[k], r.j0 + punit[k], d, in[k].r);
+      }
+      if (s < T) {
+        // the next round's inputs, in flight across the barrier
+        load_round_inputs(a, r, s + 1, g0, ok, pli, prow, punit, in);
+        grid_sync_count(a.bar, nbar);
+      }
+    }
+    __syncthreads();   // the last epilogue's reads of parts
   }
 }
 
@@ -462,27 +743,67 @@ static int fwd_launch(const void* xp1, const void* base2, const void* whh1,
                             (H + kUnits - 1) / kUnits, smem, stream);
 }
 
+// Kernel 5 (a) on the plan of gru_bwd_plan (route, split, units per block,
+// rows per group, shared-memory bytes: checked against the kernel's own
+// layout), then (b).
 template <typename WT>
 static int bwd_launch(const void* acts, const void* hs, const void* dh1s,
                       const void* dh2s, const void* whh1, const void* wih2x,
                       const void* whh2, void* dxp1, void* dxp2, void* dwhh1,
                       void* dwih2x, void* dwhh2, void* dbhh1, void* dbhh2,
-                      void* dhp1, void* dhp2, void* dh1c, void* dh2c,
-                      void* bar, int T, int B, int H, cudaStream_t stream) {
+                      void* ring, void* bar, int T, int B, int H, int units,
+                      int rows, int resident, int split, int smem_bytes,
+                      cudaStream_t stream) {
+  constexpr bool mma = sizeof(WT) == 2;
+  if (T < 1 || B < 1 || H % 16 || units < 8 || units % 8 || rows < 1 ||
+      (resident && !mma))
+    return cudaErrorInvalidValue;
+  const int tile = mma ? 16 : kRB;
+  const int mpad = (rows + tile - 1) / tile * tile;
+  if (mpad > 16 * kBwdMaxMTiles ||
+      bwd_block_layers(split) * mpad * units > kBwdMaxPairs * kThreads)
+    return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(mma, resident, H, units, mpad, split);
+  if (smem != (size_t)smem_bytes) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int blocks = (split ? 2 : 1) * ((H + units - 1) / units);
+  if (blocks > sms) return cudaErrorInvalidValue;   // every unit needs a block
   GruBwdArgs<WT> a{static_cast<const WT*>(acts),
                    static_cast<const float*>(hs),
                    static_cast<const float*>(dh1s),
                    static_cast<const float*>(dh2s),
-                   static_cast<const WT*>(whh1), static_cast<const WT*>(wih2x),
+                   static_cast<const WT*>(wih2x), static_cast<const WT*>(whh1),
                    static_cast<const WT*>(whh2), static_cast<float*>(dxp1),
-                   static_cast<float*>(dxp2), static_cast<float*>(dhp1),
-                   static_cast<float*>(dhp2), static_cast<float*>(dh1c),
-                   static_cast<float*>(dh2c),
-                   static_cast<unsigned int*>(bar), T, B, H};
-  const size_t smem = (size_t)2 * kRB * 3 * H * sizeof(WT) +
-                      (size_t)kWarps * 2 * kRB * sizeof(float);
-  const int e = launch_cooperative(gru_train_bwd_kernel<WT>, a,
-                                   (H + kUnits - 1) / kUnits, smem, stream);
+                   static_cast<float*>(dxp2), static_cast<WT*>(ring),
+                   static_cast<unsigned int*>(bar), T, B, H, units, rows,
+                   mpad, resident, split};
+  int e;
+  if constexpr (!mma) {
+    e = launch_cooperative(gru_train_bwd_kernel<WT, 1>, a, blocks, smem,
+                           stream);
+  } else {
+    switch (mpad / 16) {
+      case 1:
+        e = launch_cooperative(gru_train_bwd_kernel<WT, 1>, a, blocks, smem,
+                               stream);
+        break;
+      case 2:
+        e = launch_cooperative(gru_train_bwd_kernel<WT, 2>, a, blocks, smem,
+                               stream);
+        break;
+      case 3:
+        e = launch_cooperative(gru_train_bwd_kernel<WT, 3>, a, blocks, smem,
+                               stream);
+        break;
+      default:
+        e = launch_cooperative(gru_train_bwd_kernel<WT, 4>, a, blocks, smem,
+                               stream);
+    }
+  }
   if (e != 0) return e;
   return launch_dw(
       gru_dw_problems(static_cast<const WT*>(acts),
@@ -492,7 +813,7 @@ static int bwd_launch(const void* acts, const void* hs, const void* dh1s,
                       static_cast<float*>(dwhh1), static_cast<float*>(dwih2x),
                       static_cast<float*>(dwhh2), static_cast<float*>(dbhh1),
                       static_cast<float*>(dbhh2), T, B, H),
-      sizeof(WT) == 2, stream);
+      mma, stream);
 }
 
 }  // namespace avc
@@ -518,17 +839,18 @@ extern "C" int gru_train_bwd_launch(const void* acts, const void* hs,
                                     const void* whh1, const void* wih2x,
                                     const void* whh2, void* dxp1, void* dxp2,
                                     void* dwhh1, void* dwih2x, void* dwhh2,
-                                    void* dbhh1, void* dbhh2, void* dhp1,
-                                    void* dhp2, void* dh1c, void* dh2c,
-                                    void* bar, int T, int B, int H, int bf16,
-                                    void* stream) {
+                                    void* dbhh1, void* dbhh2, void* ring,
+                                    void* bar, int T, int B, int H, int units,
+                                    int rows, int resident, int split,
+                                    int smem_bytes, int bf16, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   return bf16 ? avc::bwd_launch<__nv_bfloat16>(
                     acts, hs, dh1s, dh2s, whh1, wih2x, whh2, dxp1, dxp2,
-                    dwhh1, dwih2x, dwhh2, dbhh1, dbhh2, dhp1, dhp2, dh1c,
-                    dh2c, bar, T, B, H, st)
+                    dwhh1, dwih2x, dwhh2, dbhh1, dbhh2, ring, bar, T, B, H,
+                    units, rows, resident, split, smem_bytes, st)
               : avc::bwd_launch<float>(acts, hs, dh1s, dh2s, whh1, wih2x,
                                        whh2, dxp1, dxp2, dwhh1, dwih2x, dwhh2,
-                                       dbhh1, dbhh2, dhp1, dhp2, dh1c, dh2c,
-                                       bar, T, B, H, st);
+                                       dbhh1, dbhh2, ring, bar, T, B, H,
+                                       units, rows, resident, split,
+                                       smem_bytes, st);
 }

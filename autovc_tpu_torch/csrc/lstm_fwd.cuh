@@ -109,41 +109,11 @@ __device__ __forceinline__ int fwd_below_slot(int s) {
 // Whether layer l at step t has a W_hh product (h_{t-1} = 0 at t = 0).
 __device__ __forceinline__ bool fwd_has_hh(int t) { return t > 0; }
 
-// Grid-wide barrier on a monotonic arrival count: the k-th barrier of a
-// launch waits for k x gridDim.x arrivals (count == 0 at launch).  One
-// release reduction arrives and acquire loads wait: one L2 round trip
-// fewer on the critical path than grid_sync's count-reset-generation
-// scheme.  A barrier that never opens aborts the launch (~2^26 polls).
-__device__ __forceinline__ void grid_sync_count(unsigned int* count,
-                                                unsigned int& k) {
-  __syncthreads();
-  ++k;
-  if (threadIdx.x == 0) {
-    const unsigned int target = k * gridDim.x;
-    __threadfence();
-    asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
-                 :: "l"(count) : "memory");
-    unsigned int v, polls = 0;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-                   : "=r"(v) : "l"(count) : "memory");
-      if (++polls == (1u << 26)) __trap();
-    } while (v < target);
-  }
-  __syncthreads();
-}
-
 // Rows g0.. of layer `src`'s h in ring slot `slot`.
 template <typename WT>
 __device__ __forceinline__ const WT* ring_rows(const FwdArgs<WT>& a,
                                                int slot, int src, int g0) {
   return a.ring + ((size_t)(slot * a.L + src) * a.B + g0) * a.H;
-}
-
-__device__ __forceinline__ uint4 ld_w16(const __nv_bfloat16* p,
-                                        bool resident) {
-  return resident ? *reinterpret_cast<const uint4*>(p)
-                  : __ldg(reinterpret_cast<const uint4*>(p));
 }
 
 // One wave of round s: layers lw .. lw + n - 1 (n <= kWarps, all active).

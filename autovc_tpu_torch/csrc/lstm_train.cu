@@ -124,14 +124,6 @@ struct GateIn {
   float i, f, g, o, c_t, c_p, dy;
 };
 
-// Streaming loads (each value is read once: evict-first, so they do not
-// push the ring or the weights out of L2).
-__device__ __forceinline__ float ld_stream(const float* p) { return __ldcs(p); }
-__device__ __forceinline__ float ld_stream(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldcs(reinterpret_cast<const unsigned short*>(p))));
-}
-
 template <typename WT>
 __device__ __forceinline__ GateIn load_gate_in(const TrainBwdArgs<WT>& a,
                                                int l, int t, int row, int j) {
@@ -197,12 +189,6 @@ __device__ __forceinline__ const WT* ring_rows(const TrainBwdArgs<WT>& a,
   return a.ring + ((size_t)(slot * a.L + l) * a.B + g0) * 4 * a.H;
 }
 
-__device__ __forceinline__ uint4 ld_weights(const __nv_bfloat16* p,
-                                            bool resident) {
-  return resident ? *reinterpret_cast<const uint4*>(p)
-                  : __ldg(reinterpret_cast<const uint4*>(p));
-}
-
 // bf16 product of round (t, l): each warp's partial sums of dh_rec (m = 0)
 // and dh_below (m = 1) over its K chunks c = warp, warp + 8, ..., for every
 // M-tile and n8 tile of the block, to parts[((warp * 2 + m) * mpad + row) *
@@ -256,8 +242,8 @@ __device__ __forceinline__ void bwd_product_mma(
                                : zero;
           xhi[q] = in && hi_ok ? __ldcg(reinterpret_cast<const uint4*>(ahi + k))
                                : zero;
-          yh[q] = in && do_h ? ld_weights(bh + k, a.resident) : zero;
-          yb[q] = in && do_b ? ld_weights(bb + k, a.resident) : zero;
+          yh[q] = in && do_h ? ld_w16(bh + k, a.resident) : zero;
+          yb[q] = in && do_b ? ld_w16(bb + k, a.resident) : zero;
         }
 #pragma unroll
         for (int q = 0; q < kBatch; ++q) {

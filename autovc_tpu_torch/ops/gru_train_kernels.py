@@ -36,6 +36,7 @@ step, so they are packed per call.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -46,7 +47,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 FWD = _build.Kernel("gru_train.cu", "gru_train_fwd_launch",
                     [_P] * 11 + [_I] * 4 + [_P])
 BWD = _build.Kernel("gru_train.cu", "gru_train_bwd_launch",
-                    [_P] * 19 + [_I] * 4 + [_P])
+                    [_P] * 16 + [_I] * 9 + [_P])
 
 
 def pack_fwd(whh1: torch.Tensor, wih2x: torch.Tensor, whh2: torch.Tensor,
@@ -149,13 +150,20 @@ def gru_pair_bwd_plain(acts: torch.Tensor, hs: torch.Tensor,
         dxp1[t], dhp1 = _gate_grads(acts[0, t], h1p, dh1)
         z1 = acts[0, t, :, H:2 * H].float()
         dh1c = dh1 * z1 + torch.matmul(op(dhp1), w1t)
-    # weight gradients over all (t, b): h_{t-1} (zero at t = 0) against dhp,
-    # h1_t against dxp2
+    return (dxp1, dxp2, *gru_weight_grads(acts, hs, dxp1, dxp2, op))
+
+
+def gru_weight_grads(acts: torch.Tensor, hs: torch.Tensor,
+                     dxp1: torch.Tensor, dxp2: torch.Tensor, op):
+    """Kernel 5 (b) in PyTorch: the weight and bias gradients over all (t,
+    b) from the chain's dxp1, dxp2 (``op`` rounds the products' operands):
+    h_{t-1} (zero at t = 0) against dhp, h1_t against dxp2.  Returns
+    ``dwih2x``, ``dwhh1``, ``dbhh1``, ``dwhh2``, ``dbhh2``."""
     h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], dim=1)
     dhp1 = _with_reset(dxp1, acts[0])
     dhp2 = _with_reset(dxp2, acts[1])
     dw = "tbh,tbk->hk"
-    return (dxp1, dxp2, torch.einsum(dw, op(hs[0]), op(dxp2)),
+    return (torch.einsum(dw, op(hs[0]), op(dxp2)),
             torch.einsum(dw, op(h_prev[0]), op(dhp1)), dhp1.sum(dim=(0, 1)),
             torch.einsum(dw, op(h_prev[1]), op(dhp2)), dhp2.sum(dim=(0, 1)))
 
@@ -201,11 +209,139 @@ def fwd_launch(xp1: torch.Tensor, base2: torch.Tensor, whh1: torch.Tensor,
     return hs, acts
 
 
+# Kernel 5 (a)'s launch geometry (csrc/gru_train.cu): 256 threads a
+# block, at most 4 (layer, row, unit) items a thread and 4 M-tiles of 16
+# rows, resident weight rows of pitch 3H + 32 values, an H100's opt-in
+# shared memory per block.  The ring's entries, in the kernel's matrix
+# order: W_ih2x multiplies dxp2, W_hh1 dhp1, W_hh2 dhp2.
+THREADS, WARPS, SPLIT, ROW_TILE_F32 = 256, 8, 2, 8
+MAX_PAIRS, MAX_ROWS, PITCH_PAD = 4, 64, 32
+SMEM_MAX = 232448
+ENTRIES = ("dxp2", "dhp1", "dhp2")
+
+
+@dataclass(frozen=True)
+class BwdRound:
+    """Round ``s`` of kernel 5's layer-skewed chain: the step each layer
+    finishes (None: none), the ring entries its products read with their
+    slots, the slot it writes, and whether a grid barrier follows."""
+    s: int
+    layer2_step: int | None
+    layer1_step: int | None
+    reads: tuple            # ((entry, slot), ...) in matrix order
+    write_slot: int
+    barrier: bool
+
+
+def gru_bwd_schedule(T: int) -> list[BwdRound]:
+    """The T + 1 rounds of kernel 5 (a): round 0 does layer 2 at T - 1
+    from its cotangent; round s = 1 .. T does layer 2 at T - 1 - s (from
+    dhp2 W_hh2^T, s < T) and layer 1 at T - s (from dxp2 W_ih2x^T, and
+    dhp1 W_hh1^T from s = 2 on), every operand from the ring slot round
+    s - 1 wrote; T barriers."""
+    if T < 1:
+        raise ValueError(f"kernel 5 needs T >= 1, not {T}")
+    rounds = []
+    for s in range(T + 1):
+        read = (s + 1) % 2
+        reads = tuple((e, read) for e, on in zip(
+            ENTRIES, (s >= 1, s >= 2, 1 <= s < T)) if on)
+        rounds.append(BwdRound(s=s, layer2_step=T - 1 - s if s < T else None,
+                               layer1_step=T - s if s >= 1 else None,
+                               reads=reads, write_slot=s % 2,
+                               barrier=s < T))
+    return rounds
+
+
+@dataclass(frozen=True)
+class GruBwdPlan:
+    """How kernel 5's chain covers a (B, H) pair.
+
+    ``route``: "mma_smem" (bf16 tensor-core products, the block's weight
+    rows resident in shared memory), "mma_l2" (the same, weights read
+    from L2: they do not fit) or "fma" (f32).  ``split``: a block holds
+    one layer (layer 2's blocks first, then layer 1's), else both.  A
+    block owns ``units`` hidden units of its layers; ``rows`` rows go
+    through the products at once (``m_tiles`` 16-row tiles in bf16),
+    ``groups`` times over the batch, each group on the rounds of
+    :func:`gru_bwd_schedule` (the same for every plan)."""
+    route: str
+    split: bool
+    units: int
+    blocks: int
+    rows: int
+    groups: int
+    m_tiles: int
+    pairs: int             # (layer, row, unit) items a thread owns
+    resident_bytes: int
+    smem_bytes: int
+
+    def block_units(self, H: int) -> list[tuple[int, int, int]]:
+        """(layer, first unit, units) of each block, layers 1 and 2."""
+        per = self.blocks // (2 if self.split else 1)
+        out = []
+        for b in range(self.blocks):
+            j0 = b % per * self.units
+            nu = min(self.units, H - j0)
+            layers = ((2 if b < per else 1,) if self.split else (1, 2))
+            out += [(layer, j0, nu) for layer in layers]
+        return out
+
+
+def gru_bwd_plan(B: int, H: int, bf16: bool, sms: int) -> GruBwdPlan:
+    """Kernel 5's plan for ``sms`` streaming multiprocessors: each layer
+    its own blocks of 8 units where both fit on the card, else blocks of
+    both layers; the fewest row groups that fit; resident weights where
+    they fit beside the partial sums."""
+    if H % 16 or B < 1 or H < 16:
+        raise ValueError(f"bad GRU geometry: B={B}, H={H} (H % 16 == 0)")
+    split = 2 * -(-H // 8) <= sms
+    units = 8 if split else 8 * -(-H // (8 * sms))
+    layers, mats = (1, 2) if split else (2, 3)
+    tile = 16 if bf16 else ROW_TILE_F32
+    nparts = WARPS if bf16 else SPLIT
+    weights = mats * units * (3 * H + PITCH_PAD) * 2
+    cap = min(MAX_ROWS, MAX_PAIRS * THREADS // (layers * units) // tile
+              * tile)
+    if cap < 1:
+        raise ValueError(f"H={H} needs {units} units a block: too many for "
+                         f"kernel 5's items")
+    groups = -(-B // cap)
+    while True:
+        rows = -(-B // groups)
+        mpad = -(-rows // tile) * tile
+        parts = nparts * layers * mpad * units * 4
+        if not bf16:
+            route, base = "fma", (ROW_TILE_F32 * 3 * H + WARPS
+                                  * ROW_TILE_F32) * 4
+        elif weights + parts <= SMEM_MAX:
+            route, base = "mma_smem", weights
+        else:
+            route, base = "mma_l2", 0
+        if base + parts <= SMEM_MAX:
+            break
+        if rows == 1:
+            raise ValueError(f"kernel 5 does not fit H={H} in shared memory")
+        groups += 1
+    return GruBwdPlan(route=route, split=split, units=units,
+                      blocks=(2 if split else 1) * -(-H // units), rows=rows,
+                      groups=groups, m_tiles=mpad // 16 if bf16 else 0,
+                      pairs=-(-layers * mpad * units // THREADS),
+                      resident_bytes=base if route == "mma_smem" else 0,
+                      smem_bytes=base + parts)
+
+
+def device_bwd_plan(B: int, H: int, bf16: bool, dev) -> GruBwdPlan:
+    """:func:`gru_bwd_plan` for the SM count of CUDA device ``dev``."""
+    return gru_bwd_plan(
+        B, H, bf16, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
 def bwd_launch(acts: torch.Tensor, hs: torch.Tensor, dh1s: torch.Tensor,
                dh2s: torch.Tensor, whh1: torch.Tensor, wih2x: torch.Tensor,
                whh2: torch.Tensor):
-    """Kernel 5 on CUDA tensors (checked here); the same results as
-    :func:`gru_pair_bwd_plain`."""
+    """Kernel 5 on CUDA tensors (checked here), on the device's
+    :func:`gru_bwd_plan`; the same results as :func:`gru_pair_bwd_plain`."""
     _, T, B, H = hs.shape
     _check_geometry(H, whh1.dtype)
     for w in (whh1, wih2x, whh2):
@@ -224,20 +360,22 @@ def bwd_launch(acts: torch.Tensor, hs: torch.Tensor, dh1s: torch.Tensor,
                              f"{tuple(t.shape)}")
     dev = hs.device
     _build.check_inputs((acts, hs, dh1s, dh2s, whh1, wih2x, whh2), dev)
+    bf16 = whh1.dtype == torch.bfloat16
+    plan = device_bwd_plan(B, H, bf16, dev)
     dxp1 = torch.empty(T, B, 3 * H, device=dev)
     dxp2 = torch.empty(T, B, 3 * H, device=dev)
     dw = [torch.empty(H, 3 * H, device=dev) for _ in range(3)]
     db = [torch.empty(3 * H, device=dev) for _ in range(2)]
-    dhp = [torch.empty(B, 3 * H, device=dev) for _ in range(2)]
-    dhc = [torch.empty(B, H, device=dev) for _ in range(2)]
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    ring = torch.empty(2, len(ENTRIES), B, 3 * H, device=dev, dtype=whh1.dtype)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)   # arrival count
     with torch.cuda.device(dev):
         BWD(acts.data_ptr(), hs.data_ptr(), dh1s.data_ptr(), dh2s.data_ptr(),
             whh1.data_ptr(), wih2x.data_ptr(), whh2.data_ptr(),
             dxp1.data_ptr(), dxp2.data_ptr(),
-            *(t.data_ptr() for t in (*dw, *db, *dhp, *dhc)),
-            bar.data_ptr(), T, B, H, int(whh1.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *(t.data_ptr() for t in (*dw, *db)), ring.data_ptr(),
+            bar.data_ptr(), T, B, H, plan.units, plan.rows,
+            int(plan.route == "mma_smem"), int(plan.split), plan.smem_bytes,
+            int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     dwhh1, dwih2x, dwhh2 = dw
     return dxp1, dxp2, dwih2x, dwhh1, db[0], dwhh2, db[1]
 

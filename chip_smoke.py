@@ -16,7 +16,8 @@ Phases (any failure exits non-zero):
      kernels 3 and 6 are one layer-skewed routine, csrc/lstm_fwd.cuh), and
      the GRU-pair training kernels 4 (forward) and 5
      (backward) at the vocoder's geometry (f32 and bf16, 8 x 2475) and the
-     JAX bench's (bf16, 32 x 1375);
+     JAX bench's (bf16, 32 x 1375) (kernel 5's launch plan, its layer-
+     skewed recurrence and dW times apart, its time per round);
   4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
      seeded weights) converts a ~4 s wav (decoder lstm2 through kernel 2)
      and a ~24 s wav (9 mel chunks: kernel 3), with every kernel's launch
@@ -152,6 +153,22 @@ def kernel_ms_of(prof, tags) -> dict:
     """Device ms of the kernels whose names hold each tag, summed over a
     ``torch.profiler`` run."""
     return {tag: sum(ms) for tag, ms in kernel_launch_ms(prof, tags).items()}
+
+
+def recurrence_and_dw_ms(fn, tag: str):
+    """A training backward's two launches apart, (a) the recurrence (the
+    kernel whose name holds ``tag``) and (b) the dW / db tiles: the mean
+    device ms of each over 3 profiled calls of ``fn`` (the profiler may
+    drop some), and how many of each it recorded."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    split = kernel_launch_ms(prof, (tag, "dw_"))
+    rec, dw = (split.get(k, [float("nan")]) for k in (tag, "dw_"))
+    return statistics.fmean(rec), statistics.fmean(dw), [len(rec), len(dw)]
 
 
 def phase_environment() -> str:
@@ -292,24 +309,13 @@ def compare_lstm_train(geom: str, L: int, H: int, I: int, rows: int, T: int,
          "per_round_us": fwd_ms * 1e3 / (T + L - 1)})
     bwd_ms = timed_ms(lambda: LT.bwd_launch(*saved, *cts, *wb), 3)
     # kernel 7's two launches, (a) the recurrence and (b) the dW / db tiles
-    # (one launch each a call), apart: the mean device time of the launches
-    # the profiler recorded over 3 calls (it may drop some)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(3):
-            LT.bwd_launch(*saved, *cts, *wb)
-        torch.cuda.synchronize()
-    split = kernel_launch_ms(prof, ("lstm_train_bwd_kernel", "dw_"))
-    rec, dw = (split.get(tag, [float("nan")])
-               for tag in ("lstm_train_bwd_kernel", "dw_"))
-    rec_ms = statistics.fmean(rec)
+    rec_ms, dw_ms, profiled = recurrence_and_dw_ms(
+        lambda: LT.bwd_launch(*saved, *cts, *wb), "lstm_train_bwd_kernel")
     plan = LT.bwd_plan(rows, H, L, bf16, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     log({"phase": "compare", "kernel": "lstm_train_bwd split", **info,
          "plan": dataclasses.asdict(plan), "recurrence_ms": rec_ms,
-         "dw_ms": statistics.fmean(dw),
-         "launches_profiled": [len(rec), len(dw)],
+         "dw_ms": dw_ms, "launches_profiled": profiled,
          "per_round_us": rec_ms * 1e3 / (T * L)})
     fwd_plain = timed_ms(lambda: LT.lstm_train_fwd_plain(xp0, *wf, bias), 1)
     bwd_plain = timed_ms(lambda: LT.lstm_train_bwd_plain(*saved, *cts, *wb),
@@ -357,7 +363,9 @@ def compare_gru_train(rows: int, T: int, dtype, gen, dev) -> dict:
     |ref|; bf16 within 2e-2 of max |ref|, as kernels 6/7.  Timed against
     two cuDNN ``torch.gru`` calls (layer 1 over xI, then layer 2 over
     [x1, a2], with their input projections), forward and autograd
-    backward (``library_ms``; the port never calls them)."""
+    backward (``library_ms``; the port never calls them).  Kernel 5's
+    launch plan, its recurrence and dW times apart and its time per round
+    are logged on a line of their own."""
     H, aux = 512, 32
     mode = "bf16" if dtype == torch.bfloat16 else "f32"
     if PREC.rec_dtype(mode, rows, H) != dtype:
@@ -392,6 +400,15 @@ def compare_gru_train(rows: int, T: int, dtype, gen, dev) -> dict:
 
     fwd_ms = timed_ms(lambda: GT.fwd_launch(xp1, base2, *wf, bhh1, bhh2), 3)
     bwd_ms = timed_ms(lambda: GT.bwd_launch(*saved, *cts, *wb), 3)
+    # kernel 5's two launches, (a) the layer-skewed chain (T + 1 rounds)
+    # and (b) the dW / db tiles
+    rec_ms, dw_ms, profiled = recurrence_and_dw_ms(
+        lambda: GT.bwd_launch(*saved, *cts, *wb), "gru_train_bwd_kernel")
+    log({"phase": "compare", "kernel": "gru_train_bwd split", **info,
+         "plan": dataclasses.asdict(GT.device_bwd_plan(rows, H, bf16, dev)),
+         "recurrence_ms": rec_ms, "dw_ms": dw_ms,
+         "launches_profiled": profiled,
+         "per_round_us": rec_ms * 1e3 / (T + 1)})
     fwd_plain = timed_ms(lambda: GT.gru_pair_fwd_plain(xp1, base2, *wf, bhh1,
                                                        bhh2), 1)
     bwd_plain = timed_ms(lambda: GT.gru_pair_bwd_plain(*saved, *cts, *wb), 1)

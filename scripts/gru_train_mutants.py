@@ -4,7 +4,8 @@
 
 Needs an NVIDIA GPU and nvcc.  As ``scripts/lstm_train_mutants.py`` (whose
 runner it uses): for each mutant the port is copied into a temporary
-directory and one edit is made to the copy's ``csrc/gru_train.cu``; every
+directory and one edit is made to the copy's ``csrc/gru_train.cu`` (kernel
+4's stages, kernel 5's layer-skewed schedule, or the dW problems); every
 copy's kernels are built at once, then for each a subprocess holds the
 mutated kernels against their plain versions with
 ``chip_smoke.compare_gru_train`` at the smoke run's three geometries (f32
@@ -35,6 +36,21 @@ MUTANTS = {
     # dW_ih2x from h1_{t-1} instead of h1_t
     "dwih2x_from_h1_prev": ("{hs, dxp2, dwih2x, nullptr, nullptr, M, N, K, 0,",
                             "{hs, dxp2, dwih2x, nullptr, nullptr, M, N, K, B,"),
+    # kernel 5's skewed schedule: layer 1 reads dxp2 from the ring slot
+    # layer 2 writes this round
+    "bwd_x_from_this_round": (
+        "int bwd_x_slot(int s) { return bwd_read_slot(s); }",
+        "int bwd_x_slot(int s) { return bwd_write_slot(s); }"),
+    # every product operand read from the slot written this round
+    "bwd_ring_slots_swapped": (
+        "int bwd_read_slot(int s) { return (s + 1) & 1; }",
+        "int bwd_read_slot(int s) { return s & 1; }"),
+    # M-tiles after the first multiply the first M-tile's rows
+    "bwd_mtile_reuses_first_a": ("const uint4* xa = x[q][mt];",
+                                 "const uint4* xa = x[q][0];"),
+    # the last round (layer 1 at step 0) skipped
+    "bwd_last_round_skipped": ("for (int s = 0; s <= T; ++s) {",
+                               "for (int s = 0; s < T; ++s) {"),
 }
 
 CHECK = """

@@ -166,16 +166,28 @@ def _close(a, b, bar_of):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,dtype", [
-    (3, 64, torch.float32), (11, 128, torch.float32),
-    (8, 512, torch.float32), (10, 256, torch.bfloat16),
-    (8, 512, torch.bfloat16)])
-def test_gru_train_kernels_match_plain(cuda_device, B, H, dtype):
+@pytest.mark.parametrize("B,H,dtype,T", [
+    (3, 64, torch.float32, 13), (11, 128, torch.float32, 13),
+    (8, 512, torch.float32, 13), (10, 256, torch.bfloat16, 13),
+    (8, 512, torch.bfloat16, 13),
+    # kernel 5's plan and schedule: one, two and three M-tiles (16, 17
+    # and 33 rows, the last two ragged), one row, H % 32 == 16 (a K chunk
+    # half past 3H), a block of both layers (H = 1024: 2 x 128 blocks do
+    # not fit the card), and T = 1 and 2 (the first and last rounds alone)
+    (1, 64, torch.bfloat16, 13), (16, 128, torch.bfloat16, 13),
+    (17, 128, torch.bfloat16, 13), (33, 128, torch.bfloat16, 13),
+    (33, 128, torch.float32, 13), (16, 48, torch.float32, 13),
+    (16, 48, torch.bfloat16, 13), (5, 1024, torch.bfloat16, 6),
+    (5, 1024, torch.float32, 6), (17, 128, torch.bfloat16, 1),
+    (17, 128, torch.float32, 1), (1, 64, torch.bfloat16, 2),
+    (33, 128, torch.float32, 2),
+    # four M-tiles, and two row groups of 33
+    (64, 64, torch.bfloat16, 4), (65, 64, torch.bfloat16, 5)])
+def test_gru_train_kernels_match_plain(cuda_device, B, H, dtype, T):
     """Kernels 4 and 5 against their plain versions, cotangents on h1 and
     h2: f32 forward atol 1e-5 and each gradient within 1e-4 of its max
     |ref| (dW sums T * B products in another order); bf16 within 2e-2 of
-    max |ref|.  B = 10, 11 take two row tiles."""
-    T = 13
+    max |ref|.  B = 10, 11 take two row tiles of kernel 4."""
     gen = torch.Generator().manual_seed(B * 1000 + H)
 
     def rand(*shape, scale=1.0):
