@@ -1,4 +1,4 @@
-// WaveRNN autoregressive sampling loop for Hopper (sm_90a).
+// WaveRNN autoregressive sampling loop for Hopper (sm_90a): kernel 1.
 //
 // Replaces the Pallas TPU kernel autovc_tpu/ops/wavernn_pallas.py:
 // generate_rows_pallas / _kernel.  B fold rows advance together through
@@ -15,19 +15,52 @@
 // pre_r2, pre_f1, pre_f2) and the noise are computed by the caller.
 //
 // What bounds it on an H100: each step reads every recurrent weight once
-// (about 7.3 MB in bf16 at rnn_dims = fc_dims = 512, 14.7 MB in f32) for
-// only B <= 64 rows of work, through a chain of five dependent matvec
-// stages, 12100 steps per 11000-sample fold: per-step latency, not FLOPs.
-// What the design does about it: the weights fit the 50 MB L2 and stay
-// there across steps; one persistent cooperative grid runs the whole loop,
-// a stage costing one grid barrier instead of a kernel launch; in each
-// stage a pair of warps owns an output unit (a GRU hidden unit with its
-// r, z, n columns of both matrices, or one fc column), each warp over half
-// of K, and their sums meet in shared memory, so the GRU cell and the ReLU
-// are the block's epilogue; in bf16 the two GRU stages (most of a step)
-// run on the tensor cores instead, a block per group of 8 hidden units;
-// the fc3 + sampling stage runs one row per block and also computes the
-// next step's xI, so a step is five barriers.
+// (about 7.4 MB in bf16 at rnn_dims = fc_dims = 512) for only B <= 64
+// rows of work, through a chain of dependent products, 12100 steps per
+// 11000-sample fold: the latency of a step, not FLOPs or bytes.
+//
+// The design (the plan is ops/wavernn_kernels.py:wr_plan, checked here):
+//   * one persistent cooperative grid for the whole loop, in two roles of
+//     g blocks each: an R1 block owns `units` hidden units of GRU1 and
+//     `fc_units` columns of fc1, an R2 block the same units of GRU2 (and
+//     those columns of pre_I) and `fc_units` columns of fc2.  Each block's
+//     weight rows (and, in R1 blocks, all of fc3) stay in shared memory
+//     for the whole launch (pitch K + 32 against bank conflicts), unless
+//     the plan routes them through L2.  So does each block's per-row
+//     state (its h products, GRU state, frame slices, samples), unless
+//     the rows are too many: then it lives in the block's part of an L2
+//     scratch (state_smem = 0), and any row count fits;
+//   * a step is four stages, each ending in one exchange through a ring
+//     of two slots in L2 (slot t & 1 for step t) and one monotonic arrival
+//     counter that only its producers bump (wr_arrives) and only its
+//     consumers wait on:
+//       A (R1): logits of every row from x4 of step t - 1 (fc3, each R1
+//          block for itself, in one fixed order, so all of them pick the
+//          same samples), the Gumbel-max pick, xI, then xI @ W_ih1 and
+//          the GRU1 cell -> h1, x1                        -> counter c1
+//       B (R2): x1 @ W_ih2x and the GRU2 cell -> h2, x2    -> counter c2
+//       C (R1): fc1 -> x3                                  -> counter c3
+//       D (R2): fc2 -> x4                                  -> counter c4
+//     Off the critical path: R1 blocks compute h1_t @ W_hh1 for step t + 1
+//     while B runs, R2 blocks h2_t @ W_hh2 while C and D run and pre_I of
+//     step t + 1 (their column slice) while A runs; the noise and pre_I
+//     of the next step are prefetched into shared memory before the wait,
+//     the frame-rate inputs and biases once a frame;
+//   * every product runs on the tensor cores in bf16 (mma.sync m16n8k16,
+//     f32 accumulation), each warp over one eighth of K for up to four
+//     n-tiles, K chunks outermost so that one B fragment feeds every
+//     16-row M-tile and one A fragment every n-tile.  The A fragments come
+//     straight from the ring in L2 (16-byte loads, no staging pass and no
+//     block barrier before the product; stage A forms bf16(x w_x + pre_I)
+//     as it loads them).  A stage is short dependent phases on 8 warps,
+//     so the design cuts phases: no separate logits pass (the pick sums
+//     the K parts), index math in shifts (units a power of two).  The f32
+//     (parity) route runs the same schedule with staged operands and FMA
+//     products, its weights read from L2;
+//   * the GRU state, the residuals x1 and x2, pre_I, mf and the sampling
+//     math stay f32; operands are rounded to bf16 as the producer writes
+//     them into the ring (the same rounding as at the consumer's matmul),
+//     beside an f32 copy of x1 for the residual.
 #include <type_traits>
 
 #include "common.cuh"
@@ -35,6 +68,12 @@
 namespace avc {
 
 constexpr float kLogScaleMin = -32.23619130191664f;  // log(1e-14)
+constexpr int kMaxTaps = 9;        // W = 2J + 1 upsample taps at most
+constexpr int kWrPad = 32;         // bf16 pitch padding of resident rows
+constexpr int kWrMaxMTiles = 4;    // rows per pass <= 64
+constexpr int kWrItems = 4;        // epilogue items a thread, at most
+// arrival counters: the four stages, then the prologue's barrier
+constexpr int kC1 = 0, kC2 = 1, kC3 = 2, kC4 = 3, kCPro = 4;
 
 template <typename T>
 struct WrArgs {
@@ -59,406 +98,973 @@ struct WrArgs {
   const float* gumbel;    // (steps, B, pick_dim)
   const float* logistic;  // (steps, B)
   float* out;             // (B, steps)
-  float* state;           // scratch, see the offsets in wr_kernel
-  unsigned int* bar;      // (2,): grid barrier, bar[0] == 0 at launch
+  float* state;           // f32 ring: pre_I, x1, each (2, B, rd)
+  T* ring;                // operand ring: h1, x1, h2, x2 (2, B, rd);
+                          // x3, x4 (2, B, fc)
+  unsigned int* bar;      // (5,) arrival counters, 0 at launch
+  float* spill;           // per-row block state where it is not in shared
+                          // memory: wr_spill_floats a block
   int B, fpf, S, W, rd, fc, n_classes, nr_mix, pick_dim, raw_mode;
+  // the plan
+  int units, fc_units, rows, passes, resident, fc3_resident, pre_smem,
+      noise_smem, state_smem;
+  unsigned int prod[5];   // each counter's producers (arrivals an epoch)
+  int mpad, g, steps, ushift, fshift;   // log2 units, log2 fc_units
 };
 
-// xI[b] = x * w_x + pre_I for step t (frame q = t / S, phase p = t % S).
-// The tap loop is unrolled to kMaxTaps with a guard so that all of an
-// element's loads are in flight together.
-constexpr int kMaxTaps = 9;
+// ---------------------------------------------------------------------------
+// shared-memory layout (bytes), the same as wr_plan's
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline size_t wr_up16(size_t n) { return (n + 15) / 16 * 16; }
+__host__ __device__ inline int wr_ntiles_pad(int n) { return (n + 7) / 8 * 8; }
+// A bf16 product's warps: each takes a group of up to kWrGroup n-tiles
+// over one of kp K parts (kp = 8 for up to 4 n-tiles)
+constexpr int kWrGroup = 4;
+__host__ __device__ inline int wr_groups(int nt) {
+  return (nt + kWrGroup - 1) / kWrGroup;
+}
+__host__ __device__ inline int wr_kparts(int nt) {
+  return wr_groups(nt) >= kWarps ? 1 : kWarps / wr_groups(nt);
+}
+
+struct WrSmem {
+  size_t wg, wf, w3, A, parts, hh, hown, pre, noise, xs, red, cst, frm,
+      total;
+};
+
+// The per-row block state (the h product, the GRU state, the frame's
+// slices, the samples) of B rows, in floats: in shared memory, or where
+// it does not fit (state_smem = 0) in the block's part of `spill`.
+__host__ __device__ inline size_t wr_spill_floats(int B, int u, int uf) {
+  return (size_t)B * (7 * u + uf + 1);
+}
+
+__host__ __device__ inline WrSmem wr_smem(int B, int rd, int fc, int ncls,
+                                          int pick, int u, int uf, int mpad,
+                                          int bf16, int resident,
+                                          int fc3_res, int pre_smem,
+                                          int noise_smem, int state_smem) {
+  const int maxk = rd > fc ? rd : fc;
+  const int n3 = wr_ntiles_pad(ncls);
+  const int nps[3] = {3 * u, uf, n3};
+  size_t parts = 0;
+  for (int i = 0; i < 3; ++i) {
+    const int kp = bf16 ? wr_kparts(nps[i] / 8) : 1;
+    const size_t s = (size_t)kp * mpad * nps[i] * 4;
+    parts = s > parts ? s : parts;
+  }
+  WrSmem m;
+  size_t o = 0;
+  m.wg = o;
+  o += resident ? wr_up16((size_t)2 * 3 * u * (rd + kWrPad) * 2) : 0;
+  m.wf = o;
+  o += resident ? wr_up16((size_t)uf * (maxk + kWrPad) * 2) : 0;
+  m.w3 = o;
+  o += fc3_res ? wr_up16((size_t)ncls * (fc + kWrPad) * 2) : 0;
+  m.A = o;   // f32: the pass's staged operand rows
+  o += bf16 ? 0 : wr_up16((size_t)mpad * maxk * 4);
+  m.parts = o;
+  o += wr_up16(parts);
+  const int Bs = state_smem ? B : 0;   // rows of state held here
+  m.hh = o;
+  o += wr_up16((size_t)Bs * 3 * u * 4);
+  m.hown = o;
+  o += wr_up16((size_t)Bs * u * 4);
+  m.pre = o;
+  o += pre_smem ? wr_up16((size_t)B * rd * 4) : 0;
+  m.noise = o;
+  o += noise_smem ? wr_up16((size_t)B * (pick + 1) * 4) : 0;
+  m.xs = o;
+  o += wr_up16((size_t)Bs * 4);
+  m.red = o;
+  o += kWarps * kRB * 4;
+  m.cst = o;
+  o += wr_up16((size_t)(6 * u + ncls) * 4);
+  m.frm = o;
+  o += wr_up16((size_t)Bs * (3 * u + uf) * 4);
+  m.total = o;
+  return m;
+}
+
+// ---------------------------------------------------------------------------
+// the ring, the counters, the staging copies
+// ---------------------------------------------------------------------------
+
+// The ring slot step t writes; a consumer of step t's value reads the
+// same slot, and the writer of step t + 2 reuses it.
+__device__ __forceinline__ int wr_slot(int t) { return t & 1; }
+
+enum WrOp { kOpH1 = 0, kOpX1 = 1, kOpH2 = 2, kOpX2 = 3, kOpX3 = 4, kOpX4 = 5 };
+
+// Operand buffer `op` of slot `slot`: (B, rd) for h1, x1, h2, x2, (B, fc)
+// for x3, x4.
 template <typename T>
-__device__ void compute_xI(const WrArgs<T>& a, int b, int t, float x,
-                           float* xI) {
-  const int q = t / a.S, p = t % a.S, rd = a.rd;
+__device__ __forceinline__ T* wr_op(const WrArgs<T>& a, int op, int slot) {
+  const size_t BR = (size_t)a.B * a.rd, BF = (size_t)a.B * a.fc;
+  return op < kOpX3 ? a.ring + (size_t)(op * 2 + slot) * BR
+                    : a.ring + 8 * BR + (size_t)((op - kOpX3) * 2 + slot) * BF;
+}
+template <typename T>
+__device__ __forceinline__ float* wr_pre(const WrArgs<T>& a, int slot) {
+  return a.state + (size_t)slot * a.B * a.rd;
+}
+template <typename T>
+__device__ __forceinline__ float* wr_x1f(const WrArgs<T>& a, int slot) {
+  return a.state + (size_t)(2 + slot) * a.B * a.rd;
+}
+
+// A producer's arrival: every thread's writes of the stage (ordered
+// before thread 0's by the block barrier), then one release reduction on
+// the stage's counter (cumulative: it publishes them all).
+__device__ __forceinline__ void wr_arrive(unsigned int* c) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(c)
+                 : "memory");
+  }
+}
+
+// A consumer's wait until counter c reaches `target` arrivals (acquire);
+// a wait that never ends aborts the launch after ~2^26 polls.
+__device__ __forceinline__ void wr_wait(const unsigned int* c,
+                                        unsigned int target) {
+  if (threadIdx.x == 0) {
+    unsigned int v, polls = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(v)
+                   : "l"(c)
+                   : "memory");
+      if (++polls == (1u << 26)) __trap();
+    } while (v < target);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Rows [0, nr) of a (rows, K) array in L2 -> shared memory of pitch K,
+// 16-byte copies all in flight at once (cp.async, through L2 only: the
+// ring is written by other SMs).  The caller waits (wr_staged).
+template <typename T>
+__device__ __forceinline__ void wr_stage(T* dst, const T* src, int K, int nr) {
+  constexpr int V = 16 / sizeof(T);
+  const int n = nr * K / V;
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    cp_async16(dst + (size_t)i * V, src + (size_t)i * V);
+}
+__device__ __forceinline__ void wr_staged() {
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// products: parts[p][row][n] = sum over K part p of A[row] . W[n]
+// ---------------------------------------------------------------------------
+
+// Where the B rows of a product live: with gstride, row n of the product
+// is row (n >> shift) * gstride + (n & (2^shift - 1)) of `base` (pitch
+// ld) and is zero unless its low part is < nv (the GRU's r, z, n rows of
+// the block's units); without, row n, zero unless n < nv.  Resident rows
+// are in shared memory, others in L2.
+template <typename T>
+struct WrW {
+  const T* base;
+  int ld, shift, gstride, nv, resident;
+  __device__ __forceinline__ bool ok(int n) const {
+    return gstride ? (n & ((1 << shift) - 1)) < nv : n < nv;
+  }
+  __device__ __forceinline__ const T* row(int n) const {
+    return base + (size_t)(gstride ? (n >> shift) * gstride +
+                                         (n & ((1 << shift) - 1))
+                                   : n) * ld;
+  }
+};
+
+// A 16-byte fragment of shared memory through a generic pointer (the
+// row maps point at shared memory or at L2, so the compiler cannot tell).
+__device__ __forceinline__ uint4 lds16(const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
+__device__ __forceinline__ float4 lds16f(const float* p) {
+  const uint4 v = lds16(p);
+  return make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
+                     __uint_as_float(v.z), __uint_as_float(v.w));
+}
+
+// The A operand of a bf16 product: 8 bf16 values of row r (of the pass)
+// at k, as one 16-byte fragment register set; rows past nr read zero.
+struct WrARing {   // rows of a bf16 ring buffer in L2 (pitch K)
+  const __nv_bfloat16* p;
+  int K, nr;
+  __device__ __forceinline__ uint4 load(int r, int k) const {
+    return r < nr ? __ldcg(reinterpret_cast<const uint4*>(p + (size_t)r * K +
+                                                           k))
+                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+};
+
+__device__ __forceinline__ unsigned int wr_pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned int*>(&v);
+}
+
+// xI = x w_x + pre_I of stage A (rounded to bf16 here, as the plain loop
+// rounds the matmul operand): pre_I from shared memory or from L2.
+struct WrAXi {
+  const float* pre;   // (rows, rd) of the pass
+  const float* xs;    // the pass's samples
+  const float* wx;
+  int rd, nr, pre_smem;
+  __device__ __forceinline__ uint4 load(int r, int k) const {
+    if (r >= nr) return make_uint4(0u, 0u, 0u, 0u);
+    const float4* pp = reinterpret_cast<const float4*>(pre + (size_t)r * rd + k);
+    const float4 p0 = pre_smem ? lds16f(pre + (size_t)r * rd + k) : __ldcg(pp);
+    const float4 p1 =
+        pre_smem ? lds16f(pre + (size_t)r * rd + k + 4) : __ldcg(pp + 1);
+    const float4 w0 = __ldg(reinterpret_cast<const float4*>(wx + k));
+    const float4 w1 = __ldg(reinterpret_cast<const float4*>(wx + k) + 1);
+    const float x = xs[r];
+    return make_uint4(wr_pack2(fmaf(x, w0.x, p0.x), fmaf(x, w0.y, p0.y)),
+                      wr_pack2(fmaf(x, w0.z, p0.z), fmaf(x, w0.w, p0.w)),
+                      wr_pack2(fmaf(x, w1.x, p1.x), fmaf(x, w1.y, p1.y)),
+                      wr_pack2(fmaf(x, w1.z, p1.z), fmaf(x, w1.w, p1.w)));
+  }
+};
+
+// bf16: warp w takes n-tile group w / kp (up to kWrGroup n-tiles) over K
+// part w % kp; lane (gid, tq) loads values 8 tq .. 8 tq + 7 of a 32-wide
+// K chunk of its A rows and of its B rows (one 16-byte load each) and
+// feeds them to two k16 steps as k = (2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9):
+// A and B take the same permutation of k, so the sum is the same.  K
+// chunks outermost, KB of them in flight: each A fragment feeds every
+// n-tile of the group, each B fragment every M-tile.  Np (a multiple of
+// 8) columns; parts (kp, mpad, Np).
+template <int MT, typename AL>
+__device__ void wr_product(const AL& A, int K, const WrW<__nv_bfloat16>& w,
+                           int Np, int mpad, float* parts) {
+  constexpr int KB = MT <= 2 ? 2 : 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int nt = Np / 8, ng = wr_groups(nt), kp = wr_kparts(nt);
+  const int nch = (K + 31) / 32;
+  const int p = warp % kp, c0 = p * nch / kp, c1 = (p + 1) * nch / kp;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int grp = warp / kp; grp < ng; grp += kWarps / kp) {
+    const __nv_bfloat16* wr[kWrGroup];
+    bool nok[kWrGroup];
+#pragma unroll
+    for (int jj = 0; jj < kWrGroup; ++jj) {
+      const int n = (grp * kWrGroup + jj) * 8 + gid;
+      nok[jj] = n < Np && w.ok(n);
+      wr[jj] = w.row(n);
+    }
+    float acc[kWrGroup][MT][4];
+#pragma unroll
+    for (int jj = 0; jj < kWrGroup; ++jj) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jj][mt][e] = 0.0f;
+      }
+    }
+    for (int c = c0; c < c1; c += KB) {
+      uint4 y[KB][kWrGroup], x[KB][MT][2];
+#pragma unroll
+      for (int q = 0; q < KB; ++q) {
+        const int k = (c + q) * 32 + 8 * tq;
+        const bool in = c + q < c1 && k < K;
+#pragma unroll
+        for (int jj = 0; jj < kWrGroup; ++jj)
+          y[q][jj] = !(in && nok[jj]) ? zero
+                     : w.resident
+                         ? lds16(wr[jj] + k)
+                         : __ldg(reinterpret_cast<const uint4*>(wr[jj] + k));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          x[q][mt][0] = in ? A.load(mt * 16 + gid, k) : zero;
+          x[q][mt][1] = in ? A.load(mt * 16 + gid + 8, k) : zero;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < KB; ++q) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint4* xa = x[q][mt];
+          const uint32_t s0[4] = {xa[0].x, xa[1].x, xa[0].y, xa[1].y};
+          const uint32_t s1[4] = {xa[0].z, xa[1].z, xa[0].w, xa[1].w};
+#pragma unroll
+          for (int jj = 0; jj < kWrGroup; ++jj) {
+            if (grp * kWrGroup + jj >= nt) break;
+            mma_bf16(acc[jj][mt], s0, y[q][jj].x, y[q][jj].y);
+            mma_bf16(acc[jj][mt], s1, y[q][jj].z, y[q][jj].w);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kWrGroup; ++jj) {
+      const int j = grp * kWrGroup + jj;
+      if (j >= nt) break;
+      float* o = parts + (size_t)p * mpad * Np + j * 8 + 2 * tq;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int rlo = mt * 16 + gid;
+        *reinterpret_cast<float2*>(o + (size_t)rlo * Np) =
+            make_float2(acc[jj][mt][0], acc[jj][mt][1]);
+        *reinterpret_cast<float2*>(o + (size_t)(rlo + 8) * Np) =
+            make_float2(acc[jj][mt][2], acc[jj][mt][3]);
+      }
+    }
+  }
+}
+
+// f32: a warp per column (full K) and 8-row register tile, weights from
+// L2, the warp's sums meeting in `red`; one part.  A has pitch K.
+__device__ void wr_product_fma(const float* A, int K, const WrW<float>& w,
+                               int Np, float* parts, int nr, float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int n = warp; n < Np; n += kWarps) {
+    const bool nok = w.ok(n);
+    const float* const wc[1] = {w.row(n)};
+    for (int r0 = 0; r0 < nr; r0 += kRB) {
+      const int rows = min(kRB, nr - r0);
+      float acc[1][kRB] = {};
+      if (nok) warp_dot(wc, A + (size_t)r0 * K, K, 0, K, rows, acc);
+      float v[kRB];
+#pragma unroll
+      for (int i = 0; i < kRB; ++i) v[i] = acc[0][i];
+      float* rw = red + warp * kRB;
+      warp_sum_to_smem(v, rw);
+      if (lane < rows) parts[(size_t)(r0 + lane) * Np + n] = rw[lane];
+      __syncwarp();
+    }
+  }
+}
+
+// The sum of a product's K parts at (row, n), in part order (kp <= 8).
+__device__ __forceinline__ float wr_psum(const float* parts, int kp, int mpad,
+                                         int Np, int row, int n) {
+  const float* q = parts + (size_t)row * Np + n;
+  const size_t step = (size_t)mpad * Np;
+  float v[kWarps];
+#pragma unroll
+  for (int p = 0; p < kWarps; ++p) v[p] = p < kp ? q[p * step] : 0.0f;
+  float s = 0.0f;
+#pragma unroll
+  for (int p = 0; p < kWarps; ++p) s += v[p];
+  return s;
+}
+
+template <typename T>
+__device__ __forceinline__ int wr_kp(int Np) {
+  return std::is_same_v<T, __nv_bfloat16> ? wr_kparts(Np / 8) : 1;
+}
+
+// One product of the block over nr rows (from the pass's first) of a ring
+// buffer `src` (rows of K): bf16 reads the fragments from L2; f32 stages
+// the rows into shared memory first.  Ends with a block barrier.
+template <typename T, int MT>
+__device__ __forceinline__ void wr_mul(const WrArgs<T>& a, float* smA,
+                                       const T* src, int K, int nr,
+                                       const WrW<T>& w, int Np, float* parts,
+                                       float* red) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    wr_product<MT>(WrARing{src, K, nr}, K, w, Np, a.mpad, parts);
+  } else {
+    wr_stage(smA, src, K, nr);
+    wr_staged();
+    wr_product_fma(smA, K, w, Np, parts, nr, red);
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// the block's roles and shared regions
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct WrShared {
+  T* wg;          // resident GRU rows: W_ih (3 units), then W_hh
+  T* wf;          // resident fc1 (R1) or fc2 (R2) rows
+  T* w3;          // resident fc3 (R1)
+  float* A;       // f32: the pass's staged operand rows
+  float* parts;   // the product's K parts
+  // per-row state, in shared memory or (state_smem = 0) in L2:
+  float* hh;      // (B, 3 units) h @ W_hh for the next step
+  float* hown;    // (B, units) the block's GRU state
+  float* pre;     // (B, rd) pre_I of the step (prefetched), or unused
+  float* noise;   // (B, pick_dim + 1) Gumbel lanes and the logistic value
+  float* xs;      // (B,) the samples fed back
+  float* red;     // (kWarps, kRB) warp sums (f32 products)
+  float* cst;     // b_ih, b_hh of the block's units (3 units each), b_fc3
+  float* frm;     // the frame's pre_r2 (B, 3 units) and pre_f (B, fc_units)
+                  // slices of the block
+};
+
+// What a block owns: GRU units j0 .. j0 + nu - 1 (GRU1 in R1 blocks,
+// GRU2 and those pre_I columns in R2 blocks) and fc columns c0 .. c0 +
+// nf - 1 (fc1 in R1, fc2 in R2; nf may be 0).
+struct WrRole {
+  bool r1;
+  int j0, nu, c0, nf;
+};
+
+// Block `blk`'s role: the first g blocks R1, the next g R2.  The launch
+// checks from this function that every unit and column has one owner.
+template <typename T>
+__host__ __device__ inline WrRole wr_role(const WrArgs<T>& a, int blk) {
+  WrRole r;
+  r.r1 = blk < a.g;
+  const int b = r.r1 ? blk : blk - a.g;
+  r.j0 = b * a.units;
+  r.nu = a.rd - r.j0 < a.units ? a.rd - r.j0 : a.units;
+  r.c0 = b * a.fc_units;
+  r.nf = a.fc - r.c0 < a.fc_units ? a.fc - r.c0 : a.fc_units;
+  r.nf = r.nf > 0 ? r.nf : 0;
+  return r;
+}
+
+// Whether a block of role r bumps counter c after its stage: every R1
+// block c1, every R2 block c2, the blocks that own fc columns c3 (R1) and
+// c4 (R2), every block the prologue's.  The kernel arrives where this
+// says and nowhere else, and the launch counts each counter's producers
+// from it and holds them to the plan's, the wait targets (epoch e waits
+// for e x producers).
+__host__ __device__ inline bool wr_arrives(const WrRole& r, int c) {
+  switch (c) {
+    case kC1: return r.r1;
+    case kC2: return !r.r1;
+    case kC3: return r.r1 && r.nf > 0;
+    case kC4: return !r.r1 && r.nf > 0;
+    default: return true;
+  }
+}
+
+// The GRU matrix `hh` (0: W_ih, 1: W_hh) of the block, resident or in L2:
+// product row gate * units + unit.
+template <typename T>
+__device__ __forceinline__ WrW<T> wr_gru_w(const WrArgs<T>& a,
+                                           const WrShared<T>& s,
+                                           const WrRole& r, int hh) {
+  const int u = a.units;
+  if (a.resident)
+    return {s.wg + (size_t)hh * 3 * u * (a.rd + kWrPad), a.rd + kWrPad,
+            a.ushift, u, r.nu, 1};
+  const T* m = r.r1 ? (hh ? a.w_hh1 : a.w_ih1) : (hh ? a.w_hh2 : a.w_ih2);
+  return {m + (size_t)r.j0 * a.rd, a.rd, a.ushift, a.rd, r.nu, 0};
+}
+// The block's fc rows (fc1 in R1 with K = rd, fc2 in R2 with K = fc).
+template <typename T>
+__device__ __forceinline__ WrW<T> wr_fc_w(const WrArgs<T>& a,
+                                          const WrShared<T>& s,
+                                          const WrRole& r) {
+  const int K = r.r1 ? a.rd : a.fc;
+  if (a.resident) return {s.wf, K + kWrPad, 0, 0, r.nf, 1};
+  return {(r.r1 ? a.w_fc1 : a.w_fc2) + (size_t)r.c0 * K, K, 0, 0, r.nf, 0};
+}
+template <typename T>
+__device__ __forceinline__ WrW<T> wr_fc3_w(const WrArgs<T>& a,
+                                           const WrShared<T>& s) {
+  if (a.fc3_resident) return {s.w3, a.fc + kWrPad, 0, 0, a.n_classes, 1};
+  return {a.w_fc3, a.fc, 0, 0, a.n_classes, 0};
+}
+
+// Rows 0 .. n - 1 of an L2 row map -> shared memory of pitch K + kWrPad
+// (rows it does not own zero).
+__device__ void wr_load_rows(__nv_bfloat16* dst, const WrW<__nv_bfloat16>& w,
+                             int n, int K) {
+  const int vpr = K / 8;
+  for (int i = threadIdx.x; i < n * vpr; i += kThreads) {
+    const int row = i / vpr, v = i - row * vpr;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (w.ok(row)) x = __ldg(reinterpret_cast<const uint4*>(w.row(row)) + v);
+    *reinterpret_cast<uint4*>(dst + (size_t)row * (K + kWrPad) + 8 * v) = x;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the stages
+// ---------------------------------------------------------------------------
+
+// The block's biases (prologue): b_ih1, b_hh1 and b_fc3 (R1), b_hh2 (R2).
+template <typename T>
+__device__ void wr_consts(const WrArgs<T>& a, const WrShared<T>& s,
+                          const WrRole& r) {
+  const int u = a.units;
+  for (int i = threadIdx.x; i < 6 * u + a.n_classes; i += kThreads) {
+    float v = 0.0f;
+    if (i < 6 * u) {
+      const int hh = i / (3 * u), gt = i % (3 * u) / u, jl = i % u;
+      const float* b = r.r1 ? (hh ? a.b_hh1 : a.b_ih1) : (hh ? a.b_hh2 : nullptr);
+      if (b != nullptr && jl < r.nu) v = __ldg(b + gt * a.rd + r.j0 + jl);
+    } else if (r.r1) {
+      v = __ldg(a.b_fc3 + i - 6 * u);
+    }
+    s.cst[i] = v;
+  }
+}
+
+// The frame-rate inputs of frame q the block's epilogues read: pre_r2
+// (R2) and pre_f1 (R1) or pre_f2 (R2) of its units and columns.  Loaded
+// at the frame's first step, before the block's first wait.
+template <typename T>
+__device__ void wr_frame(const WrArgs<T>& a, const WrShared<T>& s,
+                         const WrRole& r, int q) {
+  const int u = a.units, uf = a.fc_units, B = a.B;
+  if (!r.r1) {
+    for (int i = threadIdx.x; i < B * 3 * u; i += kThreads) {
+      const int b = i / (3 * u), gt = i % (3 * u) / u, jl = i % u;
+      s.frm[i] = jl < r.nu ? __ldg(a.pre_r2 + ((size_t)b * a.fpf + q) * 3 *
+                                                  a.rd + gt * a.rd + r.j0 + jl)
+                           : 0.0f;
+    }
+  }
+  const float* pf = r.r1 ? a.pre_f1 : a.pre_f2;
+  for (int i = threadIdx.x; i < B * uf; i += kThreads) {
+    const int b = i / uf, c = i % uf;
+    s.frm[B * 3 * u + i] =
+        c < r.nf ? __ldg(pf + ((size_t)b * a.fpf + q) * a.fc + r.c0 + c) : 0.0f;
+  }
+}
+
+// pre_I of step tt for the block's column slice (R2), into ring slot
+// wr_slot(tt); read by stage A of step tt.
+template <typename T>
+__device__ void wr_pre_slice(const WrArgs<T>& a, const WrRole& r, int tt) {
+  const int q = tt / a.S, p = tt % a.S, rd = a.rd;
   const int Fq = a.fpf + a.W - 1;
-  const float* base = a.base + ((size_t)b * a.fpf + q) * rd;
-  const float* mf = a.mf + ((size_t)b * Fq + q) * rd;
-  for (int k = threadIdx.x; k < rd; k += blockDim.x) {
-    float pre = __ldg(base + k);
+  float* dst = wr_pre(a, wr_slot(tt));
+  for (int i = threadIdx.x; i < a.B * r.nu; i += kThreads) {
+    const int b = i / r.nu, j = r.j0 + i % r.nu;
+    const float* mf = a.mf + ((size_t)b * Fq + q) * rd + j;
+    float pre = __ldg(a.base + ((size_t)b * a.fpf + q) * rd + j);
 #pragma unroll
     for (int w = 0; w < kMaxTaps; ++w)
       if (w < a.W)
-        pre = pre + __ldg(mf + (size_t)w * rd + k) * __ldg(a.ktab + w * a.S + p);
-    xI[(size_t)b * rd + k] = x * __ldg(a.w_x + k) + pre;
+        pre = pre + __ldg(mf + (size_t)w * rd) * __ldg(a.ktab + w * a.S + p);
+    dst[(size_t)b * rd + j] = pre;
   }
 }
 
-// GRU stage: h_out = GRU(x_in @ w_ih + xb, h_in @ w_hh + b_hh),
-// res_out = x_in + h_out.  xb(row, col) = xb[row * xb_stride + col].
-// A block takes kUnits hidden units a pass; kSplit warps share a unit,
-// each over its part of K, and their sums meet in shared memory (red).
-template <typename T>
-__device__ void gru_stage(const WrArgs<T>& a, const T* w_ih, const T* w_hh,
-                          const float* x_in, const float* h_in,
-                          const float* xb, size_t xb_stride,
-                          const float* b_hh, float* h_out, float* res_out,
-                          T* smem, float* red) {
-  constexpr int V = 6 * kRB;
-  const int H = a.rd, B = a.B;
+// Stage A's first half: the sample of step ts for every row, from x4 of
+// step ts: fc3, then the Gumbel-max pick (ties go to the lowest index, as
+// jnp.argmax), into xs; block 0 writes it out.  A warp takes a row, a
+// lane its classes: the logit (the K parts summed in order, then the
+// bias) plus the Gumbel lane, and for MOL the class's mean and log-scale
+// logits, carried through the reduction with it.
+template <typename T, int MT>
+__device__ void wr_pick(const WrArgs<T>& a, const WrShared<T>& s, int ts) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = warp % kUnits, part = warp / kUnits;
-  const int kpart = H / kSplit, k0 = part * kpart;
-  if (blockIdx.x * kUnits >= H) return;
-  T* xs = smem;
-  T* hs = smem + kRB * H;
-  for (int r0 = 0; r0 < B; r0 += kRB) {
-    const int nr = min(kRB, B - r0);
-    stage_rows(xs, x_in, r0, nr, H);
-    stage_rows(hs, h_in, r0, nr, H);
+  const int fc = a.fc, n3 = wr_ntiles_pad(a.n_classes), kp3 = wr_kp<T>(n3);
+  const int pd = a.pick_dim, nm = a.nr_mix;
+  const T* x4 = wr_op(a, kOpX4, wr_slot(ts));
+  const WrW<T> w3 = wr_fc3_w(a, s);
+  const float* b3 = s.cst + 6 * a.units;
+  for (int r0 = 0; r0 < a.B; r0 += a.rows) {
+    const int nr = min(a.rows, a.B - r0);
+    wr_mul<T, MT>(a, s.A, x4 + (size_t)r0 * fc, fc, nr, w3, n3, s.parts,
+                  s.red);
+    // logit c of pass row r: its K parts in order, then the bias
+#define WR_LOGIT(r, c) (wr_psum(s.parts, kp3, a.mpad, n3, (r), (c)) + b3[c])
+    // L lanes a row (the pick lanes rounded up to 8, 16 or 32): 32 / L
+    // rows a warp at once
+    const int L = pd <= 8 ? 8 : pd <= 16 ? 16 : 32;
+    const int sub = lane / L, sl = lane % L;
+    for (int rb = warp * (32 / L); rb < nr; rb += kWarps * (32 / L)) {
+      const int r = rb + sub, row = r0 + r;
+      const bool live = r < nr;
+      const float* gn = a.noise_smem ? s.noise + (size_t)row * (pd + 1)
+                                     : a.gumbel + ((size_t)ts * a.B + row) * pd;
+      float best = __int_as_float(0xff800000);  // -inf
+      float mean = 0.0f, lsc = 0.0f;
+      int pick = 0x7fffffff;
+      for (int c = sl; live && c < pd; c += L) {
+        const float v = WR_LOGIT(r, c) + gn[c];
+        const float m = a.raw_mode ? 0.0f : WR_LOGIT(r, nm + c);
+        const float l = a.raw_mode ? 0.0f : WR_LOGIT(r, 2 * nm + c);
+        if (v > best) {
+          best = v;
+          pick = c;
+          mean = m;
+          lsc = l;
+        }
+      }
+      for (int off = L / 2; off > 0; off >>= 1) {   // within the L lanes
+        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+        const int op = __shfl_xor_sync(0xffffffffu, pick, off);
+        const float om = __shfl_xor_sync(0xffffffffu, mean, off);
+        const float ol = __shfl_xor_sync(0xffffffffu, lsc, off);
+        if (ob > best || (ob == best && op < pick)) {
+          best = ob;
+          pick = op;
+          mean = om;
+          lsc = ol;
+        }
+      }
+      if (sl == 0 && live) {
+        pick = min(pick, pd - 1);   // no lane saw a number (NaN logits)
+        float sample;
+        if (a.raw_mode) {
+          sample = 2.0f * (float)pick / ((float)a.n_classes - 1.0f) - 1.0f;
+        } else {
+          const float lg = a.noise_smem ? gn[pd]
+                                        : a.logistic[(size_t)ts * a.B + row];
+          sample = fminf(
+              fmaxf(mean + expf(fmaxf(lsc, kLogScaleMin)) * lg, -1.0f), 1.0f);
+        }
+        s.xs[row] = sample;
+        if (blockIdx.x == 0) a.out[(size_t)row * a.steps + ts] = sample;
+      }
+    }
+#undef WR_LOGIT
     __syncthreads();
-    for (int j0 = blockIdx.x * kUnits; j0 < H; j0 += gridDim.x * kUnits) {
-      const int j = j0 + slot;
-      const bool epi = part == 0 && j < H && lane < nr;
-      // the epilogue's operands, loaded before the dots
-      float xbv[3], bhv[3], h_old = 0.0f, x_old = 0.0f;
-      if (epi) {
-        const float* xbr = xb + (size_t)(r0 + lane) * xb_stride;
-        const size_t idx = (size_t)(r0 + lane) * H + j;
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          xbv[g] = __ldg(xbr + g * H + j);
-          bhv[g] = __ldg(b_hh + g * H + j);
-        }
-        h_old = __ldcg(h_in + idx);
-        x_old = __ldcg(x_in + idx);
-      }
-      if (j < H) {
-        float ai[3][kRB] = {}, ah[3][kRB] = {};
-        const T* const wi[3] = {w_ih + (size_t)j * H,
-                                w_ih + (size_t)(H + j) * H,
-                                w_ih + (size_t)(2 * H + j) * H};
-        const T* const wh[3] = {w_hh + (size_t)j * H,
-                                w_hh + (size_t)(H + j) * H,
-                                w_hh + (size_t)(2 * H + j) * H};
-        warp_dot(wi, xs, H, k0, k0 + kpart, nr, ai);
-        warp_dot(wh, hs, H, k0, k0 + kpart, nr, ah);
-        float v[V];
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-#pragma unroll
-          for (int r = 0; r < kRB; ++r) {
-            v[g * kRB + r] = ai[g][r];
-            v[(3 + g) * kRB + r] = ah[g][r];
-          }
-        }
-        warp_sum_to_smem(v, red + warp * V);
-      }
-      __syncthreads();
-      if (epi) {
-        float sum[6];
-#pragma unroll
-        for (int c = 0; c < 6; ++c) {
-          sum[c] = 0.0f;
-#pragma unroll
-          for (int p = 0; p < kSplit; ++p)
-            sum[c] += red[(p * kUnits + slot) * V + c * kRB + lane];
-        }
-        const float rg = sigmoidf_(sum[0] + xbv[0] + (sum[3] + bhv[0]));
-        const float zg = sigmoidf_(sum[1] + xbv[1] + (sum[4] + bhv[1]));
-        const float ng = tanhf(sum[2] + xbv[2] + rg * (sum[5] + bhv[2]));
-        const size_t idx = (size_t)(r0 + lane) * H + j;
-        const float h_new = (1.0f - zg) * ng + zg * h_old;
-        h_out[idx] = h_new;
-        res_out[idx] = x_old + h_new;
-      }
-      __syncthreads();
+  }
+}
+
+// The noise of step ts, and pre_I of step ts + 1, into shared memory
+// ahead of stage A (the copies of pre_I stay in flight: stage A waits).
+template <typename T>
+__device__ void wr_prefetch(const WrArgs<T>& a, const WrShared<T>& s, int ts) {
+  const int pd = a.pick_dim;
+  if (a.noise_smem && ts >= 0) {
+    for (int i = threadIdx.x; i < a.B * (pd + 1); i += kThreads) {
+      const int b = i / (pd + 1), c = i - b * (pd + 1);
+      s.noise[i] = c < pd ? __ldg(a.gumbel + ((size_t)ts * a.B + b) * pd + c)
+                          : __ldg(a.logistic + (size_t)ts * a.B + b);
     }
   }
+  if (a.pre_smem && ts + 1 < a.steps)
+    wr_stage(s.pre, wr_pre(a, wr_slot(ts + 1)), a.rd, a.B);
 }
 
-// bf16 GRU stage on the tensor cores (mma.sync m16n8k16, f32 accumulate):
-// the same function as gru_stage.  A block takes a group of 8 hidden units
-// a pass; its 8 warps split K, each running the group's 6 tiles of 8
-// columns (r, z, n of W_ih and of W_hh) over its K slice for up to 16 rows,
-// so one weight read serves 16 rows instead of 8 and no shuffles reduce.
-// The warps' partial tiles meet in shared memory; 128 threads, one per
-// (row, unit), run the GRU cell.
-constexpr int kRowsMma = 16;
-constexpr int kRedFloats = kWarps * 6 * 4 * 32;
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ void gru_stage_mma(const WrArgs<__nv_bfloat16>& a,
-                              const __nv_bfloat16* w_ih,
-                              const __nv_bfloat16* w_hh, const float* x_in,
-                              const float* h_in, const float* xb,
-                              size_t xb_stride, const float* b_hh,
-                              float* h_out, float* res_out,
-                              __nv_bfloat16* smem, float* red) {
-  const int H = a.rd, B = a.B;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tq = lane & 3;
-  const int kw = H / kWarps, k0 = warp * kw;   // this warp's K slice
-  const int ngroups = H / 8;
-  if (blockIdx.x >= ngroups) return;
-  __nv_bfloat16* xs = smem;
-  __nv_bfloat16* hs = smem + kRowsMma * H;
-  // the epilogue thread's (row, unit) within a 16 x 8 tile
-  const int rl = threadIdx.x >> 3, ul = threadIdx.x & 7;
-  const int src = (rl & 7) * 4 + (ul >> 1), e = (rl >> 3) * 2 + (ul & 1);
-  for (int r0 = 0; r0 < B; r0 += kRowsMma) {
-    const int nr = min(kRowsMma, B - r0);
-    stage_rows(xs, x_in, r0, nr, H);
-    stage_rows(hs, h_in, r0, nr, H);
-    __syncthreads();
-    for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
-      const int j = grp * 8 + ul;
-      const bool epi = threadIdx.x < 128 && rl < nr;
-      float xbv[3], bhv[3], h_old = 0.0f, x_old = 0.0f;
-      if (epi) {
-        const float* xbr = xb + (size_t)(r0 + rl) * xb_stride;
-        const size_t idx = (size_t)(r0 + rl) * H + j;
+// Stage A's second half (R1): xI = x w_x + pre_I of step t, xI @ W_ih1,
+// the GRU1 cell with the h1 product of stage hh1, h1 and x1 out.
+template <typename T, int MT>
+__device__ void wr_gru1(const WrArgs<T>& a, const WrShared<T>& s,
+                        const WrRole& r, int t) {
+  const int rd = a.rd, u = a.units, sh = a.ushift;
+  const int slot = wr_slot(t), kp = wr_kp<T>(3 * u);
+  const float* pre = a.pre_smem ? s.pre : wr_pre(a, slot);
+  const WrW<T> wih = wr_gru_w(a, s, r, 0);
+  T* h1o = wr_op(a, kOpH1, slot);
+  T* x1o = wr_op(a, kOpX1, slot);
+  float* x1f = wr_x1f(a, slot);
+  cp_async_wait_all();   // the prefetched pre_I
+  __syncthreads();
+  for (int r0 = 0; r0 < a.B; r0 += a.rows) {
+    const int nr = min(a.rows, a.B - r0);
+    // the block's units' xI, in flight with the product
+    float xiv[kWrItems];
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          xbv[g] = __ldg(xbr + g * H + j);
-          bhv[g] = __ldg(b_hh + g * H + j);
-        }
-        h_old = __ldcg(h_in + idx);
-        x_old = __ldcg(x_in + idx);
+    for (int k = 0; k < kWrItems; ++k) {
+      const int i = threadIdx.x + k * kThreads, row = r0 + (i >> sh);
+      const int j = r.j0 + (i & (u - 1));
+      if (i < nr << sh && (i & (u - 1)) < r.nu) {
+        const size_t at = (size_t)row * rd + j;
+        xiv[k] = fmaf(s.xs[row], __ldg(a.w_x + j),
+                      a.pre_smem ? pre[at] : __ldcg(pre + at));
       }
-      float acc[6][4] = {};
-      const size_t col = (size_t)grp * 8 + gid;    // this lane's B column
-#pragma unroll 2
-      for (int k = k0; k < k0 + kw; k += 16) {
-        const int kk = k + tq * 2;
-        uint32_t b[6][2];
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          const __nv_bfloat16* wi = w_ih + (g * H + col) * H + kk;
-          const __nv_bfloat16* wh = w_hh + (g * H + col) * H + kk;
-          b[g][0] = ldg32(wi);
-          b[g][1] = ldg32(wi + 8);
-          b[3 + g][0] = ldg32(wh);
-          b[3 + g][1] = ldg32(wh + 8);
-        }
-        const uint32_t ax[4] = {lds32(xs + gid * H + kk),
-                                lds32(xs + (gid + 8) * H + kk),
-                                lds32(xs + gid * H + kk + 8),
-                                lds32(xs + (gid + 8) * H + kk + 8)};
-        const uint32_t ah[4] = {lds32(hs + gid * H + kk),
-                                lds32(hs + (gid + 8) * H + kk),
-                                lds32(hs + gid * H + kk + 8),
-                                lds32(hs + (gid + 8) * H + kk + 8)};
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          mma_bf16(acc[g], ax, b[g][0], b[g][1]);
-          mma_bf16(acc[3 + g], ah, b[3 + g][0], b[3 + g][1]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < 6; ++t) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          red[((warp * 6 + t) * 4 + c) * 32 + lane] = acc[t][c];
-      }
-      __syncthreads();
-      if (epi) {
-        float sum[6];
-#pragma unroll
-        for (int t = 0; t < 6; ++t) {
-          sum[t] = 0.0f;
-#pragma unroll
-          for (int w = 0; w < kWarps; ++w)
-            sum[t] += red[((w * 6 + t) * 4 + e) * 32 + src];
-        }
-        const float rg = sigmoidf_(sum[0] + xbv[0] + (sum[3] + bhv[0]));
-        const float zg = sigmoidf_(sum[1] + xbv[1] + (sum[4] + bhv[1]));
-        const float ng = tanhf(sum[2] + xbv[2] + rg * (sum[5] + bhv[2]));
-        const size_t idx = (size_t)(r0 + rl) * H + j;
-        const float h_new = (1.0f - zg) * ng + zg * h_old;
-        h_out[idx] = h_new;
-        res_out[idx] = x_old + h_new;
-      }
-      __syncthreads();
     }
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      wr_product<MT>(WrAXi{pre + (size_t)r0 * rd, s.xs + r0, a.w_x, rd, nr,
+                           a.pre_smem},
+                     rd, wih, 3 * u, a.mpad, s.parts);
+    } else {
+      for (int i = threadIdx.x; i < nr * rd; i += kThreads) {
+        const int rr = i / rd, k = i - rr * rd;
+        const size_t at = (size_t)(r0 + rr) * rd + k;
+        s.A[i] = fmaf(s.xs[r0 + rr], __ldg(a.w_x + k),
+                      a.pre_smem ? pre[at] : __ldcg(pre + at));
+      }
+      __syncthreads();
+      wr_product_fma(s.A, rd, wih, 3 * u, s.parts, nr, s.red);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kWrItems; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i >= nr << sh) break;
+      const int rr = i >> sh, jl = i & (u - 1), row = r0 + rr;
+      if (jl >= r.nu) continue;
+      const int j = r.j0 + jl;
+      const size_t at = (size_t)row * rd + j;
+      float ih[3], hh[3];
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        ih[gt] = wr_psum(s.parts, kp, a.mpad, 3 * u, rr, gt * u + jl) +
+                 s.cst[gt * u + jl];
+        hh[gt] = s.hh[(size_t)row * 3 * u + gt * u + jl] +
+                 s.cst[3 * u + gt * u + jl];
+      }
+      const float rg = sigmoidf_(ih[0] + hh[0]);
+      const float zg = sigmoidf_(ih[1] + hh[1]);
+      const float ng = tanhf(ih[2] + rg * hh[2]);
+      float* hp = s.hown + (size_t)row * u + jl;
+      const float h = (1.0f - zg) * ng + zg * *hp;
+      *hp = h;
+      const float x1 = xiv[k] + h;
+      h1o[at] = from_float<T>(h);
+      x1f[at] = x1;
+      x1o[at] = from_float<T>(x1);
+    }
+    __syncthreads();
   }
 }
 
-// The GRU stage for the operand type: tensor cores for bf16, f32 FMA for
-// exact f32.
-template <typename T>
-__device__ __forceinline__ void gru(const WrArgs<T>& a, const T* w_ih,
-                                    const T* w_hh, const float* x_in,
-                                    const float* h_in, const float* xb,
-                                    size_t xb_stride, const float* b_hh,
-                                    float* h_out, float* res_out, T* smem,
-                                    float* red) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
-    gru_stage_mma(a, w_ih, w_hh, x_in, h_in, xb, xb_stride, b_hh, h_out,
-                  res_out, smem, red);
-  else
-    gru_stage(a, w_ih, w_hh, x_in, h_in, xb, xb_stride, b_hh, h_out,
-              res_out, smem, red);
-}
-
-// rows of the staging buffers for the operand type
-template <typename T>
-__host__ __device__ constexpr int staged_rows() {
-  return std::is_same_v<T, __nv_bfloat16> ? kRowsMma : kRB;
-}
-
-// Dense ReLU stage: out = relu(in @ w + pre), pre(row, col) =
-// pre[row * pre_stride + col]; units and K split as in gru_stage.
-template <typename T>
-__device__ void dense_relu_stage(const WrArgs<T>& a, const T* w,
-                                 const float* in, int K, int N,
-                                 const float* pre, size_t pre_stride,
-                                 float* out, T* smem, float* red) {
-  const int B = a.B;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = warp % kUnits, part = warp / kUnits;
-  const int kpart = K / kSplit, k0 = part * kpart;
-  if (blockIdx.x * kUnits >= N) return;
-  for (int r0 = 0; r0 < B; r0 += kRB) {
-    const int nr = min(kRB, B - r0);
-    stage_rows(smem, in, r0, nr, K);
-    __syncthreads();
-    for (int j0 = blockIdx.x * kUnits; j0 < N; j0 += gridDim.x * kUnits) {
-      const int j = j0 + slot;
-      const bool epi = part == 0 && j < N && lane < nr;
-      const float pv = epi ? __ldg(pre + (size_t)(r0 + lane) * pre_stride + j)
-                           : 0.0f;
-      if (j < N) {
-        float acc[1][kRB] = {};
-        const T* const wc[1] = {w + (size_t)j * K};
-        warp_dot(wc, smem, K, k0, k0 + kpart, nr, acc);
-        warp_sum_to_smem(acc[0], red + warp * kRB);
-      }
-      __syncthreads();
-      if (epi) {
-        float sum = 0.0f;
+// Stage B (R2): x1 @ W_ih2x + pre_r2, the GRU2 cell with the h2 product
+// of stage hh2, h2 and x2 = x1 + h2 out.
+template <typename T, int MT>
+__device__ void wr_gru2(const WrArgs<T>& a, const WrShared<T>& s,
+                        const WrRole& r, int t) {
+  const int rd = a.rd, u = a.units, sh = a.ushift;
+  const int slot = wr_slot(t), kp = wr_kp<T>(3 * u);
+  const WrW<T> wih = wr_gru_w(a, s, r, 0);
+  const T* x1o = wr_op(a, kOpX1, slot);
+  const float* x1f = wr_x1f(a, slot);
+  T* h2o = wr_op(a, kOpH2, slot);
+  T* x2o = wr_op(a, kOpX2, slot);
+  for (int r0 = 0; r0 < a.B; r0 += a.rows) {
+    const int nr = min(a.rows, a.B - r0);
+    float x1v[kWrItems];   // the residual's x1, in flight with the product
 #pragma unroll
-        for (int p = 0; p < kSplit; ++p)
-          sum += red[(p * kUnits + slot) * kRB + lane];
-        out[(size_t)(r0 + lane) * N + j] = fmaxf(sum + pv, 0.0f);
-      }
-      __syncthreads();
+    for (int k = 0; k < kWrItems; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i < nr << sh && (i & (u - 1)) < r.nu)
+        x1v[k] = __ldcg(x1f + (size_t)(r0 + (i >> sh)) * rd + r.j0 +
+                        (i & (u - 1)));
     }
+    wr_mul<T, MT>(a, s.A, x1o + (size_t)r0 * rd, rd, nr, wih, 3 * u, s.parts,
+                  s.red);
+#pragma unroll
+    for (int k = 0; k < kWrItems; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i >= nr << sh) break;
+      const int rr = i >> sh, jl = i & (u - 1), row = r0 + rr;
+      if (jl >= r.nu) continue;
+      const int j = r.j0 + jl;
+      const size_t at = (size_t)row * rd + j;
+      const float* xb = s.frm + (size_t)row * 3 * u + jl;
+      float ih[3], hh[3];
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        ih[gt] = wr_psum(s.parts, kp, a.mpad, 3 * u, rr, gt * u + jl) +
+                 xb[gt * u];
+        hh[gt] = s.hh[(size_t)row * 3 * u + gt * u + jl] +
+                 s.cst[3 * u + gt * u + jl];
+      }
+      const float rg = sigmoidf_(ih[0] + hh[0]);
+      const float zg = sigmoidf_(ih[1] + hh[1]);
+      const float ng = tanhf(ih[2] + rg * hh[2]);
+      float* hp = s.hown + (size_t)row * u + jl;
+      const float h = (1.0f - zg) * ng + zg * *hp;
+      *hp = h;
+      h2o[at] = from_float<T>(h);
+      x2o[at] = from_float<T>(x1v[k] + h);
+    }
+    __syncthreads();
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) wr_kernel(WrArgs<T> a) {
+// Stages hh1 / hh2 (off the critical path): h_t @ W_hh of the block's
+// units for step t + 1, from the ring slot step t wrote, into s.hh.
+template <typename T, int MT>
+__device__ void wr_hh(const WrArgs<T>& a, const WrShared<T>& s,
+                      const WrRole& r, const T* h) {
+  const int rd = a.rd, u = a.units, kp = wr_kp<T>(3 * u);
+  const WrW<T> whh = wr_gru_w(a, s, r, 1);
+  for (int r0 = 0; r0 < a.B; r0 += a.rows) {
+    const int nr = min(a.rows, a.B - r0);
+    wr_mul<T, MT>(a, s.A, h + (size_t)r0 * rd, rd, nr, whh, 3 * u, s.parts,
+                  s.red);
+    for (int i = threadIdx.x; i < nr * 3 * u; i += kThreads) {
+      const int rr = i / (3 * u), n = i - rr * 3 * u;
+      s.hh[(size_t)(r0 + rr) * 3 * u + n] =
+          wr_psum(s.parts, kp, a.mpad, 3 * u, rr, n);
+    }
+    __syncthreads();
+  }
+}
+
+// Stages C (fc1, R1) and D (fc2, R2): out = relu(in @ W + pre) for the
+// block's columns.
+template <typename T, int MT>
+__device__ void wr_dense(const WrArgs<T>& a, const WrShared<T>& s,
+                         const WrRole& r, const T* in, int K, T* out) {
+  const int fc = a.fc, uf = a.fc_units, sh = a.fshift, kp = wr_kp<T>(uf);
+  const float* pre = s.frm + (size_t)a.B * 3 * a.units;
+  const WrW<T> w = wr_fc_w(a, s, r);
+  for (int r0 = 0; r0 < a.B; r0 += a.rows) {
+    const int nr = min(a.rows, a.B - r0);
+    wr_mul<T, MT>(a, s.A, in + (size_t)r0 * K, K, nr, w, uf, s.parts, s.red);
+#pragma unroll
+    for (int k = 0; k < kWrItems; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i >= nr << sh) break;
+      const int rr = i >> sh, c = i & (uf - 1), row = r0 + rr;
+      if (c >= r.nf) continue;
+      const float v = wr_psum(s.parts, kp, a.mpad, uf, rr, c) +
+                      pre[(size_t)row * uf + c];
+      out[(size_t)row * fc + r.c0 + c] = from_float<T>(fmaxf(v, 0.0f));
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+template <typename T, int MT>
+__global__ void __launch_bounds__(kThreads, 1) wr_kernel(WrArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int B = a.B, rd = a.rd, fc = a.fc, S = a.S;
-  const int steps = a.fpf * S;
-  const size_t BR = (size_t)B * rd, BF = (size_t)B * fc;
-  float* xI = a.state;                // (B, rd)
-  float* h1 = xI + BR;                // (2, B, rd)
-  float* h2 = h1 + 2 * BR;            // (2, B, rd)
-  float* x1 = h2 + 2 * BR;            // (B, rd)
-  float* x2 = x1 + BR;                // (B, rd)
-  float* x3 = x2 + BR;                // (B, fc)
-  float* x4 = x3 + BF;                // (B, fc)
-  const int maxd = rd > fc ? rd : fc;
-  float* red = reinterpret_cast<float*>(
-      smem_raw + (size_t)2 * staged_rows<T>() * maxd * sizeof(T));
-  float* logits_s = red + kRedFloats;
-  __shared__ float sample_s;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const WrSmem L = wr_smem(a.B, a.rd, a.fc, a.n_classes, a.pick_dim,
+                           a.units, a.fc_units, a.mpad, kBf16, a.resident,
+                           a.fc3_resident, a.pre_smem, a.noise_smem,
+                           a.state_smem);
+  WrShared<T> s;
+  s.wg = reinterpret_cast<T*>(smem_raw + L.wg);
+  s.wf = reinterpret_cast<T*>(smem_raw + L.wf);
+  s.w3 = reinterpret_cast<T*>(smem_raw + L.w3);
+  s.A = reinterpret_cast<float*>(smem_raw + L.A);
+  s.parts = reinterpret_cast<float*>(smem_raw + L.parts);
+  s.pre = reinterpret_cast<float*>(smem_raw + L.pre);
+  s.noise = reinterpret_cast<float*>(smem_raw + L.noise);
+  s.red = reinterpret_cast<float*>(smem_raw + L.red);
+  s.cst = reinterpret_cast<float*>(smem_raw + L.cst);
+  const int B = a.B, rd = a.rd, u = a.units, steps = a.steps;
+  if (a.state_smem) {
+    s.hh = reinterpret_cast<float*>(smem_raw + L.hh);
+    s.hown = reinterpret_cast<float*>(smem_raw + L.hown);
+    s.frm = reinterpret_cast<float*>(smem_raw + L.frm);
+    s.xs = reinterpret_cast<float*>(smem_raw + L.xs);
+  } else {   // the block's part of spill, in wr_smem's order
+    float* st = a.spill + blockIdx.x * wr_spill_floats(B, u, a.fc_units);
+    s.hh = st;
+    s.hown = st + (size_t)B * 3 * u;
+    s.frm = st + (size_t)B * 4 * u;
+    s.xs = st + (size_t)B * (7 * u + a.fc_units);
+  }
+  const WrRole r = wr_role(a, blockIdx.x);
+  unsigned int* bar = a.bar;
 
-  // init: zero both GRU states; xI of step 0 (x starts at 0)
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < 4 * BR;
-       i += (size_t)gridDim.x * blockDim.x)
-    h1[i] = 0.0f;  // h1 and h2 are adjacent: 4 * B * rd floats
-  for (int b = blockIdx.x; b < B; b += gridDim.x) compute_xI(a, b, 0, 0.0f, xI);
-  grid_sync(a.bar);
-
-  for (int t = 0; t < steps; ++t) {
-    const int q = t / S;
-    const size_t cur = (size_t)(t & 1) * BR, nxt = (size_t)((t + 1) & 1) * BR;
-    // GRU1
-    gru(a, a.w_ih1, a.w_hh1, xI, h1 + cur, a.b_ih1, 0, a.b_hh1, h1 + nxt, x1,
-        smem, red);
-    grid_sync(a.bar);
-    // GRU2: input projection of x1 plus the hoisted pre_r2 (aux + b_ih)
-    gru(a, a.w_ih2, a.w_hh2, x1, h2 + cur, a.pre_r2 + (size_t)q * 3 * rd,
-        (size_t)a.fpf * 3 * rd, a.b_hh2, h2 + nxt, x2, smem, red);
-    grid_sync(a.bar);
-    dense_relu_stage(a, a.w_fc1, x2, rd, fc, a.pre_f1 + (size_t)q * fc,
-                     (size_t)a.fpf * fc, x3, smem, red);
-    grid_sync(a.bar);
-    dense_relu_stage(a, a.w_fc2, x3, fc, fc, a.pre_f2 + (size_t)q * fc,
-                     (size_t)a.fpf * fc, x4, smem, red);
-    grid_sync(a.bar);
-    // fc3 + sampling + the next step's xI: one row per block
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int b = blockIdx.x; b < B; b += gridDim.x) {
-      stage_rows(smem, x4, b, 1, fc);
-      __syncthreads();
-      // logits: each warp takes 4 classes (cidx, +8, +16, +24) at once
-      for (int c0 = warp; c0 < a.n_classes; c0 += 4 * kWarps) {
-        float acc[4][kRB] = {};
-        const T* wc[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int cidx = c0 + u * kWarps;
-          wc[u] = a.w_fc3 + (size_t)(cidx < a.n_classes ? cidx : c0) * fc;
-        }
-        warp_dot(wc, smem, fc, 0, fc, 1, acc);
-        float v[4] = {acc[0][0], acc[1][0], acc[2][0], acc[3][0]};
-        warp_sum_to_smem(v, red + warp * 4);
-        if (lane < 4 && c0 + lane * kWarps < a.n_classes)
-          logits_s[c0 + lane * kWarps] =
-              red[warp * 4 + lane] + __ldg(a.b_fc3 + c0 + lane * kWarps);
-        __syncwarp();
+  // prologue: resident weights, zero state, pre_I of step 0
+  if constexpr (kBf16) {
+    if (a.resident) {
+      for (int hh = 0; hh < 2; ++hh) {
+        const __nv_bfloat16* m = r.r1 ? (hh ? a.w_hh1 : a.w_ih1)
+                                      : (hh ? a.w_hh2 : a.w_ih2);
+        wr_load_rows(s.wg + (size_t)hh * 3 * u * (rd + kWrPad),
+                     {m + (size_t)r.j0 * rd, rd, a.ushift, rd, r.nu, 0}, 3 * u,
+                     rd);
       }
-      __syncthreads();
-      if (warp == 0) {
-        // Gumbel-max over the pick lanes, one lane per class; ties go to
-        // the lowest index (as jnp.argmax)
-        const float* gn = a.gumbel + ((size_t)t * B + b) * a.pick_dim;
-        const float lg = lane == 0 ? __ldg(a.logistic + (size_t)t * B + b)
-                                   : 0.0f;
-        float best = __int_as_float(0xff800000);  // -inf
-        int pick = 0x7fffffff;
-        for (int c = lane; c < a.pick_dim; c += 32) {
-          const float v = logits_s[c] + __ldg(gn + c);
-          if (v > best) {
-            best = v;
-            pick = c;
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-          const int op = __shfl_xor_sync(0xffffffffu, pick, off);
-          if (ob > best || (ob == best && op < pick)) {
-            best = ob;
-            pick = op;
-          }
-        }
-        if (lane == 0) {
-          float sample;
-          if (a.raw_mode) {
-            sample = 2.0f * (float)pick / ((float)a.n_classes - 1.0f) - 1.0f;
-          } else {
-            const float means = logits_s[a.nr_mix + pick];
-            const float log_scales =
-                fmaxf(logits_s[2 * a.nr_mix + pick], kLogScaleMin);
-            sample = fminf(fmaxf(means + expf(log_scales) * lg, -1.0f), 1.0f);
-          }
-          a.out[(size_t)b * steps + t] = sample;
-          sample_s = sample;
-        }
-      }
-      __syncthreads();
-      if (t + 1 < steps) compute_xI(a, b, t + 1, sample_s, xI);
-      __syncthreads();
+      const int K = r.r1 ? rd : a.fc;
+      wr_load_rows(s.wf, {(r.r1 ? a.w_fc1 : a.w_fc2) + (size_t)r.c0 * K, K,
+                          0, 0, r.nf, 0},
+                   a.fc_units, K);
     }
-    grid_sync(a.bar);
+    if (r.r1 && a.fc3_resident)
+      wr_load_rows(s.w3, {a.w_fc3, a.fc, 0, 0, a.n_classes, 0},
+                   a.n_classes, a.fc);
+  }
+  for (int i = threadIdx.x; i < B * 3 * u; i += kThreads) s.hh[i] = 0.0f;
+  for (int i = threadIdx.x; i < B * u; i += kThreads) s.hown[i] = 0.0f;
+  for (int i = threadIdx.x; i < B; i += kThreads) s.xs[i] = 0.0f;  // x_0
+  wr_consts(a, s, r);
+  if (!r.r1) wr_pre_slice(a, r, 0);
+  if (wr_arrives(r, kCPro)) wr_arrive(bar + kCPro);
+  wr_wait(bar + kCPro, a.prod[kCPro]);
+
+  if (r.r1) {
+    wr_prefetch(a, s, -1);   // pre_I of step 0
+    for (int t = 0; t < steps; ++t) {
+      const unsigned int e = t + 1;   // the epoch of step t's counters
+      if (t % a.S == 0) wr_frame(a, s, r, t / a.S);
+      // A: the sample of step t - 1 (x_0 = 0), then GRU1
+      if (t > 0) {
+        wr_wait(bar + kC4, t * a.prod[kC4]);   // x4 of step t - 1
+        wr_pick<T, MT>(a, s, t - 1);
+      }
+      wr_gru1<T, MT>(a, s, r, t);
+      if (wr_arrives(r, kC1)) wr_arrive(bar + kC1);
+      // hh1: h1_t @ W_hh1 for step t + 1, while B runs
+      if (t + 1 < steps) {
+        wr_wait(bar + kC1, e * a.prod[kC1]);   // h1 of step t, all
+                                              // units
+        wr_hh<T, MT>(a, s, r, wr_op(a, kOpH1, wr_slot(t)));
+      }
+      // C: fc1 (pre_I of step t + 1 is written before c2)
+      wr_wait(bar + kC2, e * a.prod[kC2]);   // x2 of step t
+      if (wr_arrives(r, kC3)) {
+        wr_dense<T, MT>(a, s, r, wr_op(a, kOpX2, wr_slot(t)), rd,
+                        wr_op(a, kOpX3, wr_slot(t)));
+        wr_arrive(bar + kC3);
+      }
+      wr_prefetch(a, s, t);
+    }
+    // the last sample
+    if (blockIdx.x == 0) {
+      wr_wait(bar + kC4, steps * a.prod[kC4]);
+      wr_pick<T, MT>(a, s, steps - 1);
+    }
+  } else {
+    for (int t = 0; t < steps; ++t) {
+      const unsigned int e = t + 1;
+      if (t % a.S == 0) wr_frame(a, s, r, t / a.S);
+      // pre_I of step t + 1 (its slice), while A runs
+      if (t + 1 < steps) wr_pre_slice(a, r, t + 1);
+      // B: GRU2
+      wr_wait(bar + kC1, e * a.prod[kC1]);   // x1 of step t
+      wr_gru2<T, MT>(a, s, r, t);
+      if (wr_arrives(r, kC2)) wr_arrive(bar + kC2);
+      // hh2: h2_t @ W_hh2 for step t + 1, while C runs
+      if (t + 1 < steps) {
+        wr_wait(bar + kC2, e * a.prod[kC2]);   // h2 of step t, all
+                                              // units
+        wr_hh<T, MT>(a, s, r, wr_op(a, kOpH2, wr_slot(t)));
+      }
+      // D: fc2
+      if (wr_arrives(r, kC4)) {
+        wr_wait(bar + kC3, e * a.prod[kC3]);   // x3 of step t
+        wr_dense<T, MT>(a, s, r, wr_op(a, kOpX3, wr_slot(t)), a.fc,
+                        wr_op(a, kOpX4, wr_slot(t)));
+        wr_arrive(bar + kC4);
+      }
+    }
   }
 }
 
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename T, int MT>
+static int wr_go(WrArgs<T>& a, int blocks, size_t smem, cudaStream_t st) {
+  return launch_cooperative(wr_kernel<T, MT>, a, blocks, smem, st);
+}
+
+// The plan of wr_plan (units, fc columns and rows a pass, the routes,
+// each counter's producers, shared-memory bytes), checked against the
+// kernel's own layout, ownership (wr_role) and arrivals (wr_arrives).
 template <typename T>
 static int launch(const void* const* p, const int* n, cudaStream_t stream) {
+  constexpr bool bf16 = sizeof(T) == 2;
   WrArgs<T> a{static_cast<const float*>(p[0]), static_cast<const float*>(p[1]),
               static_cast<const float*>(p[2]), static_cast<const float*>(p[3]),
               static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
@@ -471,21 +1077,82 @@ static int launch(const void* const* p, const int* n, cudaStream_t stream) {
               static_cast<const float*>(p[18]), static_cast<const float*>(p[19]),
               const_cast<float*>(static_cast<const float*>(p[20])),
               const_cast<float*>(static_cast<const float*>(p[21])),
-              const_cast<unsigned int*>(static_cast<const unsigned int*>(p[22])),
-              n[0], n[1], n[2], n[3], n[4], n[5], n[6], n[7], n[8], n[9]};
-  const int maxd = a.rd > a.fc ? a.rd : a.fc;
-  const size_t smem = (size_t)2 * staged_rows<T>() * maxd * sizeof(T) +
-                      (size_t)(kRedFloats + a.n_classes) * sizeof(float);
-  const int want = (maxd + kUnits - 1) / kUnits;
-  return launch_cooperative(wr_kernel<T>, a, want, smem, stream);
+              const_cast<T*>(static_cast<const T*>(p[22])),
+              const_cast<unsigned int*>(static_cast<const unsigned int*>(p[23])),
+              const_cast<float*>(static_cast<const float*>(p[24])),
+              n[0], n[1], n[2], n[3], n[4], n[5], n[6], n[7], n[8], n[9],
+              n[10], n[11], n[12], n[13], n[14], n[15], n[16], n[17], n[18]};
+  for (int c = 0; c < 5; ++c) a.prod[c] = (unsigned int)n[19 + c];
+  const int smem_bytes = n[24];
+  if (a.B < 1 || a.rd % 16 || a.fc % 16 || a.W < 1 || a.W > kMaxTaps ||
+      a.units < 8 || (a.units & (a.units - 1)) || a.fc_units < 8 ||
+      (a.fc_units & (a.fc_units - 1)) ||
+      a.rows < 1 || a.passes < 1 || a.pick_dim < 1 ||
+      a.pick_dim > a.n_classes ||
+      (!bf16 && (a.resident || a.fc3_resident)))
+    return cudaErrorInvalidValue;
+  const int tile = bf16 ? 16 : kRB;
+  a.mpad = (a.rows + tile - 1) / tile * tile;
+  a.g = (a.rd + a.units - 1) / a.units;
+  a.steps = a.fpf * a.S;
+  a.ushift = __builtin_ctz(a.units);
+  a.fshift = __builtin_ctz(a.fc_units);
+  if (a.mpad > 16 * kWrMaxMTiles || (a.B + a.rows - 1) / a.rows != a.passes ||
+      (a.fc + a.fc_units - 1) / a.fc_units > a.g ||
+      a.mpad * (a.units > a.fc_units ? a.units : a.fc_units) >
+          kWrItems * kThreads)
+    return cudaErrorInvalidValue;
+  const int blocks = 2 * a.g;
+  // every GRU unit and fc column of each role has exactly one owner, in
+  // order, and each counter's producers are the plan's
+  int next[2][2] = {{0, 0}, {0, 0}};   // [R1, R2][unit, column]
+  unsigned int prod[5] = {0, 0, 0, 0, 0};
+  for (int b = 0; b < blocks; ++b) {
+    const WrRole r = wr_role(a, b);
+    int* nx = next[r.r1 ? 0 : 1];
+    if (r.j0 != nx[0] || r.nu < 1 || (r.nf > 0 && r.c0 != nx[1]))
+      return cudaErrorInvalidValue;
+    nx[0] += r.nu;
+    nx[1] += r.nf;
+    for (int c = 0; c < 5; ++c) prod[c] += wr_arrives(r, c);
+  }
+  for (int k = 0; k < 2; ++k)
+    if (next[k][0] != a.rd || next[k][1] != a.fc) return cudaErrorInvalidValue;
+  for (int c = 0; c < 5; ++c)
+    if (prod[c] != a.prod[c] || prod[c] < 1) return cudaErrorInvalidValue;
+  if (!a.state_smem && a.spill == nullptr) return cudaErrorInvalidValue;
+  const WrSmem L = wr_smem(a.B, a.rd, a.fc, a.n_classes, a.pick_dim, a.units,
+                           a.fc_units, a.mpad, bf16, a.resident,
+                           a.fc3_resident, a.pre_smem, a.noise_smem,
+                           a.state_smem);
+  if (L.total != (size_t)smem_bytes) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (blocks > sms) return cudaErrorInvalidValue;  // every unit needs a block
+  if constexpr (!bf16) {
+    return wr_go<T, 1>(a, blocks, L.total, stream);
+  } else {
+    switch (a.mpad / 16) {
+      case 1: return wr_go<T, 1>(a, blocks, L.total, stream);
+      case 2: return wr_go<T, 2>(a, blocks, L.total, stream);
+      case 3: return wr_go<T, 3>(a, blocks, L.total, stream);
+      default: return wr_go<T, 4>(a, blocks, L.total, stream);
+    }
+  }
 }
 
 }  // namespace avc
 
-// C interface (ctypes).  ptrs: the 23 pointers of WrArgs in declaration
-// order (mf .. bar); ints: B, fpf, S, W, rd, fc, n_classes, nr_mix,
-// pick_dim, raw_mode.  bf16 != 0 selects bf16 weights and operands.
-// Returns a cudaError_t value (0 on success).
+// C interface (ctypes).  ptrs: the 25 pointers of WrArgs in declaration
+// order (mf .. spill); ints: B, fpf, S, W, rd, fc, n_classes, nr_mix,
+// pick_dim, raw_mode, then the plan: units, fc_units, rows, passes,
+// resident, fc3_resident, pre_smem, noise_smem, state_smem, the
+// producers of c1, c2, c3, c4 and the prologue's counter, smem_bytes.
+// bf16 != 0 selects bf16 weights and operands.  Returns a cudaError_t
+// value (0 on success).
 extern "C" int wavernn_sample_launch(const void* const* ptrs, const int* ints,
                                      int bf16, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);

@@ -16,6 +16,12 @@ rows (B, fpf, res_out) — and samples (B, fpf * total_scale) waveform rows:
     :func:`sample_rows_plain`, the same arithmetic in PyTorch, for CPU
     tensors.
 
+The kernel's launch plan (:func:`wr_plan`: block roles, rows a pass,
+which weights stay in shared memory) and its step schedule
+(:func:`wr_schedule`: which stage reads which ring slot after which
+counter epoch) are plain Python, tested on the CPU
+(``tests/test_torch_wr_plan.py``).
+
 ``fast_math=True`` follows ``wavernn_pallas.py:189,229,246``: bf16 weights,
 the frame features ``base``/``pre_r2``/``pre_f1``/``pre_f2`` and the noise
 rounded to bf16, activations rounded to bf16 only as matmul operands, f32
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -228,9 +234,264 @@ def sample_rows_plain(inp: RowsInputs, gumbel: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
+# Kernel 1's launch geometry (csrc/wavernn_sample.cu): 256 threads (8
+# warps) a block, rows staged a pass at a time, at most 4 M-tiles of 16
+# (bf16) or row tiles of 8 (f32), bf16 rows of pitch K + 32 in shared
+# memory, an H100's opt-in shared memory per block.
+THREADS, WARPS, ROW_TILE_F32, PITCH_PAD = 256, 8, 8, 32
+MAX_ROWS, MAX_ITEMS, SMEM_MAX = 64, 4, 232448
+# the arrival counters: one a stage, then the prologue's barrier
+COUNTERS = ("c1", "c2", "c3", "c4", "pro")
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _kparts(nt: int) -> int:
+    """K parts of a bf16 product over ``nt`` n-tiles: 8 warps as (group
+    of up to 4 n-tiles, K part)."""
+    groups = -(-nt // 4)
+    return 1 if groups >= WARPS else WARPS // groups
+
+
+def wr_spill_floats(B: int, units: int, fc_units: int) -> int:
+    """A block's per-row state in floats (``wr_spill_floats`` of the
+    source): the h product, the GRU state, the frame's pre_r2 and pre_f
+    slices, the samples."""
+    return B * (7 * units + fc_units + 1)
+
+
+def wr_smem_bytes(B: int, rd: int, fc: int, n_classes: int, pick_dim: int,
+                  units: int, fc_units: int, mpad: int, bf16: bool,
+                  resident: bool, fc3_resident: bool, pre_smem: bool,
+                  noise_smem: bool, state_smem: bool) -> int:
+    """The kernel's shared memory a block (``wr_smem`` of the source):
+    resident GRU rows (W_ih, W_hh of the block's units), fc rows and fc3;
+    the pass's staged operand (f32 only: bf16 products read theirs from
+    L2); the products' K parts; where ``state_smem``, the per-row state
+    (the h product, the block's GRU state); pre_I and the noise of a step
+    when prefetched; the samples (per-row state); the f32 warp sums; the
+    block's biases; its slices of the frame's pre_r2 and pre_f (per-row
+    state)."""
+    maxk, n3 = max(rd, fc), -(-n_classes // 8) * 8
+    Bs = B if state_smem else 0
+    parts = max((_kparts(n // 8) if bf16 else 1) * mpad * n * 4
+                for n in (3 * units, fc_units, n3))
+    return sum((
+        _up16(2 * 3 * units * (rd + PITCH_PAD) * 2) if resident else 0,
+        _up16(fc_units * (maxk + PITCH_PAD) * 2) if resident else 0,
+        _up16(n_classes * (fc + PITCH_PAD) * 2) if fc3_resident else 0,
+        0 if bf16 else _up16(mpad * maxk * 4), _up16(parts),
+        _up16(Bs * 3 * units * 4), _up16(Bs * units * 4),
+        _up16(B * rd * 4) if pre_smem else 0,
+        _up16(B * (pick_dim + 1) * 4) if noise_smem else 0,
+        _up16(Bs * 4), WARPS * ROW_TILE_F32 * 4,
+        _up16((6 * units + n_classes) * 4),
+        _up16(Bs * (3 * units + fc_units) * 4)))
+
+
+@dataclass(frozen=True)
+class WrPlan:
+    """How kernel 1 covers B rows at (rd, fc).
+
+    ``gru_blocks`` R1 blocks each own ``units`` hidden units of GRU1 and
+    ``fc_units`` columns of fc1; as many R2 blocks own the same units of
+    GRU2 (and those columns of pre_I) and columns of fc2.  ``route``:
+    "mma_smem" (bf16 tensor-core products, the block's GRU and fc rows
+    resident in shared memory), "mma_l2" (the same, the rows read from L2)
+    or "fma" (f32, from L2).  ``fc3_resident``: every R1 block holds fc3;
+    ``pre_smem`` / ``noise_smem``: pre_I and the noise of the next step
+    are prefetched into shared memory (else read from L2 in stage A);
+    ``state_smem``: each block's per-row state is in shared memory (else
+    in its part of an L2 scratch).  Each stage takes the rows ``passes``
+    times, ``rows`` at a time (``mpad`` padded: ``m_tiles`` 16-row tiles
+    in bf16).  ``producers``: the blocks that bump each of
+    :data:`COUNTERS` once an epoch (the wait targets a step)."""
+    route: str
+    units: int
+    fc_units: int
+    gru_blocks: int
+    blocks: int
+    rows: int
+    passes: int
+    mpad: int
+    m_tiles: int
+    fc3_resident: bool
+    pre_smem: bool
+    noise_smem: bool
+    state_smem: bool
+    producers: tuple
+    resident_bytes: int
+    smem_bytes: int
+
+    @property
+    def from_l2(self) -> tuple:
+        """The weights and inputs a step reads from L2 rather than shared
+        memory."""
+        out = () if self.route == "mma_smem" else ("gru", "fc1", "fc2")
+        return out + (() if self.fc3_resident else ("fc3",)) + \
+            (() if self.pre_smem else ("pre_I",)) + \
+            (() if self.noise_smem else ("noise",)) + \
+            (() if self.state_smem else ("state",))
+
+    def block_roles(self, rd: int, fc: int) -> list:
+        """(role, (first GRU unit, units), (first fc column, columns)) of
+        each block: R1 (GRU1, fc1) first, then R2 (GRU2, fc2), as the
+        kernel's ``wr_role`` assigns them (its launch checks that every
+        unit and column has one owner and that ``producers`` counts the
+        blocks that arrive on each counter)."""
+        out = []
+        for b in range(self.blocks):
+            i = b % self.gru_blocks
+            j0, c0 = i * self.units, i * self.fc_units
+            out.append(("R1" if b < self.gru_blocks else "R2",
+                        (j0, min(self.units, rd - j0)),
+                        (c0, max(0, min(self.fc_units, fc - c0)))))
+        return out
+
+
+def wr_plan(B: int, rd: int, fc: int, n_classes: int, bf16: bool,
+            sms: int, pick_dim: Optional[int] = None) -> WrPlan:
+    """Kernel 1's plan for ``sms`` streaming multiprocessors: GRU1 and
+    GRU2 on their own blocks of 8 units (16, 32, ... where 2 x rd / 8
+    blocks do not fit the card), fc1 / fc2 columns spread over them; then
+    the fewest passes over the rows (at most 64 a pass), and for those the
+    first of these that fits: the GRU and fc rows resident, then from L2;
+    under each, the per-row state in shared memory, then in L2 (which
+    fits any B); under each, pre_I and the noise prefetched, then pre_I
+    from L2, then both; under each, fc3 resident, then from L2.
+    ``pick_dim`` defaults to ``n_classes`` (RAW), the larger noise."""
+    if rd % 16 or fc % 16 or rd < 16 or fc < 16 or B < 1 or sms < 2 \
+            or n_classes < 1:
+        raise ValueError(f"bad sampling geometry: B={B}, rd={rd}, fc={fc}, "
+                         f"n_classes={n_classes}, sms={sms} (rd, fc % 16 "
+                         f"== 0)")
+    pick = n_classes if pick_dim is None else pick_dim
+
+    def pow2(n):   # the least power of two >= n: index math in shifts
+        return 1 << (n - 1).bit_length()
+
+    units = 8 * pow2(-(-(-(-rd // 8)) // (sms // 2)))
+    g = -(-rd // units)
+    fc_units = 8 * pow2(-(-(-(-fc // 8)) // g))
+    tile = 16 if bf16 else ROW_TILE_F32
+    # (GRU and fc rows, fc3, pre_I, noise in shared memory), best first:
+    # pre_I (B x rd f32, read by every R1 block on the critical path) is
+    # worth more than fc3 resident (30 rows)
+    prefetch = [(True, True), (False, True), (False, False)]
+    routes = [(True, state, fc3) + p for state in (True, False)
+              for p in prefetch for fc3 in (True, False)] if bf16 else []
+    routes += [(False, state, False) + p for state in (True, False)
+               for p in prefetch]
+    nfc = -(-fc // fc_units)       # the blocks of a role that own fc columns
+    for passes in range(-(-B // MAX_ROWS), B + 1):
+        rows = -(-B // passes)
+        if -(-B // rows) != passes:
+            continue
+        mpad = -(-rows // tile) * tile
+        if mpad * max(units, fc_units) > MAX_ITEMS * THREADS:
+            continue    # an epilogue thread takes at most 4 items
+        for res, state, fc3, pre, noise in routes:
+            smem = wr_smem_bytes(B, rd, fc, n_classes, pick, units,
+                                 fc_units, mpad, bf16, res, fc3, pre, noise,
+                                 state)
+            if smem > SMEM_MAX:
+                continue
+            resident = (_up16(2 * 3 * units * (rd + PITCH_PAD) * 2)
+                        + _up16(fc_units * (max(rd, fc) + PITCH_PAD) * 2)
+                        if res else 0) + (
+                _up16(n_classes * (fc + PITCH_PAD) * 2) if fc3 else 0)
+            return WrPlan(
+                route="fma" if not bf16 else
+                "mma_smem" if res else "mma_l2",
+                units=units, fc_units=fc_units, gru_blocks=g, blocks=2 * g,
+                rows=rows, passes=passes, mpad=mpad,
+                m_tiles=mpad // 16 if bf16 else 0, fc3_resident=fc3,
+                pre_smem=pre, noise_smem=noise, state_smem=state,
+                producers=(g, g, nfc, nfc, 2 * g),
+                resident_bytes=resident, smem_bytes=smem)
+    raise ValueError(f"kernel 1 does not fit B={B}, rd={rd}, fc={fc}, "
+                     f"n_classes={n_classes} in shared memory")
+
+
+def device_plan(inp: RowsInputs, dev) -> WrPlan:
+    """:func:`wr_plan` for ``inp`` on CUDA device ``dev``."""
+    return wr_plan(inp.rows, inp.w_x.shape[0], inp.w_fc1.shape[0],
+                   inp.n_classes, inp.w_ih1.dtype == torch.bfloat16,
+                   torch.cuda.get_device_properties(dev).multi_processor_count,
+                   inp.pick_dim)
+
+
+@dataclass(frozen=True)
+class WrStage:
+    """One stage of kernel 1's step schedule, in its role's program order.
+
+    ``waits``: (counter, epoch) the role waits for first (epoch e: every
+    producer of step e - 1 arrived); ``reads`` / ``writes``: (buffer,
+    step) of ring values, each in slot ``step % 2``; ``arrives``: the
+    counter the stage's producers bump after it, at epoch step + 1.
+    ``local``: what the stage keeps in its block (the h products, the
+    samples)."""
+    name: str
+    step: int
+    role: str
+    waits: tuple
+    reads: tuple
+    writes: tuple
+    arrives: Optional[str]
+
+
+def wr_schedule(steps: int) -> list:
+    """Kernel 1's stages over ``steps`` steps, in an order that respects
+    every wait: the prologue's pre_I of step 0 (all blocks then meet at a
+    barrier, counter "pro"), then per step t
+      pick(t - 1)  R1: fc3 and the pick of step t - 1's sample (t > 0)
+      A(t)         R1: xI, GRU1 -> h1, x1, x1f      (arrive c1)
+      pre(t + 1)   R2: its pre_I slice of step t + 1
+      B(t)         R2: GRU2 -> h2, x2               (arrive c2)
+      hh1(t)       R1: h1_t W_hh1 for step t + 1
+      C(t)         R1: fc1 -> x3                    (arrive c3)
+      hh2(t)       R2: h2_t W_hh2 for step t + 1
+      D(t)         R2: fc2 -> x4                    (arrive c4)
+    and the last sample's pick(steps - 1)."""
+    if steps < 1:
+        raise ValueError(f"kernel 1 needs steps >= 1, not {steps}")
+    S = WrStage
+    out = [S("pre", 0, "R2", (), (), (("pre", 0),), "pro"),
+           S("prologue", 0, "R1", (), (), (), "pro")]
+    for t in range(steps):
+        e, last = t + 1, t + 1 == steps
+        if t > 0:
+            out.append(S("pick", t - 1, "R1", (("c4", t),),
+                         (("x4", t - 1),), (), None))
+        first = (("pro", 1),) if t == 0 else ()
+        out.append(S("A", t, "R1", first, (("pre", t),),
+                     (("h1", t), ("x1", t), ("x1f", t)), "c1"))
+        if not last:
+            out.append(S("pre", t + 1, "R2", first, (),
+                         (("pre", t + 1),), None))
+        out.append(S("B", t, "R2", first + (("c1", e),),
+                     (("x1", t), ("x1f", t)), (("h2", t), ("x2", t)), "c2"))
+        if not last:
+            out.append(S("hh1", t, "R1", (("c1", e),), (("h1", t),), (),
+                         None))
+        out.append(S("C", t, "R1", (("c2", e),), (("x2", t),),
+                     (("x3", t),), "c3"))
+        if not last:
+            out.append(S("hh2", t, "R2", (("c2", e),), (("h2", t),), (),
+                         None))
+        out.append(S("D", t, "R2", (("c3", e),), (("x3", t),),
+                     (("x4", t),), "c4"))
+    out.append(S("pick", steps - 1, "R1", (("c4", steps),),
+                 (("x4", steps - 1),), (), None))
+    return out
+
+
 def launch(inp: RowsInputs, gumbel: torch.Tensor,
            logistic: torch.Tensor) -> torch.Tensor:
-    """Launch kernel 1 on CUDA tensors (checked here): (B, steps)."""
+    """Launch kernel 1 on CUDA tensors (checked here), on the device's
+    :func:`wr_plan`: (B, steps)."""
     B, steps = inp.rows, inp.steps
     rd, fc = inp.w_x.shape[0], inp.w_fc1.shape[0]
     if rd % 16 or fc % 16:
@@ -248,18 +509,19 @@ def launch(inp: RowsInputs, gumbel: torch.Tensor,
     if wdt not in (torch.float32, torch.bfloat16) or any(
             w.dtype != wdt for w in weights):
         raise ValueError("weights must all be f32 or all bf16")
-    if wdt == torch.bfloat16 and rd % 128:
-        raise ValueError(f"the bf16 sampling kernel splits rnn_dims over 8 "
-                         f"warps of 16-deep tensor-core steps: rnn_dims % "
-                         f"128 == 0, got {rd}")
     dev = inp.mf.device
+    plan = device_plan(inp, dev)
     out = torch.empty(B, steps, device=dev)
-    state = torch.empty(7 * B * rd + 2 * B * fc, device=dev)
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    state = torch.empty(4 * B * rd, device=dev)       # pre_I, x1: 2 slots
+    ring = torch.empty(2 * B * (4 * rd + 2 * fc), device=dev, dtype=wdt)
+    bar = torch.zeros(len(COUNTERS), dtype=torch.int32, device=dev)
+    spill = torch.empty(1 if plan.state_smem else plan.blocks
+                        * wr_spill_floats(B, plan.units, plan.fc_units),
+                        device=dev)
     tensors = (inp.mf, inp.base, inp.pre_r2, inp.pre_f1, inp.pre_f2,
                inp.ktab, inp.w_x) + weights + (
         inp.b_ih1, inp.b_hh1, inp.b_hh2, inp.b_fc3, gumbel, logistic,
-        out, state, bar)
+        out, state, ring, bar, spill)
     for i, t in enumerate(tensors):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"kernel input {i} is not a contiguous tensor "
@@ -267,10 +529,13 @@ def launch(inp: RowsInputs, gumbel: torch.Tensor,
         if t.dtype not in (torch.float32, wdt, torch.int32):
             raise ValueError(f"kernel input {i} has dtype {t.dtype}")
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    W = inp.ktab.shape[0]
-    ints = (ctypes.c_int * 10)(B, inp.fpf, inp.ktab.shape[1], W, rd, fc,
-                               inp.n_classes, inp.nr_mix, inp.pick_dim,
-                               int(inp.raw_mode))
+    ints = (ctypes.c_int * 25)(
+        B, inp.fpf, inp.ktab.shape[1], inp.ktab.shape[0], rd, fc,
+        inp.n_classes, inp.nr_mix, inp.pick_dim, int(inp.raw_mode),
+        plan.units, plan.fc_units, plan.rows, plan.passes,
+        int(plan.route == "mma_smem"), int(plan.fc3_resident),
+        int(plan.pre_smem), int(plan.noise_smem), int(plan.state_smem),
+        *plan.producers, plan.smem_bytes)
     with torch.cuda.device(dev):      # the C side launches on the current device
         SAMPLE(ctypes.cast(ptrs, ctypes.c_void_p),
                ctypes.cast(ints, ctypes.c_void_p),

@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
   2. build: every CUDA kernel of the port, compiled with nvcc for sm_90a;
   3. each kernel against its plain PyTorch version on the card, on the
      same inputs and noise, at full model width: the inference kernels
-     1-3 (kernel 3's launch plan and time per round), and the training
+     1-3 (kernel 1's launch plan and time per step at 16 and 48 rows,
+     kernel 3's launch plan and time per round), and the training
      kernels 6 (forward) and 7 (backward) at the decoder's lstm2 (f32 and
      bf16, and bf16 at a ragged 33 rows) and lstm1 geometries and the
      speaker encoder's (kernel 6's and kernel 7's launch plans, kernel 7's
@@ -539,11 +540,83 @@ def hold(out, ref, max_bar: float, mean_bar: float | None = None,
     return res
 
 
+def compare_wavernn_f32(cfg, params, rows: int, pinned: bool, gen,
+                        dev) -> dict:
+    """Kernel 1 in f32 against the plain loop, ``rows`` x 4 frames:
+    atol 1e-3."""
+    inp, gum, lgs = wavernn_inputs(cfg, params, rows, 4, False, gen, dev,
+                                   pinned)
+    return hold(WK.launch(inp, gum, lgs), WK.sample_rows_plain(inp, gum, lgs),
+                1e-3, dtype="torch.float32", rows=rows, steps=inp.steps,
+                noise="pinned" if pinned else "drawn")
+
+
+def compare_wavernn_bf16(cfg, params, rows: int, fpf: int, gen,
+                         dev) -> dict:
+    """Kernel 1 in bf16 against the plain loop over ``fpf`` frames (the
+    holds of :func:`compare_wavernn`); returns the full-fold comparison
+    with the kernel's time and the plan the timed launches ran on."""
+    bf16 = dict(dtype="torch.bfloat16", rows=rows)
+    inp, gum, lgs = wavernn_inputs(cfg, params, rows, fpf, True, gen, dev)
+    out = WK.launch(inp, gum, lgs)
+    ref = WK.sample_rows_plain(*first_frames(inp, gum, lgs, 1))
+    hold(out[:, :8], ref[:, :8], 1e-2, steps=inp.steps, noise="drawn",
+         **bf16)
+    if not bool(torch.isfinite(out).all()) or float(out.abs().max()) > 1:
+        raise AssertionError(f"wavernn_sample bf16 at {rows} rows gave "
+                             f"samples that are not finite in [-1, 1]")
+    # the f32 kernel on the same (bf16-rounded) conditioning, weights
+    # and noise: the two sample streams agree in distribution
+    inp32 = WK.RowsInputs(**{
+        k: (v.float() if isinstance(v, torch.Tensor) else v)
+        for k, v in vars(inp).items()})
+    out32 = WK.launch(inp32, gum, lgs)
+    stats = {"mean_bf16": float(out.mean()),
+             "mean_f32": float(out32.mean()),
+             "std_bf16": float(out.std()), "std_f32": float(out32.std())}
+    ok = (abs(stats["mean_bf16"] - stats["mean_f32"]) < 0.1
+          and abs(stats["std_bf16"] - stats["std_f32"]) < 0.15)
+    log({"phase": "compare", "kernel": "wavernn_sample",
+         "dtype": "torch.bfloat16 vs its f32 run", "rows": rows,
+         "steps": inp.steps, "noise": "drawn", **stats,
+         "tolerance": "|d mean| < 0.1, |d std| < 0.15", "ok": ok})
+    if not ok:
+        raise AssertionError(f"wavernn_sample bf16 statistics out of "
+                             f"bounds: {stats}")
+
+    inp, gum, lgs = wavernn_inputs(cfg, params, rows, fpf, True, gen, dev,
+                                   pinned=True)
+    out = WK.launch(inp, gum, lgs)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = WK.sample_rows_plain(inp, gum, lgs)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    shaken = dict(vars(inp))
+    shaken["mf"] = inp.mf * (1 + 1e-6 * torch.randn(
+        inp.mf.shape, generator=gen).to(dev))
+    spread = (WK.sample_rows_plain(WK.RowsInputs(**shaken), gum, lgs)
+              - ref).abs()
+    hold(out[:, :30], ref[:, :30], 1e-2, steps=inp.steps, noise="pinned",
+         **bf16)
+    ms = timed_ms(lambda: WK.launch(inp, gum, lgs), 2)
+    moved, ops = wavernn_cost(inp, gum, lgs, out)
+    b_ms, b_by = bound(moved, ops, torch.bfloat16)
+    return hold(out, ref, 2 * float(spread.max()),
+                1.15 * float(spread.mean()),
+                steps=inp.steps, noise="pinned",
+                plain_spread_max=float(spread.max()),
+                plain_spread_mean=float(spread.mean()), ms=ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, us_per_step=ms * 1e3 / inp.steps,
+                plan=dataclasses.asdict(WK.device_plan(inp, dev)), **bf16)
+
+
 def compare_wavernn(gen, dev) -> dict:
     """Kernel 1 against the plain loop, at rd = fc = 512, MOL:
       * f32, 8 rows x 4 frames, drawn noise: atol 1e-3;
       * f32, 48 rows x 4 frames, pinned noise: atol 1e-3;
-      * bf16 (the main path's tensor-core GRU stages) at the main path's
+      * bf16 (the main path's tensor-core products) at the main path's
         row buckets, 16 (the 4 s wav's 10 folds) and 48 (the 24 s wav's
         48), on a full 11000 + 2 * 550 fold (44 frames, 12100 steps):
         - drawn noise, the first 8 steps: atol 1e-2 (later, a pick that
@@ -560,73 +633,23 @@ def compare_wavernn(gen, dev) -> dict:
           kernel's mean |err| is that spread (ratio ~1.00); one that kept
           the GRU state rounded to bf16 gives ~1.25, a misplaced bias far
           more.
-    Returns the 16-row bf16 full-fold comparison, with its kernel time."""
+    Logs kernel 1's plan (``WK.device_plan`` of the timed launches) and
+    its us a step at 16 and 48 rows.  Returns the 16-row bf16 full-fold
+    comparison, with its kernel time."""
     cfg = WaveRNNConfig()
     params = from_jax_params(WR.init(gen, cfg), dev)
     for rows, pinned in ((8, False), (48, True)):
-        inp, gum, lgs = wavernn_inputs(cfg, params, rows, 4, False, gen, dev,
-                                       pinned)
-        hold(WK.launch(inp, gum, lgs), WK.sample_rows_plain(inp, gum, lgs),
-             1e-3, dtype="torch.float32", rows=rows, steps=inp.steps,
-             noise="pinned" if pinned else "drawn")
+        compare_wavernn_f32(cfg, params, rows, pinned, gen, dev)
     fpf = (11000 + 2 * 550) // cfg.total_scale
-    main = None
-    for rows in (16, 48):
-        bf16 = dict(dtype="torch.bfloat16", rows=rows)
-        inp, gum, lgs = wavernn_inputs(cfg, params, rows, fpf, True, gen, dev)
-        out = WK.launch(inp, gum, lgs)
-        ref = WK.sample_rows_plain(*first_frames(inp, gum, lgs, 1))
-        hold(out[:, :8], ref[:, :8], 1e-2, steps=inp.steps, noise="drawn",
-             **bf16)
-        if not bool(torch.isfinite(out).all()) or float(out.abs().max()) > 1:
-            raise AssertionError(f"wavernn_sample bf16 at {rows} rows gave "
-                                 f"samples that are not finite in [-1, 1]")
-        # the f32 kernel on the same (bf16-rounded) conditioning, weights
-        # and noise: the two sample streams agree in distribution
-        inp32 = WK.RowsInputs(**{
-            k: (v.float() if isinstance(v, torch.Tensor) else v)
-            for k, v in vars(inp).items()})
-        out32 = WK.launch(inp32, gum, lgs)
-        stats = {"mean_bf16": float(out.mean()),
-                 "mean_f32": float(out32.mean()),
-                 "std_bf16": float(out.std()), "std_f32": float(out32.std())}
-        ok = (abs(stats["mean_bf16"] - stats["mean_f32"]) < 0.1
-              and abs(stats["std_bf16"] - stats["std_f32"]) < 0.15)
-        log({"phase": "compare", "kernel": "wavernn_sample",
-             "dtype": "torch.bfloat16 vs its f32 run", "rows": rows,
-             "steps": inp.steps, "noise": "drawn", **stats,
-             "tolerance": "|d mean| < 0.1, |d std| < 0.15", "ok": ok})
-        if not ok:
-            raise AssertionError(f"wavernn_sample bf16 statistics out of "
-                                 f"bounds: {stats}")
-
-        inp, gum, lgs = wavernn_inputs(cfg, params, rows, fpf, True, gen, dev,
-                                       pinned=True)
-        out = WK.launch(inp, gum, lgs)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        ref = WK.sample_rows_plain(inp, gum, lgs)
-        torch.cuda.synchronize()
-        plain_ms = (time.time() - t0) * 1e3
-        shaken = dict(vars(inp))
-        shaken["mf"] = inp.mf * (1 + 1e-6 * torch.randn(
-            inp.mf.shape, generator=gen).to(dev))
-        spread = (WK.sample_rows_plain(WK.RowsInputs(**shaken), gum, lgs)
-                  - ref).abs()
-        hold(out[:, :30], ref[:, :30], 1e-2, steps=inp.steps, noise="pinned",
-             **bf16)
-        ms = timed_ms(lambda: WK.launch(inp, gum, lgs), 2)
-        moved, ops = wavernn_cost(inp, gum, lgs, out)
-        b_ms, b_by = bound(moved, ops, torch.bfloat16)
-        res = hold(out, ref, 2 * float(spread.max()),
-                   1.15 * float(spread.mean()),
-                   steps=inp.steps, noise="pinned",
-                   plain_spread_max=float(spread.max()),
-                   plain_spread_mean=float(spread.mean()), ms=ms,
-                   plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                   bound_by=b_by, us_per_step=ms * 1e3 / inp.steps, **bf16)
-        main = main or res
-    return main
+    res = {rows: compare_wavernn_bf16(cfg, params, rows, fpf, gen, dev)
+           for rows in (16, 48)}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log({"phase": "wavernn_sample plan", "sms": sms, **{
+        f"{rows}_rows": dict(res[rows]["plan"],
+                             us_per_step=res[rows]["us_per_step"],
+                             ms=res[rows]["ms"])
+        for rows in (16, 48)}})
+    return res[16]
 
 
 def synthetic_wav(seconds: float, sr: int, seed: int) -> np.ndarray:

@@ -258,28 +258,27 @@ def test_bf16_scan_stacks_run_the_kernels(cuda_device, L, I, H, rows,
     _close(out.cpu(), ref, lambda s: 2e-2 * s)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("fast_math,dims,rows", [
-    (False, 64, 3), (True, 128, 3), (True, 128, 16), (True, 512, 16)])
-def test_sampling_kernel_matches_plain(cuda_device, fast_math, dims, rows):
-    """f32 at atol 1e-3; bf16 (rnn_dims a multiple of 128: the tensor-core
-    GRU stages) at atol 1e-2."""
+def _sampling_case(device, fast_math: bool, dims: int, rows: int,
+                   **over):
+    """Kernel 1 against the plain loop at rnn_dims = fc_dims = ``dims``,
+    ``rows`` x 10 frames, pinned noise: f32 at atol 1e-3, bf16 at 1e-2.
+    Returns the plan it ran on."""
     cfg = WaveRNNConfig().with_overrides(rnn_dims=dims, fc_dims=dims,
-                                         **SMALL)
+                                         **SMALL, **over)
     gen = torch.Generator().manual_seed(1)
-    params = from_jax_params(WR.init(gen, cfg), cuda_device)
+    params = from_jax_params(WR.init(gen, cfg), device)
     J = WR._upsample_margin(params["upsample"]["up_convs"],
                             cfg.upsample_factors)
     frames = 10
     mel_rows = torch.rand(rows, frames + 2 * J, cfg.feat_dims, generator=gen)
     aux_rows = torch.randn(rows, frames, cfg.res_out_dims, generator=gen)
-    inp = WK.prepare_rows(params, mel_rows.to(cuda_device),
-                          aux_rows.to(cuda_device), cfg, fast_math)
-    noise_gen = torch.Generator(device=cuda_device).manual_seed(0)
+    inp = WK.prepare_rows(params, mel_rows.to(device),
+                          aux_rows.to(device), cfg, fast_math)
+    noise_gen = torch.Generator(device=device).manual_seed(0)
     gum, lgs = WK.draw_noise(inp.steps, rows, inp.pick_dim, noise_gen,
-                             cuda_device)
+                             device)
     lane = torch.randint(0, inp.pick_dim, (inp.steps, rows, 1), generator=gen)
-    gum = gum.scatter(-1, lane.to(cuda_device), 1e3)
+    gum = gum.scatter(-1, lane.to(device), 1e3)
     if fast_math:
         gum, lgs = PREC.round_bf16(gum), PREC.round_bf16(lgs)
     gum, lgs = gum.contiguous(), lgs.contiguous()
@@ -287,3 +286,39 @@ def test_sampling_kernel_matches_plain(cuda_device, fast_math, dims, rows):
     ref = WK.sample_rows_plain(inp, gum, lgs)
     torch.testing.assert_close(out, ref, atol=1e-2 if fast_math else 1e-3,
                                rtol=0)
+    return WK.device_plan(inp, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math,dims,rows", [
+    (False, 64, 3), (True, 128, 3), (True, 128, 16), (True, 512, 16),
+    (True, 512, 48), (True, 512, 64), (True, 1024, 64)])
+def test_sampling_kernel_matches_plain(cuda_device, fast_math, dims, rows):
+    """f32 at atol 1e-3; bf16 (tensor-core products) at atol 1e-2, at the
+    main path's row buckets 16, 48 and 64 (1, 3 and 4 M-tiles), and at
+    rnn_dims = fc_dims = 1024, 64 rows, where the plan reads the GRU and
+    fc rows from L2."""
+    plan = _sampling_case(cuda_device, fast_math, dims, rows)
+    if dims == 1024:
+        assert plan.route == "mma_l2"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_math", [False, True])
+@pytest.mark.parametrize("rows,passes,state_smem", [
+    (72, 2, True), (128, 2, True), (1000, 16, False)])
+def test_sampling_kernel_in_several_passes(cuda_device, fast_math, rows,
+                                           passes, state_smem):
+    """More rows than one pass takes (64): a ragged count (72), 128 rows,
+    and 1000 rows (an ~8-minute wav's folds), where the blocks' per-row
+    state lives in L2; rnn_dims = fc_dims = 512, the bars above."""
+    plan = _sampling_case(cuda_device, fast_math, 512, rows)
+    assert (plan.passes, plan.state_smem) == (passes, state_smem)
+
+
+@pytest.mark.cuda
+def test_sampling_kernel_noise_from_l2(cuda_device):
+    """RAW with 9 bits at 64 rows: the 512 Gumbel lanes a row do not fit
+    beside the rest, so stage A reads the noise (and fc3) from L2."""
+    plan = _sampling_case(cuda_device, True, 512, 64, mode="RAW", bits=9)
+    assert not plan.noise_smem and not plan.fc3_resident
