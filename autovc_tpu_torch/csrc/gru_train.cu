@@ -25,24 +25,77 @@
 // designs do about it: one persistent cooperative grid, the saved state
 // written with streaming stores so it does not evict what stays in L2,
 // rows and steps not padded (the TPU's 8-row / 32-step blocks were for
-// VMEM).  Kernel 4 runs two stages a step on the CUDA cores (a warp pair
-// per hidden unit's r, z, n columns over halves of K, the cell update as
-// the epilogue, the weights in L2).  Kernel 5's chain is layer-skewed: one
-// round a step for both layers, T barriers in all, all rows in one
-// tensor-core pass in bf16, each block's weight rows resident in shared
-// memory, the operands exchanged through a bf16 ring in L2 (details at
-// kernel 5 (a) below).  dhp, which the recurrence and the dW products both
-// need, is the dxp stream with its n lane times the saved r: the
-// recurrence writes it to the ring, the dW products form it as they stage.
+// VMEM).  Both chains are layer-skewed: one round a step for both
+// layers, T barriers in all, all rows in one tensor-core pass in bf16,
+// each block's weight columns (kernel 4) or rows (kernel 5) resident in
+// shared memory, the operands exchanged through a bf16 ring in L2
+// (details at kernel 4 and kernel 5 (a) below).  dhp, which the
+// recurrence and the dW products both need, is the dxp stream with its n
+// lane times the saved r: the recurrence writes it to the ring, the dW
+// products form it as they stage.
 #include "dw_tiles.cuh"
 
 namespace avc {
 
 // ---------------------------------------------------------------------------
-// kernel 4: forward.  A step is two dependent stages, each followed by a
-// grid barrier: (A) h1_{t-1} W_hh1 and h2_{t-1} W_hh2, then layer 1's cell;
-// (B) h1_t W_ih2x, then layer 2's cell.
+// kernel 4: the forward, layer-skewed
 // ---------------------------------------------------------------------------
+//
+// Layer 1 at step t needs only h1_{t-1}; layer 2 at t needs h1_t (through
+// W_ih2x) and h2_{t-1}.  So round s does layer 1 at step s and layer 2 at
+// step s - 1, and every operand comes from round s - 1:
+//   * round 0: layer 1 at step 0 from xp1_0 alone (h1_{-1} = 0: no
+//     product);
+//   * round s = 1 .. T: layer 1 at s (s < T) from h1_{s-1} W_hh1; layer 2
+//     at s - 1 from h1_{s-1} W_ih2x and h2_{s-2} W_hh2 (the second product
+//     from s = 2 on: h2_{-1} = 0);
+//   * a grid barrier after rounds 0 .. T - 1: T barriers, where two stages
+//     a step took 2 T.
+// The arithmetic and rounding are gru_train_pallas._fwd_kernel's: h1 and
+// h2 rounded to the compute dtype as product operands, f32 accumulation,
+// b_hh inside the reset product (hn = h W_hn + b_hn), the gates and h in
+// f32, r, z, n, hn stored in the compute dtype.
+//
+//   * h1 and h2 pass between rounds through a two-slot ring in L2 in the
+//     compute dtype, (2, 2, B, H): round s writes slot s & 1 and reads
+//     (s + 1) & 1, with ordinary stores so it stays in L2; hs and acts
+//     leave by streaming stores;
+//   * a block owns `units` hidden units (a multiple of 8, one n8 tile per
+//     8 units and gate) for the whole call: of ONE layer where both
+//     layers' blocks fit on the card ("split": 64 + 64 blocks at H = 512,
+//     layer 1's first; a layer-1 block runs one product a round, a
+//     layer-2 block two), else of both;
+//   * bf16: mma.sync m16n8k16 over ceil(rows / 16) M-tiles, rows past the
+//     group read as zero.  Of a round's n active products, warp w takes
+//     product w % n and, among the warps on it, one contiguous range of
+//     its 32-value K chunks, so a warp's partial sums are one (rows x 3
+//     gates x 8 units) tile of one product; the K loop is outermost, so
+//     each B fragment feeds every M-tile.  A fragments come straight from
+//     the ring in L2 (no staging pass, no block barrier before the
+//     product).  B is pack_fwd's (3H, H) layout (column c of W
+//     contiguous: the col-major B operand), the block's 3 x units columns
+//     of each matrix resident in shared memory for the whole call
+//     ("mma_smem", pitch H + 32 values: conflict-free 16-byte fragment
+//     loads) or read from L2 ("mma_l2");
+//   * f32 ("fma"): each product's operand staged 8 rows at a time, FMA
+//     dot products by a warp pair per unit over the two halves of K;
+//   * the epilogue: thread i owns the (layer, row, unit) items i, i + 256,
+//     ..., units fastest; it keeps each item's f32 h_{t-1} and b_hh in
+//     registers, sums the warps' partial tiles in a fixed order (no
+//     shared-memory atomics: they compile to compare-and-swap loops), and
+//     loads the next round's xp1 / base2 slices before the barrier.
+// The launch plan (route, split, units, rows per group, shared-memory
+// bytes) is ops/gru_train_kernels.py:gru_fwd_plan, the schedule
+// gru_fwd_schedule; the kernel recomputes its layout and refuses a plan
+// that disagrees.  Batches above one group run the rounds once per row
+// group (rows are independent sequences).
+
+constexpr int kGruFwdPitchPad = 32;  // resident weight column pitch H + 32
+constexpr int kGruFwdMaxMTiles = 4;  // 16-row M-tiles of one row group
+constexpr int kGruFwdMaxItems = 4;   // (layer, row, unit) items a thread
+// The products in matrix order: W_hh1 <- h1 (layer 1), W_ih2x <- h1 and
+// W_hh2 <- h2 (layer 2).
+constexpr int kFwdWhh1 = 0, kFwdWih2x = 1, kFwdWhh2 = 2, kFwdMats = 3;
 
 template <typename WT>
 struct GruFwdArgs {
@@ -55,176 +108,437 @@ struct GruFwdArgs {
   const float* bhh2;   // (3H,)
   float* hs;           // (2, T, B, H) out: h1, h2
   WT* acts;            // (2, T, B, 4H) out: r, z, n, hn of each layer
-  float* hp2;          // scratch (B, 3H): h2_{t-1} W_hh2 + b_hh2
-  unsigned int* bar;   // (2,): grid barrier, bar[0] == 0 at launch
+  WT* ring;            // (2, 2, B, H) scratch: h1, h2 by slot
+  unsigned int* bar;   // arrival count, 0 at launch
   int T, B, H;
+  int units;           // hidden units per block, a multiple of 8
+  int rows;            // rows per group
+  int mpad;            // rows padded to the row tile (16 mma, 8 fma)
+  int resident;        // bf16: the weights live in shared memory
+  int split;           // a block holds one layer (else both)
 };
 
-// Stage A: layer 1's cell at step t (the pre-activations: xp1_t, and
-// h1_{t-1} W_hh1 + b_hh1); keeps h2_{t-1} W_hh2 + b_hh2 for stage B.
+// Shared-memory layout in bytes: [resident weight columns (bf16) | f32
+// stage and warp sums (fma)], then the partial tiles, each (mpad, 3 gates,
+// units) f32: one a warp (mma), or one per K half and matrix (fma).
+// gru_fwd_plan computes the same sizes.
+__host__ __device__ inline int fwd_block_mats(int split) {
+  return split ? 2 : 3;   // the most matrices a block holds
+}
+__host__ __device__ inline size_t fwd_parts_offset(bool mma, int resident,
+                                                   int H, int units,
+                                                   int split) {
+  if (mma)
+    return resident ? (size_t)fwd_block_mats(split) * 3 * units *
+                          (H + kGruFwdPitchPad) * 2
+                    : 0;
+  return ((size_t)kRB * H + kWarps * 3 * kRB) * sizeof(float);
+}
+__host__ __device__ inline size_t fwd_smem_bytes(bool mma, int resident,
+                                                 int H, int units, int mpad,
+                                                 int split) {
+  const int tiles = mma ? kWarps : kSplit * fwd_block_mats(split);
+  return fwd_parts_offset(mma, resident, H, units, split) +
+         (size_t)tiles * mpad * 3 * units * sizeof(float);
+}
+
+// The schedule.  Layer index 0 is layer 1, 1 is layer 2.  The step layer l finishes in round s (valid when 0 <= step < T).
+__device__ __forceinline__ int fwd_step(int l, int s) {
+  return l ? s - 1 : s;
+}
+// Whether round s runs the product of matrix m.
+__device__ __forceinline__ bool fwd_job(int m, int s, int T) {
+  return m == kFwdWhh1 ? s >= 1 && s < T : m == kFwdWih2x ? s >= 1 : s >= 2;
+}
+// The ring slot round s writes, the slot it reads (written in round
+// s - 1), and the slot of layer 2's h1 (also written in round s - 1); the
+// ring entry matrix m multiplies (0: h1, 1: h2).
+__device__ __forceinline__ int fwd_write_slot(int s) { return s & 1; }
+__device__ __forceinline__ int fwd_read_slot(int s) { return (s + 1) & 1; }
+__device__ __forceinline__ int fwd_x_slot(int s) { return fwd_read_slot(s); }
+__device__ __forceinline__ int fwd_entry(int m) { return m == kFwdWhh2; }
+
 template <typename WT>
-__device__ void fwd_stage_a(const GruFwdArgs<WT>& a, int t, WT* smem) {
-  const int H = a.H, B = a.B;
-  if (blockIdx.x * kUnits >= H) return;  // no unit of this block here
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int V = 6 * kRB;
-  const int slot = warp % kUnits, part = warp / kUnits;
-  const int kpart = H / kSplit, k0 = part * kpart;
-  const size_t BH = (size_t)B * H;
-  WT* h1s = smem;
-  WT* h2s = smem + kRB * H;
-  float* red = reinterpret_cast<float*>(smem + 2 * kRB * H);  // (kWarps, V)
-  float* h1_out = a.hs + (size_t)t * BH;
-  const float* h1_in = h1_out - BH;                  // h1_{t-1}, t > 0
-  const float* h2_in = h1_in + (size_t)a.T * BH;     // h2_{t-1}, t > 0
-  WT* act1 = a.acts + (size_t)t * BH * 4;
-  for (int r0 = 0; r0 < B; r0 += kRB) {
-    const int nr = min(kRB, B - r0);
-    if (t > 0) {
-      stage_rows(h1s, h1_in, r0, nr, H);
-      stage_rows(h2s, h2_in, r0, nr, H);
+__device__ __forceinline__ const WT* fwd_ring_rows(const GruFwdArgs<WT>& a,
+                                                   int slot, int entry,
+                                                   int g0) {
+  return a.ring + ((size_t)(slot * 2 + entry) * a.B + g0) * a.H;
+}
+
+template <typename WT>
+__device__ __forceinline__ const WT* fwd_weights(const GruFwdArgs<WT>& a,
+                                                 int m) {
+  return m == kFwdWhh1 ? a.whh1 : m == kFwdWih2x ? a.wih2x : a.whh2;
+}
+
+// What a block owns: units j0 .. j0 + nu - 1 of layers llo .. llo + nl - 1,
+// the matrices mlo .. mhi - 1.  Split: layer 1's blocks first.
+struct FwdRole {
+  int j0, nu, llo, nl, mlo, mhi;
+};
+
+template <typename WT>
+__device__ __forceinline__ FwdRole fwd_role(const GruFwdArgs<WT>& a) {
+  const int per = (a.H + a.units - 1) / a.units;   // blocks per layer
+  FwdRole r;
+  int b = blockIdx.x;
+  r.llo = a.split && b >= per ? 1 : 0;
+  r.nl = a.split ? 1 : 2;
+  if (a.split) b %= per;
+  r.j0 = b * a.units;
+  r.nu = min(a.units, a.H - r.j0);
+  r.mlo = r.llo ? kFwdWih2x : kFwdWhh1;
+  r.mhi = a.split && !r.llo ? kFwdWih2x : kFwdMats;
+  return r;
+}
+
+// Round s's active products in the block: how many, the matrix of the
+// i-th (in matrix order), and the index of matrix m among them.
+__device__ __forceinline__ int fwd_jobs(const FwdRole& r, int s, int T) {
+  int n = 0;
+  for (int m = r.mlo; m < r.mhi; ++m) n += fwd_job(m, s, T) ? 1 : 0;
+  return n;
+}
+__device__ __forceinline__ int fwd_job_matrix(const FwdRole& r, int s,
+                                              int T, int i) {
+  for (int m = r.mlo; m < r.mhi; ++m) {
+    if (fwd_job(m, s, T) && i-- == 0) return m;
+  }
+  return -1;
+}
+__device__ __forceinline__ int fwd_job_index(const FwdRole& r, int s, int T,
+                                             int m) {
+  int i = 0;
+  for (int k = r.mlo; k < m; ++k) i += fwd_job(k, s, T) ? 1 : 0;
+  return i;
+}
+
+// Chunks [lo, hi) of one product into acc (an m16n8 tile per M-tile and
+// gate): lane (gid, tq) loads values 8 tq .. 8 tq + 7 of a chunk of its
+// two A rows (one 16-byte load each, issued for KB chunks together) and
+// of its B column of each gate, and feeds them to two k16 steps as the
+// fragment's k = (2 tq, 2 tq + 1, 2 tq + 8, 2 tq + 9): A and B take the
+// same permutation of k, so the sum is the same.  W is gate 0's column of
+// the lane's unit, gate g's is g * gstride on; values past H, rows past
+// the group and units past the block read as zero.
+template <int MT>
+__device__ __forceinline__ void fwd_chunks_mma(const __nv_bfloat16* A,
+                                               int H, int rows_g,
+                                               const __nv_bfloat16* W,
+                                               size_t gstride, bool resident,
+                                               bool u_ok, int lo, int hi,
+                                               float (&acc)[MT][3][4]) {
+  constexpr int KB = MT == 1 ? 8 : MT == 2 ? 4 : 2;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tq = lane & 3;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int c = lo; c < hi; c += KB) {
+    uint4 x[KB][MT][2];
+#pragma unroll
+    for (int q = 0; q < KB; ++q) {
+      const int k = (c + q) * 32 + 8 * tq;
+      const bool in = c + q < hi && k < H;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int rlo = mt * 16 + gid, rhi = rlo + 8;
+        x[q][mt][0] = in && rlo < rows_g
+            ? __ldcg(reinterpret_cast<const uint4*>(A + (size_t)rlo * H + k))
+            : zero;
+        x[q][mt][1] = in && rhi < rows_g
+            ? __ldcg(reinterpret_cast<const uint4*>(A + (size_t)rhi * H + k))
+            : zero;
+      }
     }
-    __syncthreads();
-    for (int j0 = blockIdx.x * kUnits; j0 < H; j0 += gridDim.x * kUnits) {
-      const int j = j0 + slot;
-      const bool epi = part == 0 && j < H && lane < nr;
-      if (j < H) {
-        float acc1[3][kRB] = {}, acc2[3][kRB] = {};
-        if (t > 0) {
-          const WT* const w1[3] = {a.whh1 + (size_t)j * H,
-                                   a.whh1 + (size_t)(H + j) * H,
-                                   a.whh1 + (size_t)(2 * H + j) * H};
-          warp_dot(w1, h1s, H, k0, k0 + kpart, nr, acc1);
-          const WT* const w2[3] = {a.whh2 + (size_t)j * H,
-                                   a.whh2 + (size_t)(H + j) * H,
-                                   a.whh2 + (size_t)(2 * H + j) * H};
-          warp_dot(w2, h2s, H, k0, k0 + kpart, nr, acc2);
-        }
-        float v[V];
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
+    for (int q = 0; q < KB; ++q) {
+      if (c + q >= hi) break;
+      const int k = (c + q) * 32 + 8 * tq;
+      const bool in = k < H && u_ok;
 #pragma unroll
-          for (int r = 0; r < kRB; ++r) {
-            v[g * kRB + r] = acc1[g][r];
-            v[(3 + g) * kRB + r] = acc2[g][r];
-          }
+      for (int g = 0; g < 3; ++g) {
+        const uint4 b = in ? ld_w16(W + g * gstride + k, resident) : zero;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const uint4* xm = x[q][mt];
+          const uint32_t s0[4] = {xm[0].x, xm[1].x, xm[0].y, xm[1].y};
+          const uint32_t s1[4] = {xm[0].z, xm[1].z, xm[0].w, xm[1].w};
+          mma_bf16(acc[mt][g], s0, b.x, b.y);
+          mma_bf16(acc[mt][g], s1, b.z, b.w);
         }
-        warp_sum_to_smem(v, red + warp * V);
       }
-      __syncthreads();
-      if (epi) {
-        const int row = r0 + lane;
-        float xp[3], hp1[3];
-        const float* x = a.xp1 + ((size_t)t * B + row) * 3 * H + j;
-        float* q = a.hp2 + (size_t)row * 3 * H + j;
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-          for (int p = 0; p < kSplit; ++p) {
-            s1 += red[(p * kUnits + slot) * V + g * kRB + lane];
-            s2 += red[(p * kUnits + slot) * V + (3 + g) * kRB + lane];
-          }
-          hp1[g] = s1 + __ldg(a.bhh1 + g * H + j);
-          q[g * H] = s2 + __ldg(a.bhh2 + g * H + j);
-          xp[g] = __ldg(x + g * H);
-        }
-        const size_t idx = (size_t)row * H + j;
-        const float h_prev = t > 0 ? __ldcg(h1_in + idx) : 0.0f;
-        const float r = sigmoidf_(xp[0] + hp1[0]);
-        const float z = sigmoidf_(xp[1] + hp1[1]);
-        const float n = tanhf(xp[2] + r * hp1[2]);
-        store_cs(h1_out + idx, (1.0f - z) * n + z * h_prev);
-        WT* act = act1 + (size_t)row * 4 * H + j;
-        store_cs(act, r);
-        store_cs(act + H, z);
-        store_cs(act + 2 * H, n);
-        store_cs(act + 3 * H, hp1[2]);
-      }
-      __syncthreads();
     }
   }
 }
 
-// Stage B: layer 2's cell at step t (xp2 = base2_t + h1_t W_ih2x).
-template <typename WT>
-__device__ void fwd_stage_b(const GruFwdArgs<WT>& a, int t, WT* smem) {
-  const int H = a.H, B = a.B;
-  if (blockIdx.x * kUnits >= H) return;
+// The bf16 products of round s: this warp's chunk range of its product
+// (n > 0 active), every column group, each partial tile to parts[warp].
+template <int MT>
+__device__ void fwd_product_mma(const GruFwdArgs<__nv_bfloat16>& a,
+                                const FwdRole& r, int s, int n, int g0,
+                                int rows_g, const __nv_bfloat16* wsm,
+                                float* parts) {
+  const int H = a.H, U = a.units, nch = (H + 31) / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int i = warp % n, m = fwd_job_matrix(r, s, a.T, i);
+  const int cnt = (kWarps - i + n - 1) / n, rank = warp / n;
+  const int c0 = rank * nch / cnt, c1 = (rank + 1) * nch / cnt;
+  const __nv_bfloat16* A = fwd_ring_rows(
+      a, m == kFwdWih2x ? fwd_x_slot(s) : fwd_read_slot(s), fwd_entry(m), g0);
+  const size_t wp = a.resident ? (size_t)H + kGruFwdPitchPad : (size_t)H;
+  float* tile = parts + (size_t)warp * a.mpad * 3 * U;
+  for (int cg = 0; cg < U / 8; ++cg) {
+    const int u = cg * 8 + gid;   // this lane's B column (unit)
+    const __nv_bfloat16* W =
+        a.resident ? wsm + ((size_t)(m - r.mlo) * 3 * U + u) * wp
+                   : fwd_weights(a, m) + (size_t)(r.j0 + u) * H;
+    const size_t gstride = a.resident ? (size_t)U * wp : (size_t)H * H;
+    float acc[MT][3][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][g][e] = 0.0f;
+      }
+    }
+    fwd_chunks_mma<MT>(A, H, rows_g, W, gstride, a.resident, u < r.nu, c0,
+                       c1, acc);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int rlo = mt * 16 + gid;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        float* p = tile + g * U + cg * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(p + (size_t)rlo * 3 * U) =
+            make_float2(acc[mt][g][0], acc[mt][g][1]);
+        *reinterpret_cast<float2*>(p + (size_t)(rlo + 8) * 3 * U) =
+            make_float2(acc[mt][g][2], acc[mt][g][3]);
+      }
+    }
+  }
+}
+
+// The f32 products of round s: each product's operand staged 8 rows at a
+// time, a warp pair (the two halves of K) per unit over its 3 gate
+// columns; the pair's sums go to parts[(part, matrix)].
+__device__ void fwd_product_fma(const GruFwdArgs<float>& a, const FwdRole& r,
+                                int s, int g0, int rows_g, float* stage,
+                                float* red, float* parts) {
+  const int H = a.H, U = a.units, nm = r.mhi - r.mlo;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp % kUnits, part = warp / kUnits;
+  const int kpart = H / kSplit, k0 = part * kpart;
   constexpr int V = 3 * kRB;
-  const int slot = warp % kUnits, part = warp / kUnits;
-  const int kpart = H / kSplit, k0 = part * kpart;
-  const size_t BH = (size_t)B * H, TBH = (size_t)a.T * BH;
-  WT* h1s = smem;
-  float* red = reinterpret_cast<float*>(smem + 2 * kRB * H);
-  const float* h1_in = a.hs + (size_t)t * BH;        // h1_t
-  float* h2_out = a.hs + TBH + (size_t)t * BH;
-  const float* h2_in = h2_out - BH;                  // h2_{t-1}, t > 0
-  WT* act2 = a.acts + (TBH + (size_t)t * BH) * 4;
-  for (int r0 = 0; r0 < B; r0 += kRB) {
-    const int nr = min(kRB, B - r0);
-    stage_rows(h1s, h1_in, r0, nr, H);
-    __syncthreads();
-    for (int j0 = blockIdx.x * kUnits; j0 < H; j0 += gridDim.x * kUnits) {
-      const int j = j0 + slot;
-      const bool epi = part == 0 && j < H && lane < nr;
-      if (j < H) {
+  for (int m = r.mlo; m < r.mhi; ++m) {
+    if (!fwd_job(m, s, a.T)) continue;
+    const float* A = fwd_ring_rows(
+        a, m == kFwdWih2x ? fwd_x_slot(s) : fwd_read_slot(s), fwd_entry(m),
+        g0);
+    const float* W = fwd_weights(a, m);
+    float* tile = parts + (size_t)(part * nm + m - r.mlo) * a.mpad * 3 * U;
+    for (int r0 = 0; r0 < rows_g; r0 += kRB) {
+      const int nr = min(kRB, rows_g - r0);
+      stage_rows(stage, A, r0, nr, H);
+      __syncthreads();
+      for (int u = slot; u < r.nu; u += kUnits) {
+        const int j = r.j0 + u;
         float acc[3][kRB] = {};
-        const WT* const w[3] = {a.wih2x + (size_t)j * H,
-                                a.wih2x + (size_t)(H + j) * H,
-                                a.wih2x + (size_t)(2 * H + j) * H};
-        warp_dot(w, h1s, H, k0, k0 + kpart, nr, acc);
+        const float* const w[3] = {W + (size_t)j * H, W + (size_t)(H + j) * H,
+                                   W + (size_t)(2 * H + j) * H};
+        warp_dot(w, stage, H, k0, k0 + kpart, nr, acc);
         float v[V];
 #pragma unroll
         for (int g = 0; g < 3; ++g) {
 #pragma unroll
-          for (int r = 0; r < kRB; ++r) v[g * kRB + r] = acc[g][r];
+          for (int i = 0; i < kRB; ++i) v[g * kRB + i] = acc[g][i];
         }
-        warp_sum_to_smem(v, red + warp * V);
-      }
-      __syncthreads();
-      if (epi) {
-        const int row = r0 + lane;
-        float xp[3], hp[3];
-        const float* x = a.base2 + ((size_t)t * B + row) * 3 * H + j;
-        const float* q = a.hp2 + (size_t)row * 3 * H + j;
+        float* rw = red + warp * V;
+        warp_sum_to_smem(v, rw);
+        if (lane < nr) {
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          float s = 0.0f;
-#pragma unroll
-          for (int p = 0; p < kSplit; ++p)
-            s += red[(p * kUnits + slot) * V + g * kRB + lane];
-          xp[g] = __ldg(x + g * H) + s;
-          hp[g] = __ldcg(q + g * H);
+          for (int g = 0; g < 3; ++g)
+            tile[(size_t)(r0 + lane) * 3 * U + g * U + u] = rw[g * kRB + lane];
         }
-        const size_t idx = (size_t)row * H + j;
-        const float h_prev = t > 0 ? __ldcg(h2_in + idx) : 0.0f;
-        const float r = sigmoidf_(xp[0] + hp[0]);
-        const float z = sigmoidf_(xp[1] + hp[1]);
-        const float n = tanhf(xp[2] + r * hp[2]);
-        store_cs(h2_out + idx, (1.0f - z) * n + z * h_prev);
-        WT* act = act2 + (size_t)row * 4 * H + j;
-        store_cs(act, r);
-        store_cs(act + H, z);
-        store_cs(act + 2 * H, n);
-        store_cs(act + 3 * H, hp[2]);
+        __syncwarp();
       }
       __syncthreads();
     }
   }
 }
 
+// A product's sum at one (row, gate, unit) from its partial tiles p[i *
+// tile], in a fixed order: mma: the warps on it, i = first, first + step,
+// ... (first: its index among the round's step active products); fma: its
+// two K halves, i = k * step + first (first: its matrix in the block,
+// step: the block's matrices).
+template <bool kMma>
+__device__ __forceinline__ float fwd_part_sum(const float* p, size_t tile,
+                                              int first, int step) {
+  float sum = 0.0f;
+  if constexpr (kMma) {
+    for (int w = first; w < kWarps; w += step) sum += p[w * tile];
+  } else {
+#pragma unroll
+    for (int k = 0; k < kSplit; ++k) sum += p[(k * step + first) * tile];
+  }
+  return sum;
+}
+
+// An item's input-side pre-activations of the round ahead (xp1_t for
+// layer 1, base2_t for layer 2), each read once.
+struct GruFwdIn {
+  float x[3];
+};
+
 template <typename WT>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void fwd_load_inputs(
+    const GruFwdArgs<WT>& a, const FwdRole& r, int s, int g0,
+    const bool (&ok)[kGruFwdMaxItems], const int (&pli)[kGruFwdMaxItems],
+    const int (&prow)[kGruFwdMaxItems], const int (&punit)[kGruFwdMaxItems],
+    GruFwdIn (&in)[kGruFwdMaxItems]) {
+  const int H = a.H;
+#pragma unroll
+  for (int k = 0; k < kGruFwdMaxItems; ++k) {
+    const int l = r.llo + pli[k], t = fwd_step(l, s);
+    if (ok[k] && t >= 0 && t < a.T) {
+      const float* x = (l ? a.base2 : a.xp1) +
+                       ((size_t)t * a.B + g0 + prow[k]) * 3 * H + r.j0 +
+                       punit[k];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) in[k].x[g] = __ldcs(x + g * H);
+    }
+  }
+}
+
+// One GRU cell of layer l at step t, row `row`, unit j, from its input
+// part xp and hidden part hp (b_hh included): h (f32) and r, z, n, hn by
+// streaming stores, h in the compute dtype to ring slot ws.  Returns h.
+template <typename WT>
+__device__ __forceinline__ float fwd_cell(const GruFwdArgs<WT>& a, int l,
+                                          int t, int row, int j,
+                                          const float (&xp)[3],
+                                          const float (&hp)[3], float h_prev,
+                                          int ws) {
+  const int H = a.H;
+  const float r = sigmoidf_(xp[0] + hp[0]);
+  const float z = sigmoidf_(xp[1] + hp[1]);
+  const float n = tanhf(xp[2] + r * hp[2]);
+  const float h = (1.0f - z) * n + z * h_prev;
+  const size_t at = (((size_t)l * a.T + t) * a.B + row) * H;
+  store_cs(a.hs + at + j, h);
+  WT* act = a.acts + at * 4 + j;
+  store_cs(act, r);
+  store_cs(act + H, z);
+  store_cs(act + 2 * H, n);
+  store_cs(act + 3 * H, hp[2]);
+  a.ring[((size_t)(ws * 2 + l) * a.B + row) * H + j] = from_float<WT>(h);
+  return h;
+}
+
+template <typename WT, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
     gru_train_fwd_kernel(GruFwdArgs<WT> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  WT* smem = reinterpret_cast<WT*>(smem_raw);
-  for (int t = 0; t < a.T; ++t) {
-    fwd_stage_a(a, t, smem);
-    grid_sync(a.bar);
-    fwd_stage_b(a, t, smem);
-    grid_sync(a.bar);
+  constexpr bool kMma = sizeof(WT) == 2;
+  constexpr int P = kGruFwdMaxItems;
+  const int H = a.H, T = a.T, U = a.units;
+  const FwdRole r = fwd_role(a);
+  WT* wsm = reinterpret_cast<WT*>(smem_raw);
+  float* stage = reinterpret_cast<float*>(smem_raw);
+  float* parts = reinterpret_cast<float*>(
+      smem_raw + fwd_parts_offset(kMma, a.resident, H, U, a.split));
+  if constexpr (kMma) {
+    if (a.resident) {   // this block's 3 x units columns of its matrices
+      const int vec = H / 8, pitch = H + kGruFwdPitchPad;
+      for (int i = threadIdx.x; i < (r.mhi - r.mlo) * 3 * U * vec;
+           i += kThreads) {
+        const int v = i % vec, row = i / vec, u = row % U;
+        const int g = row / U % 3, m = r.mlo + row / (3 * U);
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (u < r.nu)
+          x = __ldg(reinterpret_cast<const uint4*>(
+                        fwd_weights(a, m) + ((size_t)g * H + r.j0 + u) * H) +
+                    v);
+        *reinterpret_cast<uint4*>(wsm + (size_t)row * pitch + 8 * v) = x;
+      }
+      __syncthreads();
+    }
+  }
+  const int MU = a.mpad * U;
+  int pli[P], prow[P], punit[P];
+  bool pin[P];      // the item lies in the padded tile and in this block
+  float bhh[P][3];  // the item's b_hh
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int p = threadIdx.x + k * kThreads;
+    pli[k] = p / MU;
+    prow[k] = p % MU / U;
+    punit[k] = p % U;
+    pin[k] = pli[k] < r.nl && punit[k] < r.nu;
+    const float* b = r.llo + pli[k] ? a.bhh2 : a.bhh1;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      bhh[k][g] = pin[k] ? __ldg(b + g * H + r.j0 + punit[k]) : 0.0f;
+  }
+  unsigned int nbar = 0;   // grid barriers passed
+  for (int g0 = 0; g0 < a.B; g0 += a.rows) {
+    const int rows_g = min(a.rows, a.B - g0);
+    bool ok[P];
+    float h_prev[P];   // h_{t-1} of the item's layer
+    GruFwdIn in[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      ok[k] = pin[k] && prow[k] < rows_g;
+      h_prev[k] = 0.0f;
+    }
+    fwd_load_inputs(a, r, 0, g0, ok, pli, prow, punit, in);
+    for (int s = 0; s <= T; ++s) {
+      const int n = fwd_jobs(r, s, T);
+      if constexpr (kMma) {
+        if (n > 0) fwd_product_mma<MT>(a, r, s, n, g0, rows_g, wsm, parts);
+      } else {
+        fwd_product_fma(a, r, s, g0, rows_g, stage, stage + kRB * H, parts);
+      }
+      __syncthreads();
+      // each layer's products: their partial tiles' first index and step
+      const int step = kMma ? n : r.mhi - r.mlo;
+      const int fx = kMma ? fwd_job_index(r, s, T, kFwdWih2x)
+                          : kFwdWih2x - r.mlo;
+      const int fh2 = kMma ? fwd_job_index(r, s, T, kFwdWhh2)
+                           : kFwdWhh2 - r.mlo;
+      const bool jh1 = fwd_job(kFwdWhh1, s, T), jx = fwd_job(kFwdWih2x, s, T),
+                 jh2 = fwd_job(kFwdWhh2, s, T);
+      const size_t tile = (size_t)a.mpad * 3 * U;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const int l = r.llo + pli[k], t = fwd_step(l, s);
+        if (!ok[k] || t < 0 || t >= T) continue;
+        const int row = prow[k], u = punit[k];
+        const float* p = parts + (size_t)row * 3 * U + u;
+        float xp[3], hp[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          xp[g] = in[k].x[g];
+          float h = 0.0f;
+          if (l == 0) {
+            // layer 1's one product is W_hh1, the block's first (fh1 = 0)
+            if (jh1) h = fwd_part_sum<kMma>(p + g * U, tile, 0, step);
+          } else {
+            if (jx) xp[g] += fwd_part_sum<kMma>(p + g * U, tile, fx, step);
+            if (jh2) h = fwd_part_sum<kMma>(p + g * U, tile, fh2, step);
+          }
+          hp[g] = h + bhh[k][g];
+        }
+        h_prev[k] = fwd_cell(a, l, t, g0 + row, r.j0 + u, xp, hp, h_prev[k],
+                             fwd_write_slot(s));
+      }
+      if (s < T) {
+        // the next round's inputs, in flight across the barrier
+        fwd_load_inputs(a, r, s + 1, g0, ok, pli, prow, punit, in);
+        grid_sync_count(a.bar, nbar);
+      }
+    }
+    __syncthreads();   // the last epilogue's reads of parts
   }
 }
 
@@ -724,23 +1038,62 @@ static std::vector<DwProblem> gru_dw_problems(const WT* acts, const float* hs,
 // launches
 // ---------------------------------------------------------------------------
 
+// Kernel 4 on the plan of gru_fwd_plan (route, split, units per block,
+// rows per group, shared-memory bytes: checked against the kernel's own
+// layout).
 template <typename WT>
 static int fwd_launch(const void* xp1, const void* base2, const void* whh1,
                       const void* wih2x, const void* whh2, const void* bhh1,
-                      const void* bhh2, void* hs, void* acts, void* hp2,
-                      void* bar, int T, int B, int H, cudaStream_t stream) {
+                      const void* bhh2, void* hs, void* acts, void* ring,
+                      void* bar, int T, int B, int H, int units, int rows,
+                      int resident, int split, int smem_bytes,
+                      cudaStream_t stream) {
+  constexpr bool mma = sizeof(WT) == 2;
+  if (T < 1 || B < 1 || H % 16 || units < 8 || units % 8 || rows < 1 ||
+      (resident && !mma))
+    return cudaErrorInvalidValue;
+  const int tile = mma ? 16 : kRB;
+  const int mpad = (rows + tile - 1) / tile * tile;
+  if (mpad > 16 * kGruFwdMaxMTiles ||
+      (split ? 1 : 2) * mpad * units > kGruFwdMaxItems * kThreads)
+    return cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes(mma, resident, H, units, mpad, split);
+  if (smem != (size_t)smem_bytes) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int blocks = (split ? 2 : 1) * ((H + units - 1) / units);
+  if (blocks > sms) return cudaErrorInvalidValue;   // every unit needs a block
   GruFwdArgs<WT> a{static_cast<const float*>(xp1),
                    static_cast<const float*>(base2),
                    static_cast<const WT*>(whh1), static_cast<const WT*>(wih2x),
                    static_cast<const WT*>(whh2),
                    static_cast<const float*>(bhh1),
                    static_cast<const float*>(bhh2), static_cast<float*>(hs),
-                   static_cast<WT*>(acts), static_cast<float*>(hp2),
-                   static_cast<unsigned int*>(bar), T, B, H};
-  const size_t smem = (size_t)2 * kRB * H * sizeof(WT) +
-                      (size_t)kWarps * 6 * kRB * sizeof(float);
-  return launch_cooperative(gru_train_fwd_kernel<WT>, a,
-                            (H + kUnits - 1) / kUnits, smem, stream);
+                   static_cast<WT*>(acts), static_cast<WT*>(ring),
+                   static_cast<unsigned int*>(bar), T, B, H, units, rows,
+                   mpad, resident, split};
+  if constexpr (!mma) {
+    return launch_cooperative(gru_train_fwd_kernel<WT, 1>, a, blocks, smem,
+                              stream);
+  } else {
+    switch (mpad / 16) {
+      case 1:
+        return launch_cooperative(gru_train_fwd_kernel<WT, 1>, a, blocks,
+                                  smem, stream);
+      case 2:
+        return launch_cooperative(gru_train_fwd_kernel<WT, 2>, a, blocks,
+                                  smem, stream);
+      case 3:
+        return launch_cooperative(gru_train_fwd_kernel<WT, 3>, a, blocks,
+                                  smem, stream);
+      default:
+        return launch_cooperative(gru_train_fwd_kernel<WT, 4>, a, blocks,
+                                  smem, stream);
+    }
+  }
 }
 
 // Kernel 5 (a) on the plan of gru_bwd_plan (route, split, units per block,
@@ -824,14 +1177,18 @@ extern "C" int gru_train_fwd_launch(const void* xp1, const void* base2,
                                     const void* whh1, const void* wih2x,
                                     const void* whh2, const void* bhh1,
                                     const void* bhh2, void* hs, void* acts,
-                                    void* hp2, void* bar, int T, int B, int H,
-                                    int bf16, void* stream) {
+                                    void* ring, void* bar, int T, int B, int H,
+                                    int units, int rows, int resident,
+                                    int split, int smem_bytes, int bf16,
+                                    void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? avc::fwd_launch<__nv_bfloat16>(xp1, base2, whh1, wih2x, whh2,
-                                               bhh1, bhh2, hs, acts, hp2, bar,
-                                               T, B, H, st)
+  return bf16 ? avc::fwd_launch<__nv_bfloat16>(
+                    xp1, base2, whh1, wih2x, whh2, bhh1, bhh2, hs, acts, ring,
+                    bar, T, B, H, units, rows, resident, split, smem_bytes, st)
               : avc::fwd_launch<float>(xp1, base2, whh1, wih2x, whh2, bhh1,
-                                       bhh2, hs, acts, hp2, bar, T, B, H, st);
+                                       bhh2, hs, acts, ring, bar, T, B, H,
+                                       units, rows, resident, split,
+                                       smem_bytes, st);
 }
 
 extern "C" int gru_train_bwd_launch(const void* acts, const void* hs,

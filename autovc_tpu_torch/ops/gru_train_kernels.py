@@ -12,9 +12,12 @@ states), differentiable in all seven inputs.  The pair is a
 ``torch.autograd.Function`` (:class:`GruPair`):
 
   * on a CUDA tensor its forward launches kernel 4
-    (``gru_train_fwd_launch`` of ``csrc/gru_train.cu``) and its backward
-    kernel 5 (``gru_train_bwd_launch``: the reverse-time chain, then the
-    hand-written dW / db products), or raises;
+    (``gru_train_fwd_launch`` of ``csrc/gru_train.cu``: the layer-skewed
+    forward on :func:`gru_fwd_plan` and :func:`gru_fwd_schedule`) and its
+    backward kernel 5 (``gru_train_bwd_launch``: the layer-skewed
+    reverse-time chain on :func:`gru_bwd_plan` and
+    :func:`gru_bwd_schedule`, then the hand-written dW / db products), or
+    raises;
   * on a CPU tensor it runs :func:`gru_pair_fwd_plain` and
     :func:`gru_pair_bwd_plain`, the same arithmetic in PyTorch (the CPU path
     and the kernels' oracle).
@@ -45,7 +48,7 @@ from autovc_tpu_torch.ops import precision as PREC
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FWD = _build.Kernel("gru_train.cu", "gru_train_fwd_launch",
-                    [_P] * 11 + [_I] * 4 + [_P])
+                    [_P] * 11 + [_I] * 9 + [_P])
 BWD = _build.Kernel("gru_train.cu", "gru_train_bwd_launch",
                     [_P] * 16 + [_I] * 9 + [_P])
 
@@ -177,11 +180,142 @@ def _check_geometry(H: int, dtype: torch.dtype) -> None:
         raise ValueError("weights must be f32 or bf16")
 
 
+# The launch geometry of kernel 4 and kernel 5 (a) (csrc/gru_train.cu):
+# 256 threads a block, at most 4 (layer, row, unit) items a thread and 4
+# M-tiles of 16 rows, resident weight rows of pitch K + 32 values, an
+# H100's opt-in shared memory per block.  Kernel 4's products in matrix
+# order, each with the ring entry it multiplies: W_hh1 h1 (layer 1),
+# W_ih2x h1 and W_hh2 h2 (layer 2); kernel 5's ring entries, in its matrix
+# order: W_ih2x multiplies dxp2, W_hh1 dhp1, W_hh2 dhp2.
+THREADS, WARPS, SPLIT, ROW_TILE_F32 = 256, 8, 2, 8
+MAX_PAIRS, MAX_ROWS, PITCH_PAD = 4, 64, 32
+SMEM_MAX = 232448
+FWD_PRODUCTS = (("whh1", "h1"), ("wih2x", "h1"), ("whh2", "h2"))
+ENTRIES = ("dxp2", "dhp1", "dhp2")
+
+
+@dataclass(frozen=True)
+class FwdRound:
+    """Round ``s`` of kernel 4's layer-skewed forward: the step each layer
+    finishes (None: none), the products it runs as (matrix, ring entry,
+    slot), the slot it writes, and whether a grid barrier follows."""
+    s: int
+    layer1_step: int | None
+    layer2_step: int | None
+    reads: tuple            # ((matrix, entry, slot), ...) in matrix order
+    write_slot: int
+    barrier: bool
+
+
+def gru_fwd_schedule(T: int) -> list[FwdRound]:
+    """The T + 1 rounds of kernel 4: round 0 does layer 1 at step 0 from
+    xp1 alone; round s = 1 .. T does layer 1 at s (from h1_{s-1} W_hh1,
+    s < T) and layer 2 at s - 1 (from h1_{s-1} W_ih2x, and h2_{s-2} W_hh2
+    from s = 2 on), every operand from the ring slot round s - 1 wrote; T
+    barriers."""
+    if T < 1:
+        raise ValueError(f"kernel 4 needs T >= 1, not {T}")
+    rounds = []
+    for s in range(T + 1):
+        read = (s + 1) % 2
+        reads = tuple((m, e, read) for (m, e), on in zip(
+            FWD_PRODUCTS, (1 <= s < T, s >= 1, s >= 2)) if on)
+        rounds.append(FwdRound(s=s, layer1_step=s if s < T else None,
+                               layer2_step=s - 1 if s >= 1 else None,
+                               reads=reads, write_slot=s % 2,
+                               barrier=s < T))
+    return rounds
+
+
+@dataclass(frozen=True)
+class GruFwdPlan:
+    """How kernel 4 covers a (B, H) pair.
+
+    ``route``: "mma_smem" (bf16 tensor-core products, the block's weight
+    columns resident in shared memory), "mma_l2" (the same, weights read
+    from L2: they do not fit) or "fma" (f32).  ``split``: a block holds
+    one layer (layer 1's blocks first, then layer 2's), else both.  A
+    block owns ``units`` hidden units of its layers; ``rows`` rows go
+    through the products at once (``m_tiles`` 16-row tiles in bf16),
+    ``groups`` times over the batch, each group on the rounds of
+    :func:`gru_fwd_schedule` (the same for every plan)."""
+    route: str
+    split: bool
+    units: int
+    blocks: int
+    rows: int
+    groups: int
+    m_tiles: int
+    items: int             # (layer, row, unit) items a thread owns
+    resident_bytes: int
+    smem_bytes: int
+
+    def block_units(self, H: int) -> list[tuple[int, int, int]]:
+        """(layer, first unit, units) of each block, layers 1 and 2."""
+        per = self.blocks // (2 if self.split else 1)
+        out = []
+        for b in range(self.blocks):
+            j0 = b % per * self.units
+            nu = min(self.units, H - j0)
+            layers = ((1 if b < per else 2,) if self.split else (1, 2))
+            out += [(layer, j0, nu) for layer in layers]
+        return out
+
+
+def gru_fwd_plan(B: int, H: int, bf16: bool, sms: int) -> GruFwdPlan:
+    """Kernel 4's plan for ``sms`` streaming multiprocessors: each layer
+    its own blocks of 8 units where both fit on the card, else blocks of
+    both layers; the fewest row groups that fit; resident weight columns
+    where they fit beside the partial tiles."""
+    if H % 16 or B < 1 or H < 16:
+        raise ValueError(f"bad GRU geometry: B={B}, H={H} (H % 16 == 0)")
+    split = sms >= 2 * -(-H // 8)          # both layers' blocks fit
+    units = 8 if split else 8 * -(-H // (8 * sms))
+    layers, mats = (1, 2) if split else (2, 3)
+    tile = 16 if bf16 else ROW_TILE_F32
+    tiles = WARPS if bf16 else SPLIT * mats
+    weights = mats * 3 * units * (H + PITCH_PAD) * 2
+    cap = min(MAX_ROWS, MAX_PAIRS * THREADS // (layers * units) // tile
+              * tile)
+    if cap < 1:
+        raise ValueError(f"H={H} needs {units} units a block: too many for "
+                         f"kernel 4's items")
+    groups = -(-B // cap)
+    while True:
+        rows = -(-B // groups)
+        mpad = -(-rows // tile) * tile
+        parts = tiles * mpad * 3 * units * 4
+        if not bf16:
+            route, base = "fma", (ROW_TILE_F32 * H + WARPS * 3
+                                  * ROW_TILE_F32) * 4
+        elif weights + parts <= SMEM_MAX:
+            route, base = "mma_smem", weights
+        else:
+            route, base = "mma_l2", 0
+        if base + parts <= SMEM_MAX:
+            break
+        if rows == 1:
+            raise ValueError(f"kernel 4 does not fit H={H} in shared memory")
+        groups += 1
+    return GruFwdPlan(route=route, split=split, units=units,
+                      blocks=(2 if split else 1) * -(-H // units), rows=rows,
+                      groups=groups, m_tiles=mpad // 16 if bf16 else 0,
+                      items=-(-layers * mpad * units // THREADS),
+                      resident_bytes=base if route == "mma_smem" else 0,
+                      smem_bytes=base + parts)
+
+
+def device_fwd_plan(B: int, H: int, bf16: bool, dev) -> GruFwdPlan:
+    """:func:`gru_fwd_plan` for the SM count of CUDA device ``dev``."""
+    return gru_fwd_plan(
+        B, H, bf16, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
 def fwd_launch(xp1: torch.Tensor, base2: torch.Tensor, whh1: torch.Tensor,
                wih2x: torch.Tensor, whh2: torch.Tensor, bhh1: torch.Tensor,
                bhh2: torch.Tensor):
-    """Kernel 4 on CUDA tensors (checked here); the same results as
-    :func:`gru_pair_fwd_plain`."""
+    """Kernel 4 on CUDA tensors (checked here), on the device's
+    :func:`gru_fwd_plan`; the same results as :func:`gru_pair_fwd_plain`."""
     T, B, H3 = xp1.shape
     H = H3 // 3
     _check_geometry(H, whh1.dtype)
@@ -195,29 +329,21 @@ def fwd_launch(xp1: torch.Tensor, base2: torch.Tensor, whh1: torch.Tensor,
             raise ValueError("xp1, base2 and the biases must be float32")
     dev = xp1.device
     _build.check_inputs((xp1, base2, whh1, wih2x, whh2, bhh1, bhh2), dev)
+    bf16 = whh1.dtype == torch.bfloat16
+    plan = device_fwd_plan(B, H, bf16, dev)
     hs = torch.empty(2, T, B, H, device=dev)
     acts = torch.empty(2, T, B, 4 * H, device=dev, dtype=whh1.dtype)
-    hp2 = torch.empty(B, 3 * H, device=dev)
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    ring = torch.empty(2, 2, B, H, device=dev, dtype=whh1.dtype)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)   # arrival count
     # the C side launches on the current device
     with torch.cuda.device(dev):
         FWD(xp1.data_ptr(), base2.data_ptr(), whh1.data_ptr(),
             wih2x.data_ptr(), whh2.data_ptr(), bhh1.data_ptr(),
-            bhh2.data_ptr(), hs.data_ptr(), acts.data_ptr(), hp2.data_ptr(),
-            bar.data_ptr(), T, B, H, int(whh1.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            bhh2.data_ptr(), hs.data_ptr(), acts.data_ptr(), ring.data_ptr(),
+            bar.data_ptr(), T, B, H, plan.units, plan.rows,
+            int(plan.route == "mma_smem"), int(plan.split), plan.smem_bytes,
+            int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     return hs, acts
-
-
-# Kernel 5 (a)'s launch geometry (csrc/gru_train.cu): 256 threads a
-# block, at most 4 (layer, row, unit) items a thread and 4 M-tiles of 16
-# rows, resident weight rows of pitch 3H + 32 values, an H100's opt-in
-# shared memory per block.  The ring's entries, in the kernel's matrix
-# order: W_ih2x multiplies dxp2, W_hh1 dhp1, W_hh2 dhp2.
-THREADS, WARPS, SPLIT, ROW_TILE_F32 = 256, 8, 2, 8
-MAX_PAIRS, MAX_ROWS, PITCH_PAD = 4, 64, 32
-SMEM_MAX = 232448
-ENTRIES = ("dxp2", "dhp1", "dhp2")
 
 
 @dataclass(frozen=True)

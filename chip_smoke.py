@@ -17,8 +17,10 @@ Phases (any failure exits non-zero):
      kernels 3 and 6 are one layer-skewed routine, csrc/lstm_fwd.cuh), and
      the GRU-pair training kernels 4 (forward) and 5
      (backward) at the vocoder's geometry (f32 and bf16, 8 x 2475) and the
-     JAX bench's (bf16, 32 x 1375) (kernel 5's launch plan, its layer-
-     skewed recurrence and dW times apart, its time per round);
+     JAX bench's (bf16, 32 x 1375) (both layer-skewed: kernel 4's launch
+     plan and time per round, kernel 5's launch plan, its recurrence and
+     dW times apart, its time per round; kernel 5 runs on kernel 4's
+     saved state);
   4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
      seeded weights) converts a ~4 s wav (decoder lstm2 through kernel 2)
      and a ~24 s wav (9 mel chunks: kernel 3), with every kernel's launch
@@ -364,9 +366,11 @@ def compare_gru_train(rows: int, T: int, dtype, gen, dev) -> dict:
     |ref|; bf16 within 2e-2 of max |ref|, as kernels 6/7.  Timed against
     two cuDNN ``torch.gru`` calls (layer 1 over xI, then layer 2 over
     [x1, a2], with their input projections), forward and autograd
-    backward (``library_ms``; the port never calls them).  Kernel 5's
-    launch plan, its recurrence and dW times apart and its time per round
-    are logged on a line of their own."""
+    backward (``library_ms``; the port never calls them).  Kernel 5 runs
+    on kernel 4's saved state, its plain version on the same.  Kernel 4's
+    launch plan and time per round, and kernel 5's plan, its recurrence
+    and dW times apart and its time per round, are logged on lines of
+    their own."""
     H, aux = 512, 32
     mode = "bf16" if dtype == torch.bfloat16 else "f32"
     if PREC.rec_dtype(mode, rows, H) != dtype:
@@ -390,7 +394,7 @@ def compare_gru_train(rows: int, T: int, dtype, gen, dev) -> dict:
                      **info)
     fwd_err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(out, ref))
-    saved = (ref[1], ref[0])
+    saved = (out[1], out[0])
     got = GT.bwd_launch(*saved, *cts, *wb)
     want = GT.gru_pair_bwd_plain(*saved, *cts, *wb)
     bwd_ratio = held("gru_train_bwd", got, want,
@@ -400,6 +404,11 @@ def compare_gru_train(rows: int, T: int, dtype, gen, dev) -> dict:
     torch.cuda.synchronize()
 
     fwd_ms = timed_ms(lambda: GT.fwd_launch(xp1, base2, *wf, bhh1, bhh2), 3)
+    # kernel 4: one launch, T + 1 layer-skewed rounds, T grid barriers
+    log({"phase": "compare", "kernel": "gru_train_fwd split", **info,
+         "plan": dataclasses.asdict(GT.device_fwd_plan(rows, H, bf16, dev)),
+         "ms": fwd_ms, "rounds": T + 1, "barriers": T,
+         "per_round_us": fwd_ms * 1e3 / (T + 1)})
     bwd_ms = timed_ms(lambda: GT.bwd_launch(*saved, *cts, *wb), 3)
     # kernel 5's two launches, (a) the layer-skewed chain (T + 1 rounds)
     # and (b) the dW / db tiles

@@ -48,11 +48,14 @@ VARIANTS = {
                "        acc[mt][0] += __uint_as_float(s0[0] ^ s1[3] ^ "
                "y[q].x);"),
     # the epilogue (partial sums, gate derivatives, stores) skipped
-    "no_epilogue": ("if (!ok[k] || t < 0 || t >= T) continue;",
-                    "if (true) continue;"),
+    "no_epilogue": ("if (!ok[k] || t < 0 || t >= T) continue;\n"
+                    "        float dh_prod = 0.0f;",
+                    "if (true) continue;\n        float dh_prod = 0.0f;"),
     # the grid barrier replaced by a block barrier
-    "no_barrier": ("        grid_sync_count(a.bar, nbar);",
-                   "        __syncthreads();"),
+    "no_barrier": ("        load_round_inputs(a, r, s + 1, g0, ok, pli, prow, "
+                   "punit, in);\n        grid_sync_count(a.bar, nbar);",
+                   "        load_round_inputs(a, r, s + 1, g0, ok, pli, prow, "
+                   "punit, in);\n        __syncthreads();"),
     # whole round, each block holding both layers
     "both_layers": (PLAN, "    split = 2 * -(-H // 8) <= sms",
                     "    split = False"),

@@ -10,6 +10,8 @@ Kernel 1 is held over every step with pinned noise: one Gumbel lane per
 step and row raised by 1e3, so the sampled mixture component does not hang
 on the logits' last bits and the kernel and the plain loop (which sum in
 another order) stay on one sample path."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -187,7 +189,7 @@ def test_gru_train_kernels_match_plain(cuda_device, B, H, dtype, T):
     """Kernels 4 and 5 against their plain versions, cotangents on h1 and
     h2: f32 forward atol 1e-5 and each gradient within 1e-4 of its max
     |ref| (dW sums T * B products in another order); bf16 within 2e-2 of
-    max |ref|.  B = 10, 11 take two row tiles of kernel 4."""
+    max |ref|.  B = 10, 11 take two 8-row tiles of the f32 products."""
     gen = torch.Generator().manual_seed(B * 1000 + H)
 
     def rand(*shape, scale=1.0):
@@ -208,6 +210,93 @@ def test_gru_train_kernels_match_plain(cuda_device, B, H, dtype, T):
     want = GT.gru_pair_bwd_plain(ref[1], ref[0], *cts, *wb)
     for a, b in zip(got, want):
         _close(a, b, (lambda s: 2e-2 * s) if bf16 else (lambda s: 1e-4 * s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,dtype,T,route,split,m_tiles,groups", [
+    # kernel 4's plan: one row, ragged 17 / 33 rows (two and three
+    # M-tiles), four M-tiles, two row groups (65 rows), H = 1024 (blocks
+    # of both layers: 2 x 128 one-layer blocks do not fit the card), the
+    # first and last rounds alone (T = 1, 2), H % 32 == 16, and f32
+    (1, 64, torch.bfloat16, 9, "mma_smem", True, 1, 1),
+    (17, 128, torch.bfloat16, 9, "mma_smem", True, 2, 1),
+    (33, 128, torch.bfloat16, 9, "mma_smem", True, 3, 1),
+    (64, 64, torch.bfloat16, 5, "mma_smem", True, 4, 1),
+    (65, 64, torch.bfloat16, 5, "mma_smem", True, 3, 2),
+    (5, 1024, torch.bfloat16, 6, "mma_smem", False, 1, 1),
+    (17, 128, torch.bfloat16, 1, "mma_smem", True, 2, 1),
+    (1, 64, torch.bfloat16, 2, "mma_smem", True, 1, 1),
+    (16, 48, torch.bfloat16, 7, "mma_smem", True, 1, 1),
+    (1, 64, torch.float32, 9, "fma", True, 0, 1),
+    (33, 128, torch.float32, 2, "fma", True, 0, 1),
+    (65, 64, torch.float32, 5, "fma", True, 0, 2),
+    (5, 1024, torch.float32, 6, "fma", False, 0, 1)])
+def test_gru_fwd_kernel_at_its_plan_edges(cuda_device, B, H, dtype, T,
+                                          route, split, m_tiles, groups):
+    """Kernel 4 (h and the saved r, z, n, hn) against its plain version on
+    the plan each geometry takes (asserted): f32 atol 1e-5, bf16 2e-2 of
+    max |ref|."""
+    gen = torch.Generator().manual_seed(B * 100 + H + T)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(cuda_device)
+
+    xp1, base2 = rand(T, B, 3 * H), rand(T, B, 3 * H)
+    ws = [rand(H, 3 * H, scale=H ** -0.5) for _ in range(3)]
+    bhh1, bhh2 = rand(3 * H, scale=0.1), rand(3 * H, scale=0.1)
+    bf16 = dtype == torch.bfloat16
+    plan = GT.device_fwd_plan(B, H, bf16, cuda_device)
+    assert (plan.route, plan.split, plan.m_tiles, plan.groups) == (
+        route, split, m_tiles, groups)
+    wf = GT.pack_fwd(*ws, dtype)
+    GT.FWD.launches = 0
+    out = GT.fwd_launch(xp1, base2, *wf, bhh1, bhh2)
+    assert GT.FWD.launches == 1
+    ref = GT.gru_pair_fwd_plain(xp1, base2, *wf, bhh1, bhh2)
+    for a, b in zip(out, ref):
+        _close(a, b, (lambda s: 2e-2 * s) if bf16 else (lambda s: 1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_fwd_launch_refuses_a_plan_that_disagrees(cuda_device, dtype):
+    """Kernel 4's C launch recomputes the kernel's layout from the plan it
+    is given and refuses one that disagrees (shared-memory bytes, a layer
+    split that does not match them, a resident route in f32): it returns
+    an error, which the wrapper raises, and nothing runs."""
+    B, T, H = 8, 3, 64
+    dev = cuda_device
+    bf16 = dtype == torch.bfloat16
+    xp1 = torch.zeros(T, B, 3 * H, device=dev)
+    wf = GT.pack_fwd(*(torch.zeros(H, 3 * H, device=dev) for _ in range(3)),
+                     dtype)
+    b = torch.zeros(3 * H, device=dev)
+    hs = torch.full((2, T, B, H), 7.0, device=dev)
+    acts = torch.empty(2, T, B, 4 * H, device=dev, dtype=dtype)
+    ring = torch.empty(2, 2, B, H, device=dev, dtype=dtype)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def launch(p):
+        GT.FWD(xp1.data_ptr(), xp1.data_ptr(), *(w.data_ptr() for w in wf),
+               b.data_ptr(), b.data_ptr(), hs.data_ptr(), acts.data_ptr(),
+               ring.data_ptr(), bar.data_ptr(), T, B, H, p.units, p.rows,
+               int(p.route == "mma_smem"), int(p.split), p.smem_bytes,
+               int(bf16), torch.cuda.current_stream(dev).cuda_stream)
+
+    plan = GT.device_fwd_plan(B, H, bf16, dev)
+    bad = [dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16),
+           dataclasses.replace(plan, split=not plan.split)]
+    if not bf16:
+        bad.append(dataclasses.replace(plan, route="mma_smem"))
+    GT.FWD.launches = 0
+    for p in bad:
+        with pytest.raises(RuntimeError, match="gru_train_fwd_launch"):
+            launch(p)
+    torch.cuda.synchronize()
+    assert GT.FWD.launches == 0 and bool((hs == 7.0).all())
+    launch(plan)
+    torch.cuda.synchronize()
+    assert GT.FWD.launches == 1 and bool((hs == 0.0).all())
 
 
 @pytest.mark.cuda
