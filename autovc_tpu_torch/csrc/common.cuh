@@ -247,13 +247,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // release reduction arrives and acquire loads wait: one L2 round trip
 // fewer on the critical path than grid_sync's count-reset-generation
 // scheme.  A barrier that never opens aborts the launch (~2^26 polls).
+// kScFence = false drops the sequentially consistent fence before the
+// arrival, which waits for the block's outstanding memory operations.
+// The PTX ISA's memory consistency model orders the block's writes without
+// it: a bar.sync synchronizes with the other threads' bar.sync on the same
+// barrier, and a release reduction with the acquire load that observes it
+// (section "Synchronizes-with"); base causality order is transitive over
+// program order and synchronizes-with (section "Base causality order").
+// So every write a thread made before the opening __syncthreads precedes,
+// in causality order, every read after another block's closing
+// __syncthreads.  Kernel 2 runs without the fence; kernels 3-6 keep it
+// until they are measured without it.
+template <bool kScFence = true>
 __device__ __forceinline__ void grid_sync_count(unsigned int* count,
                                                 unsigned int& k) {
   __syncthreads();
   ++k;
   if (threadIdx.x == 0) {
     const unsigned int target = k * gridDim.x;
-    __threadfence();
+    if constexpr (kScFence) __threadfence();
     asm volatile("red.release.gpu.global.add.u32 [%0], 1;"
                  :: "l"(count) : "memory");
     unsigned int v, polls = 0;

@@ -4,7 +4,9 @@ Counterpart of ``autovc_tpu/ops/lstm_pallas.py``:
 
   * :func:`lstm_stack_latency` replaces ``lstm_stack_pallas`` (<= 8 rows,
     the single-utterance decoder lstm2): kernel ``lstm_stack_skewed_launch``
-    of ``csrc/lstm_stack.cu``, layer-skewed rounds;
+    of ``csrc/lstm_stack.cu``, layer-skewed tensor-core rounds with the rows
+    on the N side of one ``mma.sync`` tile, on the launch plan of
+    :func:`small_plan` and the rounds of :func:`small_schedule`;
   * :func:`lstm_stack_stream` replaces ``lstm_stack_stream`` (> 8 rows):
     kernel ``lstm_stack_stream_launch``, the layer-skewed tensor-core
     routine of ``csrc/lstm_fwd.cuh`` that kernel 6 shares, on the launch
@@ -42,7 +44,7 @@ LATENCY_MAX_ROWS = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SKEWED = _build.Kernel("lstm_stack.cu", "lstm_stack_skewed_launch",
-                       [_P] * 8 + [_I] * 5 + [_P])
+                       [_P] * 7 + [_I] * 9 + [_P])
 STREAM = _build.Kernel("lstm_stack.cu", "lstm_stack_stream_launch",
                        [_P] * 7 + [_I] * 9 + [_P])
 
@@ -118,6 +120,122 @@ def device_plan(B: int, H: int, L: int, bf16: bool, dev) -> FwdPlan:
     """:func:`fwd_plan` for the SM count of CUDA device ``dev``."""
     return fwd_plan(B, H, L, bf16,
                     torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+# Kernel 2's geometry (csrc/lstm_stack.cu): at most 16 units (two 8-unit
+# column groups) a block; its partial tiles take 32 f32 a unit and warp,
+# its c 8 rows x units f32 a layer.
+SMALL_MAX_UNITS = 16
+
+
+@dataclass(frozen=True)
+class SmallPlan:
+    """How kernel 2 covers an (L, B <= 8, H) stack.
+
+    ``route``: "mma_smem" (bf16 tensor-core product, the block's weight
+    rows resident in shared memory), "mma_l2" (the same product, weights
+    read from L2: they do not fit) or "fma" (f32).  ``split``: a block
+    owns ``units`` hidden units of one layer (layer 0's blocks first),
+    else of every layer.  All ``rows`` go through the product at once (the
+    N = 8 side of one ``mma.sync`` tile), on the rounds of
+    :func:`small_schedule`."""
+    route: str
+    split: bool
+    units: int
+    blocks: int
+    rows: int
+    resident_bytes: int
+    smem_bytes: int
+
+    def block_units(self, H: int, L: int) -> list[tuple[int, int, int]]:
+        """(layer, first unit, units) of each block's layers."""
+        per = self.blocks // (L if self.split else 1)
+        out = []
+        for b in range(self.blocks):
+            j0 = b % per * self.units
+            nu = min(self.units, H - j0)
+            layers = (b // per,) if self.split else range(L)
+            out += [(layer, j0, nu) for layer in layers]
+        return out
+
+
+def small_plan(B: int, H: int, L: int, bf16: bool, sms: int) -> SmallPlan:
+    """Kernel 2's plan for ``sms`` streaming multiprocessors: each layer its
+    own blocks of 8 units where every layer's fit on the card, else blocks
+    of every layer; resident weight rows where they fit beside the partial
+    tiles and the carried c.  Takes 1-8 rows, any depth, H % 16 == 0 up to
+    16 units a block (H <= 2112 at 132 SMs)."""
+    if H % 16 or H < 16 or L < 1 or not 1 <= B <= LATENCY_MAX_ROWS:
+        raise ValueError(f"bad LSTM geometry for kernel 2: L={L}, B={B}, "
+                         f"H={H} (1 <= B <= {LATENCY_MAX_ROWS}, H % 16 == 0)")
+    split = L > 1 and L * -(-H // 8) <= sms
+    units = 8 if split else 8 * -(-H // (8 * sms))
+    if units > SMALL_MAX_UNITS:
+        raise ValueError(f"H={H} needs {units} units a block at {sms} SMs: "
+                         f"kernel 2 takes at most {SMALL_MAX_UNITS}")
+    layers = 1 if split else L
+    mats = (2 if L > 1 else 1) if split else 2 * L - 1
+    c = layers * LATENCY_MAX_ROWS * units * 4
+    if bf16:
+        # the block's 4 x units rows of each matrix in A-fragment order, K
+        # rounded up to whole 32-value chunks; the warps' partial tiles
+        weights = mats * 4 * units * -(-H // 32) * 32 * 2
+        state = WARPS * 32 * units * 4 + c
+        route = "mma_smem" if weights + state <= SMEM_MAX else "mma_l2"
+        base = weights if route == "mma_smem" else 0
+    else:
+        # two staged 8-row operands and the warp sums, then the gate sums
+        route, base = "fma", 0
+        state = (2 * LATENCY_MAX_ROWS * H + WARPS * 32
+                 + layers * LATENCY_MAX_ROWS * 4 * units) * 4 + c
+    if base + state > SMEM_MAX:
+        raise ValueError(f"kernel 2 does not fit L={L}, H={H} in shared "
+                         f"memory")
+    return SmallPlan(route=route, split=split, units=units,
+                     blocks=(L if split else 1) * -(-H // units), rows=B,
+                     resident_bytes=base, smem_bytes=base + state)
+
+
+def device_small_plan(B: int, H: int, L: int, bf16: bool, dev) -> SmallPlan:
+    """:func:`small_plan` for the SM count of CUDA device ``dev``."""
+    return small_plan(
+        B, H, L, bf16,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+@dataclass(frozen=True)
+class SmallRound:
+    """Round ``s`` of kernel 2: the (layer, step) pairs it runs, the ring
+    entries their products read as (layer, matrix, entry layer, slot), the
+    slot it writes, and whether a grid barrier follows."""
+    s: int
+    steps: tuple
+    reads: tuple
+    write_slot: int
+    barrier: bool
+
+
+def small_schedule(T: int, L: int) -> list[SmallRound]:
+    """The T + L - 1 layer-skewed rounds of kernel 2 (the JAX ``_kernel``'s):
+    round s runs layer l at step t = s - l where 0 <= t < T; its W_hh
+    product (t > 0) reads the layer's own h_{t-1} and its W_ih product
+    (l > 0) the layer below's h_t, both from the ring slot round s - 1
+    wrote; a barrier after every round but the last."""
+    if T < 1 or L < 1:
+        raise ValueError(f"kernel 2 needs T >= 1 and L >= 1, not {T}, {L}")
+    rounds = []
+    for s in range(T + L - 1):
+        steps = tuple((l, s - l) for l in range(L) if 0 <= s - l < T)
+        read = (s + 1) % 2
+        reads = []
+        for l, t in steps:
+            if t > 0:
+                reads.append((l, "whh", l, read))
+            if l > 0:
+                reads.append((l, "wih", l - 1, read))
+        rounds.append(SmallRound(s=s, steps=steps, reads=tuple(reads),
+                                 write_slot=s % 2, barrier=s < T + L - 2))
+    return rounds
 
 
 def pack_stack(params: Sequence, dtype: torch.dtype):
@@ -202,8 +320,8 @@ def _run(kernel: _build.Kernel, params: Sequence, x: torch.Tensor,
 
 def launch(kernel: _build.Kernel, xp0: torch.Tensor, whh: torch.Tensor,
            wih: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Launch kernel 2 (``SKEWED``) or 3 (``STREAM``, on the device's
-    :func:`fwd_plan`) on CUDA tensors (checked here)."""
+    """Launch kernel 2 (``SKEWED``, on the device's :func:`small_plan`) or 3
+    (``STREAM``, on its :func:`fwd_plan`) on CUDA tensors (checked here)."""
     T, B, H4 = xp0.shape
     L, _, H = whh.shape
     tensors = (xp0, whh, wih, bias)
@@ -224,20 +342,18 @@ def launch(kernel: _build.Kernel, xp0: torch.Tensor, whh: torch.Tensor,
     wih_ptr = wih.data_ptr() if wih.numel() else whh.data_ptr()
     bias_ptr = bias.data_ptr() if bias.numel() else xp0.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel is STREAM:
+        plan = device_plan(B, H, L, bf16, dev)
+        layout = (plan.units, plan.rows)
+    else:
+        plan = device_small_plan(B, H, L, bf16, dev)
+        layout = (plan.units, int(plan.split))
+    ring = torch.empty(2, L, B, H, device=dev, dtype=whh.dtype)
     with torch.cuda.device(dev):      # the C side launches on the current device
-        if kernel is STREAM:
-            plan = device_plan(B, H, L, bf16, dev)
-            ring = torch.empty(2, L, B, H, device=dev, dtype=whh.dtype)
-            kernel(xp0.data_ptr(), whh.data_ptr(), wih_ptr, bias_ptr,
-                   out.data_ptr(), ring.data_ptr(), bar.data_ptr(), T, B, H,
-                   L, plan.units, plan.rows, int(plan.route == "mma_smem"),
-                   plan.smem_bytes, int(bf16), stream)
-        else:
-            h = torch.empty(2, L, B, H, device=dev)
-            c = torch.empty(L, B, H, device=dev)
-            kernel(xp0.data_ptr(), whh.data_ptr(), wih_ptr, bias_ptr,
-                   out.data_ptr(), h.data_ptr(), c.data_ptr(), bar.data_ptr(),
-                   T, B, H, L, int(bf16), stream)
+        kernel(xp0.data_ptr(), whh.data_ptr(), wih_ptr, bias_ptr,
+               out.data_ptr(), ring.data_ptr(), bar.data_ptr(), T, B, H, L,
+               *layout, int(plan.route == "mma_smem"), plan.smem_bytes,
+               int(bf16), stream)
     return out
 
 

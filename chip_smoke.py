@@ -9,7 +9,11 @@ Phases (any failure exits non-zero):
   3. each kernel against its plain PyTorch version on the card, on the
      same inputs and noise, at full model width: the inference kernels
      1-3 (kernel 1's launch plan and time per step at 16 and 48 rows,
-     kernel 3's launch plan and time per round), and the training
+     kernel 3's launch plan and time per round; kernels 2 and 3 at each
+     conversion's chunk count of lstm2 and, from 2 chunks, of lstm1;
+     kernel 2 also at 2 and 8 rows of lstm2 and at 8 rows of the speaker
+     encoder's stack and lstm1, each with its plan and time per round
+     beside kernel 3's routine at the same rows), and the training
      kernels 6 (forward) and 7 (backward) at the decoder's lstm2 (f32 and
      bf16, and bf16 at a ragged 33 rows) and lstm1 geometries and the
      speaker encoder's (kernel 6's and kernel 7's launch plans, kernel 7's
@@ -22,11 +26,12 @@ Phases (any failure exits non-zero):
      dW times apart, its time per round; kernel 5 runs on kernel 4's
      saved state);
   4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
-     seeded weights) converts a ~4 s wav (decoder lstm2 through kernel 2)
-     and a ~24 s wav (9 mel chunks: kernel 3), with every kernel's launch
-     count read around each conversion; then converts each again under
-     ``torch.profiler`` (the device's idle share) and with its stages
-     timed (where the wall time goes);
+     seeded weights) converts a ~4 s wav (decoder lstm2 through kernel 2
+     at 1 row), a ~10 s wav (3 mel chunks: kernel 2 at 3 rows, for lstm1
+     and lstm2) and a ~24 s wav (9 mel chunks: kernel 3), with every
+     kernel's launch count read around each conversion; then converts each
+     again under ``torch.profiler`` (the device's idle share) and with its
+     stages timed (where the wall time goes);
   5. end to end, training: ``VoiceConverter().train`` of the AutoVC
      generator on synthetic wavs, bf16, batch 16 x 400 frames, at least 8
      steps (kernels 6 and 7 twice a step each), with the loss falling;
@@ -199,10 +204,26 @@ def phase_build() -> None:
                 log(f"  {src}: {line.strip()}")
 
 
-def compare_lstm(name: str, rows: int, dtype, gen, dev) -> dict:
-    """Kernel 2 or 3 against the plain version at the decoder lstm2
-    geometry (L=2, H=1024, input 512, T=400)."""
-    L, H, I, T = 2, 1024, 512, 400
+# Kernel 2's geometries (layers, hidden, input, steps): the decoder's
+# lstm2 (the main path at 1-8 chunks), the speaker encoder's stack (its
+# 160-frame partials) and decoder lstm1, both kernel 2's under the bf16
+# policy from 2 rows.
+LSTM2, SE_STACK, LSTM1 = (2, 1024, 512, 400), (3, 256, 40, 160), \
+    (1, 512, 320, 400)
+# The main path's conversions: (seconds of the source wav, the kernel of
+# decoder lstm2 at the wav's mel chunks, their count).  From 2 chunks the
+# same kernel runs lstm1 (bf16 from 2 rows at H >= 256); at 1 chunk lstm1
+# runs in f32 (torch.lstm).
+CONVERSIONS = ((4.0, "lstm_stack_skewed", 1), (10.0, "lstm_stack_skewed", 3),
+               (24.0, "lstm_stack_stream", 9))
+
+
+def compare_lstm(name: str, rows: int, dtype, gen, dev,
+                 geom=LSTM2) -> dict:
+    """Kernel 2 or 3 against the plain version at ``geom`` (L, H, input, T;
+    the decoder lstm2's by default).  Kernel 2 logs its plan and time per
+    round beside kernel 3's routine at the same rows and geometry."""
+    L, H, I, T = geom
     params = from_jax_params(R.init_lstm_stack(gen, I, H, L), dev)
     x = torch.randn(rows, T, I, generator=gen).to(dev)
     mode = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -216,29 +237,40 @@ def compare_lstm(name: str, rows: int, dtype, gen, dev) -> dict:
     scale = float(ref.abs().max())
     ok = err < 1e-4 if dtype == torch.float32 else err / scale < 2e-2
     ms = timed_ms(lambda: LK.launch(kernel, xp0, whh, wih, bias), 5)
+    bf16 = dtype == torch.bfloat16
+    info = {"rows": rows, "dtype": str(dtype), "L": L, "H": H, "T": T}
     if kernel is LK.STREAM:
         # kernel 3's plan and its time per round (T + L - 1 rounds)
-        log({"phase": "compare", "kernel": f"{name} plan", "rows": rows,
-             "dtype": str(dtype),
-             "plan": dataclasses.asdict(LK.device_plan(
-                 rows, H, L, dtype == torch.bfloat16, dev)),
+        log({"phase": "compare", "kernel": f"{name} plan", **info,
+             "plan": dataclasses.asdict(LK.device_plan(rows, H, L, bf16,
+                                                       dev)),
              "per_round_us": ms * 1e3 / (T + L - 1)})
+    else:
+        # kernel 2's plan and time per round, kernel 3's routine beside it
+        stream_ms = timed_ms(lambda: LK.launch(LK.STREAM, xp0, whh, wih,
+                                               bias), 5)
+        log({"phase": "compare", "kernel": f"{name} plan", **info,
+             "plan": dataclasses.asdict(LK.device_small_plan(
+                 rows, H, L, bf16, dev)),
+             "ms": ms, "per_round_us": ms * 1e3 / (T + L - 1),
+             "stream_ms": stream_ms,
+             "stream_per_round_us": stream_ms * 1e3 / (T + L - 1)})
     plain_ms = timed_ms(lambda: LK.lstm_stack_plain(xp0, whh, wih, bias), 1)
     lib_params = [{k: v.to(dtype) for k, v in p.items()} for p in params]
     xl = x.to(dtype)
     library_ms = timed_ms(lambda: R.lstm_stack(lib_params, xl), 5)
     ops = 2.0 * rows * T * (L + L - 1) * 4 * H * H
     b_ms, b_by = bound(nbytes(xp0, whh, wih, bias, out), ops, dtype)
-    res = {"phase": "compare", "kernel": name, "dtype": str(dtype),
-           "rows": rows, "T": T, "max_abs_err": err, "ref_max_abs": scale,
+    res = {"phase": "compare", "kernel": name, **info, "max_abs_err": err,
+           "ref_max_abs": scale,
            "tolerance": ("atol 1e-4" if dtype == torch.float32
                          else "max_err / max|ref| < 2e-2"),
            "ok": ok, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": b_ms, "bound_by": b_by}
     log(res)
     if not ok:
-        raise AssertionError(f"{name} {dtype} disagrees with its plain "
-                             f"version: {err} (max |ref| {scale})")
+        raise AssertionError(f"{name} {dtype} {geom} disagrees with its "
+                             f"plain version: {err} (max |ref| {scale})")
     return res
 
 
@@ -721,8 +753,7 @@ def phase_end_to_end(card: str) -> dict:
     # not timed, not counted
     with torch.profiler.profile(activities=acts):
         convert(synthetic_wav(2.0, sr, 1))
-    for seconds, path_kernel in ((4.0, "lstm_stack_skewed"),
-                                 (24.0, "lstm_stack_stream")):
+    for seconds, path_kernel, chunks in CONVERSIONS:
         wav = synthetic_wav(seconds, sr, int(seconds))
         mel_cfg = vc.AE.config.spectrogram
         _, mel_slices = dsp.compute_partial_slices(
@@ -771,6 +802,9 @@ def phase_end_to_end(card: str) -> dict:
         if len(out.wav) != expected:
             raise AssertionError(f"output length {len(out.wav)} != "
                                  f"{expected}")
+        if len(mel_slices) != chunks:   # phase 3 held its kernel at chunks
+            raise AssertionError(f"the {seconds} s wav gave "
+                                 f"{len(mel_slices)} chunks, not {chunks}")
         for name in ("wavernn_sample", path_kernel):
             if counts[name] < 1:
                 raise AssertionError(f"the {seconds} s conversion did not "
@@ -1095,14 +1129,23 @@ def main() -> int:
     card = phase_environment()
     phase_build()
     gen = torch.Generator().manual_seed(0)
-    # kernels 2 and 3 at 2 and 24 rows in both dtypes, then in bf16 at the
-    # row counts the main path gives them: 1 chunk (the 4 s wav), 9 chunks
-    # (the 24 s wav)
+    # kernels 2 and 3 at 2 and 24 rows in both dtypes; in bf16, each at
+    # the chunks of the conversions it runs, lstm2 (the summary's: kernel
+    # 2 at the 4 s wav's one chunk, kernel 3 at the 24 s wav's nine) and
+    # lstm1 from 2 chunks; kernel 2 at 8 rows of lstm2, the speaker
+    # encoder's stack and lstm1
     for dt in (torch.float32, torch.bfloat16):
         compare_lstm("lstm_stack_skewed", 2, dt, gen, dev)
         compare_lstm("lstm_stack_stream", 24, dt, gen, dev)
-    k2 = compare_lstm("lstm_stack_skewed", 1, torch.bfloat16, gen, dev)
-    k3 = compare_lstm("lstm_stack_stream", 9, torch.bfloat16, gen, dev)
+    by_wav = []
+    for _, name, chunks in CONVERSIONS:
+        by_wav.append(compare_lstm(name, chunks, torch.bfloat16, gen, dev))
+        if chunks > 1:
+            compare_lstm(name, chunks, torch.bfloat16, gen, dev, LSTM1)
+    k2, k3 = by_wav[0], by_wav[-1]
+    compare_lstm("lstm_stack_skewed", 8, torch.bfloat16, gen, dev)
+    for geom in (SE_STACK, LSTM1):
+        compare_lstm("lstm_stack_skewed", 8, torch.bfloat16, gen, dev, geom)
     # kernels 6 and 7 at the training path's geometries: decoder lstm2 in
     # f32 and bf16, lstm1 (input 2 * 32 + 256), the speaker encoder's stack
     # (cotangent on h_fin only) and lstm2 at a ragged 33 rows (kernel 7's

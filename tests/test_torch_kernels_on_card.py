@@ -54,6 +54,100 @@ def test_lstm_kernel_matches_plain(cuda_device, rows, kernel, dtype):
         assert float((out - ref).abs().max()) < 2e-2 * float(ref.abs().max())
 
 
+def _small_case(dev, L, rows, H, dtype, T=23, I=64):
+    """Kernel 2 against the plain version on its device plan: f32 at atol
+    1e-4, bf16 within 2e-2 of max |ref|.  Returns the plan."""
+    gen = torch.Generator().manual_seed(L * 1000 + rows * 10 + H)
+    params = from_jax_params(R.init_lstm_stack(gen, I, H, L), dev)
+    x = torch.randn(rows, T, I, generator=gen).to(dev)
+    xp0 = LK.hoist_xp0(params[0], x, "f32")
+    packed = LK.pack_stack(params, dtype)
+    LK.SKEWED.launches = 0
+    out = LK.launch(LK.SKEWED, xp0, *packed)
+    assert LK.SKEWED.launches == 1
+    ref = LK.lstm_stack_plain(xp0, *packed)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        _close(out, ref, lambda s: 2e-2 * s)
+    return LK.device_small_plan(rows, H, L, dtype == torch.bfloat16, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 2, 3])
+@pytest.mark.parametrize("rows", [1, 2, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_stack_kernel_matches_plain(cuda_device, L, rows, dtype):
+    """Kernel 2 at 1-8 rows and depths 1-3, H = 128 (every layer its own
+    blocks where L > 1)."""
+    plan = _small_case(cuda_device, L, rows, 128, dtype)
+    assert plan.split == (L > 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,rows,H,dtype,route,split,units", [
+    # blocks of every layer: lstm2's width, three layers at 512 (192
+    # one-layer blocks do not fit), resident or from L2 (three layers at
+    # 1024); 16 units a block (H = 1072 > 8 x 132); H % 32 == 16
+    (2, 1, 1024, torch.bfloat16, "mma_smem", False, 8),
+    (2, 8, 1024, torch.float32, "fma", False, 8),
+    (3, 8, 512, torch.bfloat16, "mma_smem", False, 8),
+    (3, 2, 1024, torch.bfloat16, "mma_l2", False, 8),
+    (1, 3, 1072, torch.bfloat16, "mma_smem", False, 16),
+    (1, 7, 1072, torch.float32, "fma", False, 16),
+    (2, 4, 272, torch.bfloat16, "mma_smem", True, 8)])
+def test_small_stack_kernel_at_its_plan_edges(cuda_device, L, rows, H, dtype,
+                                              route, split, units):
+    plan = _small_case(cuda_device, L, rows, H, dtype, T=11)
+    if torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count == 132:
+        assert (plan.route, plan.split, plan.units) == (route, split, units)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_launch_refuses_a_plan_that_disagrees(cuda_device, dtype):
+    """Kernel 2's C launch recomputes the kernel's layout from the plan it
+    is given and refuses one that disagrees (shared-memory bytes, a layer
+    split that does not match them, more than 16 units, a resident route
+    in f32): it returns an error, which the wrapper raises, and nothing
+    runs."""
+    T, B, H, L = 5, 3, 64, 2
+    dev = cuda_device
+    bf16 = dtype == torch.bfloat16
+    xp0 = torch.zeros(T, B, 4 * H, device=dev)
+    whh = torch.zeros(L, 4 * H, H, device=dev, dtype=dtype)
+    wih = torch.zeros(L - 1, 4 * H, H, device=dev, dtype=dtype)
+    bias = torch.zeros(L - 1, 4 * H, device=dev)
+    out = torch.full((T, B, H), 7.0, device=dev)
+    ring = torch.empty(2, L, B, H, device=dev, dtype=dtype)
+
+    def launch(p):
+        bar = torch.zeros(1, dtype=torch.int32, device=dev)
+        LK.SKEWED(xp0.data_ptr(), whh.data_ptr(), wih.data_ptr(),
+                  bias.data_ptr(), out.data_ptr(), ring.data_ptr(),
+                  bar.data_ptr(), T, B, H, L, p.units, int(p.split),
+                  int(p.route == "mma_smem"), p.smem_bytes, int(bf16),
+                  torch.cuda.current_stream(dev).cuda_stream)
+
+    plan = LK.device_small_plan(B, H, L, bf16, dev)
+    bad = [dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 16),
+           dataclasses.replace(plan, split=not plan.split),
+           dataclasses.replace(plan, units=24)]
+    if not bf16:
+        bad.append(dataclasses.replace(plan, route="mma_smem"))
+    LK.SKEWED.launches = 0
+    for p in bad:
+        with pytest.raises(RuntimeError, match="lstm_stack_skewed_launch"):
+            launch(p)
+    torch.cuda.synchronize()
+    assert LK.SKEWED.launches == 0 and bool((out == 7.0).all())
+    launch(plan)
+    torch.cuda.synchronize()
+    # zero weights and pre-activations: c = 0, so h = 0 at every step
+    assert LK.SKEWED.launches == 1 and bool((out == 0.0).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,B,H,dtype", [
     (1, 3, 64, torch.float32), (2, 11, 256, torch.float32),
