@@ -244,3 +244,25 @@ def mel_spec_auto_encoder_sliced(wav: np.ndarray,
     wav = pad_for_slices(wav, wav_slices)
     mel = mel_spec_auto_encoder(wav, cfg)
     return np.stack([mel[:, s] for s in mel_slices]), mel_slices
+
+
+def mel_spec_speaker_encoder_sliced(wav: np.ndarray,
+                                    cfg: SpeakerMelConfig = SpeakerMelConfig(),
+                                    use_native: bool = False,
+                                    **slice_kwargs):
+    """``cut=True`` speaker-encoder path: (n_partials, frames, mels) float32
+    partials, the wav slices and the mel slices.  ``slice_kwargs`` go to
+    :func:`compute_partial_slices` (the frame count and window step default
+    to ``cfg``'s).  ``use_native=True`` (the JAX package's threaded C++ mel
+    core) is not ported and raises."""
+    if use_native:
+        raise NotImplementedError("the native C++ mel core is not ported "
+                                  "(ROADMAP, Queue 1 item 12)")
+    slice_kwargs.setdefault("partial_utterance_n_frames",
+                            cfg.partial_utterance_n_frames)
+    slice_kwargs.setdefault("mel_window_step", cfg.mel_window_step)
+    wav_slices, mel_slices = compute_partial_slices(len(wav), cfg.sr,
+                                                    **slice_kwargs)
+    wav = pad_for_slices(wav, wav_slices)
+    mel = mel_spec_speaker_encoder(wav, cfg)
+    return np.stack([mel[s] for s in mel_slices]), wav_slices, mel_slices

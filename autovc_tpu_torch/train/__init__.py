@@ -1,6 +1,7 @@
 """Training subsystem (counterpart of ``autovc_tpu/train``): the AutoVC
-generator's and the WaveRNN vocoder's datasets and loops, the schedules
-and optimizer, and the dispatcher ``VoiceConverter.train`` calls."""
+generator's, the GE2E speaker encoder's and the WaveRNN vocoder's
+datasets and loops, the schedules and optimizer, and the dispatcher
+``VoiceConverter.train`` calls."""
 from __future__ import annotations
 
 from autovc_tpu_torch.train import data, loop, schedules  # noqa: F401
@@ -11,12 +12,11 @@ def train_model(vc, model_type: str, data_path, **kwargs):
     ``train_model``).  Extra kwargs go to the training loop; dataset
     kwargs: ``preprocess``, ``preprocess_args``, ``data_path_excluded``,
     and for the auto-encoder ``cut``, ``one_hot``,
-    ``use_mean_speaker_embedding``.  ``auto_encoder`` and ``vocoder`` are
-    ported; ``speaker_encoder`` is not."""
-    if model_type == "speaker_encoder":
-        raise NotImplementedError("speaker_encoder training is not ported "
-                                  "yet (ROADMAP, Next)")
-    if model_type not in ("auto_encoder", "vocoder"):
+    ``use_mean_speaker_embedding``.  For ``speaker_encoder``,
+    ``data_path`` is a dict speaker name -> path or list of paths; a
+    stack deeper than the CUDA kernels carry raises before the dataset is
+    built."""
+    if model_type not in ("auto_encoder", "speaker_encoder", "vocoder"):
         raise ValueError(f"'{model_type}' is not a supported model_type")
     if kwargs.pop("source_examples", None) or kwargs.pop("target_examples",
                                                           None):
@@ -27,6 +27,17 @@ def train_model(vc, model_type: str, data_path, **kwargs):
                     "data_path_excluded", "one_hot",
                     "use_mean_speaker_embedding"}
     ds_kwargs = {k: kwargs.pop(k) for k in list(kwargs) if k in dataset_keys}
+    if model_type == "speaker_encoder":
+        loop.check_se_depth(vc.SE.params)
+        dataset = data.SpeakerEncoderDataset(
+            data_path, cfg=vc.SE.config, verbose=vc.verbose, **ds_kwargs)
+        params, info = loop.train_speaker_encoder(
+            vc.SE.params, dataset, vc.SE.config, logger=vc.logger,
+            verbose=vc.verbose, speakers=vc.speakers,
+            start_step=vc.SE.step, **kwargs)
+        vc.SE.params = params
+        vc.SE.step = info["step"]
+        return info
     if model_type == "vocoder":
         dataset = data.VocoderDataset(
             data_path, mel_cfg=vc.AE.config.spectrogram,

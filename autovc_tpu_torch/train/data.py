@@ -1,16 +1,18 @@
 """Training data (counterpart of ``autovc_tpu/train/data.py``'s
-``AutoEncoderDataset`` and ``VocoderDataset``).
+``AutoEncoderDataset``, ``SpeakerEncoderDataset`` and ``VocoderDataset``).
 
 Host-side numpy, with the JAX package's random draws (``default_rng(seed)``)
 and drop rules, so the same files give the same batches in both packages.
 AutoVC: mel chunks and one embedding per file, the embedding from the
 mean-speaker registry when the filename matches a speaker's name, else
-from ``embed_utterance`` on ``device``.  WaveRNN: random aligned windows of
-mel frames and waveform samples.
+from ``embed_utterance`` on ``device``.  Speaker encoder: each speaker's
+host-mel partials, drawn into (speakers, utterances, frames, mels) GE2E
+blocks.  WaveRNN: random aligned windows of mel frames and waveform
+samples.
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -122,6 +124,64 @@ class AutoEncoderDataset:
         n = len(self.mels)
         return (n // batch_size if self.cut and n >= batch_size
                 else -(-n // batch_size))
+
+
+class SpeakerEncoderDataset:
+    """speaker -> list of fixed-length mel partials, batched as
+    (speakers, utterances, frames, mels) GE2E blocks."""
+
+    def __init__(self, data_path: Dict[str, Sequence[str]],
+                 data_path_excluded=(), cut: bool = True,
+                 cfg: SpeakerEncoderConfig = SpeakerEncoderConfig(),
+                 preprocess=("normalize_volume",),
+                 preprocess_args={"target_dBFS": -20}, verbose=True):
+        """``data_path``: dict speaker name -> path or list of paths."""
+        self.speaker_names = list(data_path.keys())
+        self.datasets: List[List[np.ndarray]] = []
+        for name in self.speaker_names:
+            paths = data_path[name]
+            if isinstance(paths, (str, bytes)):
+                paths = [paths]
+            files = []
+            for p in paths:
+                files.extend(retrieve_file_paths(
+                    p, excluded=list(data_path_excluded)))
+            partials: List[np.ndarray] = []
+            if verbose:
+                print(f"Speaker '{name}': {len(files)} files")
+            for f in files:
+                audio = Audio(f, sr=cfg.spectrogram.sr)
+                audio.preprocess(*preprocess, **preprocess_args)
+                if cut:
+                    frames, _, _ = dsp.mel_spec_speaker_encoder_sliced(
+                        audio.wav, cfg.spectrogram)
+                    partials.extend(list(frames))
+                else:
+                    partials.append(dsp.mel_spec_speaker_encoder(
+                        audio.wav, cfg.spectrogram))
+            self.datasets.append(partials)
+        if verbose:
+            print("Dataset sizes:", [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return max(len(d) for d in self.datasets)
+
+    def batches(self, utterances_per_speaker: int = 8, n_batches: int = 8,
+                seed: int = 0) -> Iterator[np.ndarray]:
+        """Yield (S, U, frames, mels) float32 blocks, U partials a speaker
+        drawn by ``default_rng(seed)``, with replacement (the ``j % len``
+        wrap) where a speaker has fewer."""
+        rng = np.random.default_rng(seed)
+        S = len(self.datasets)
+        for _ in range(n_batches):
+            block = np.stack([
+                np.stack([d[j % len(d)] for j in
+                          rng.permutation(max(len(d),
+                                              utterances_per_speaker))
+                          [:utterances_per_speaker]])
+                for d in self.datasets])
+            assert block.shape[:2] == (S, utterances_per_speaker)
+            yield block.astype(np.float32)
 
 
 class VocoderDataset:

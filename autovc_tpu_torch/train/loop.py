@@ -1,6 +1,6 @@
 """Training loops (counterpart of ``autovc_tpu/train/loop.py``'s
-``ema_update``, ``make_ae_step``, ``train_autoencoder``, ``make_vocoder_step``
-and ``train_vocoder``).
+``ema_update``, ``make_ae_step``, ``train_autoencoder``, ``make_se_step``,
+``train_speaker_encoder``, ``make_vocoder_step`` and ``train_vocoder``).
 
 The JAX steps are pure jitted functions; here they run eagerly and update
 in place: the parameters and the optimizer moments (under ``no_grad``),
@@ -16,14 +16,16 @@ from __future__ import annotations
 import time
 from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 
 from autovc_tpu_torch.config import (AutoEncoderConfig, OptimizerConfig,
-                                     WaveRNNConfig)
+                                     SpeakerEncoderConfig, WaveRNNConfig)
+from autovc_tpu_torch.ops import lstm_train_kernels as LT
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.train import schedules
 from autovc_tpu_torch.utils import (close_progbar, progbar, tree_clone,
-                                    tree_leaves)
+                                    tree_leaves, tree_unflatten)
 from autovc_tpu_torch.utils.bridge import from_jax_params
 
 
@@ -217,6 +219,167 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
     if verbose:
         close_progbar()
     return params, ema, {"step": step, "opt_state": opt_state}
+
+
+def se_loss_and_grads(params, batch, precision: str):
+    """``SE.batch_ge2e_loss`` of a mel block (S, U, frames, mels; a numpy
+    array or tensor, moved to the parameters' device) and its gradient
+    with respect to every leaf of ``params``.  Returns (detached device
+    loss, gradients)."""
+    from autovc_tpu_torch.models import speaker_encoder as SE
+
+    batch, = _on_device(params, batch)
+    value, grads = _value_and_grads(params, lambda p: SE.batch_ge2e_loss(
+        p, batch, precision))
+    return value.detach(), grads
+
+
+def make_se_step(cfg: SpeakerEncoderConfig, tx: schedules.Optimizer,
+                 precision: str | None = None) -> Callable:
+    """GE2E train step: ``step(params, opt_state, batch) -> (params,
+    opt_state, aux)``.  ``precision`` ("bf16" by default, from
+    ``cfg.learn.precision``) is the matmul / recurrence policy; parameters,
+    gradients and Adam moments stay f32.  The similarity weight's and
+    bias's gradients are scaled by 0.01 before the optimizer, so aux's
+    ``grad_norm`` (with ``loss``, device scalars) is the norm after that
+    scaling and before clipping, as in the JAX step."""
+    precision = precision or cfg.learn.precision
+
+    def step(params, opt_state, batch):
+        loss, grads = se_loss_and_grads(params, batch, precision)
+        scaled = {id(params["similarity_weight"]),
+                  id(params["similarity_bias"])}
+        leaves = tree_leaves(params)
+        grads = [g * 0.01 if id(p) in scaled else g
+                 for p, g in zip(leaves, grads)]
+        grad_norm = tx.step(leaves, grads, opt_state)
+        return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
+
+    return step
+
+
+def check_se_depth(params) -> None:
+    """Raise when a speaker encoder on CUDA is deeper than kernel 7 carries
+    (``lstm_train_kernels.MAX_LAYERS``); the CPU path has no limit."""
+    if tree_leaves(params)[0].device.type == "cuda":
+        LT.check_depth(len(params["lstm"]))
+
+
+def optax_layout(opt_state, params, oc: OptimizerConfig) -> list:
+    """The optimizer state in the JAX package's optax chain layout: one
+    entry for each transformation of ``schedules.make_optimizer`` (clip,
+    Adam with ``mu`` / ``nu`` as parameter trees, weight decay, the
+    schedule's count), which the JAX loops' ``restore_like`` rebuilds and
+    :func:`_restore` reads back."""
+    count = np.asarray(opt_state["count"], np.int32)
+    adam = {"count": count,
+            "mu": tree_unflatten(params, opt_state["mu"]),
+            "nu": tree_unflatten(params, opt_state["nu"])}
+    return (([{}] if oc.grad_clip_norm else []) + [adam]
+            + ([{}] if oc.weight_decay else []) + [{"count": count}])
+
+
+def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
+                          n_epochs: int | None = None,
+                          utterances_per_speaker: int = 8,
+                          steps_per_epoch: int = 8,
+                          log_freq: int | None = None,
+                          save_freq: int | None = None,
+                          model_name: str | None = None,
+                          save_dir: str | None = None,
+                          logger=None, verbose: bool = True,
+                          speakers: Dict[str, np.ndarray] | None = None,
+                          start_step: int = 0, resume: bool = False,
+                          opt_overrides: Dict[str, Any] | None = None,
+                          mesh=None):
+    """GE2E training (speaker_encoder/model.py:276-408).  Returns (params,
+    info-dict).
+
+    ``dataset.batches(utterances_per_speaker, n_batches=steps_per_epoch,
+    seed=epoch)`` gives the (S, U, frames, mels) blocks.  The loss stays on
+    the device and is pulled to the host only at the steps that log it.
+    At each save epoch the loop logs ``eer`` from the last block's
+    similarity matrix (an f32 forward) and, with ``model_name``, saves
+    ``{step, params, speakers, opt_state}``, the optimizer state in the
+    JAX chain's layout, so the JAX loop resumes it too.  ``resume=True``
+    restores params, the Adam state and the step from the newest
+    checkpoint in ``save_dir`` (either package's) and updates
+    ``speakers`` from it.
+
+    On CUDA the stack runs kernels 6/7, which carry at most
+    ``lstm_train_kernels.MAX_LAYERS`` = 4 layers: a deeper speaker
+    encoder raises here, before any batch is drawn.  Not ported: the
+    parameter histograms and the TSNE figure of the save epochs (the JAX
+    loop makes them only for a logger that has the methods; no logged
+    scalar depends on them) and ``mesh`` (the data-parallel loop)."""
+    if mesh is not None:
+        raise NotImplementedError("the data-parallel training loop (mesh=) "
+                                  "is not ported yet (ROADMAP, Next)")
+    check_se_depth(params)
+    from autovc_tpu_torch.models import speaker_encoder as SE
+    lc, oc = cfg.learn, cfg.optimizer
+    if opt_overrides:
+        oc = oc.with_overrides(**opt_overrides)
+    n_epochs = n_epochs if n_epochs is not None else lc.n_epochs
+    log_freq = log_freq if log_freq is not None else lc.log_freq
+    save_freq = save_freq if save_freq is not None else lc.save_freq
+    model_name = lc.model_name if model_name is None else model_name
+    save_dir = lc.save_dir if save_dir is None else save_dir
+
+    tx = schedules.make_optimizer(oc, steps_per_epoch,
+                                  dim_model=cfg.embedding_size)
+    opt_state = tx.init(tree_leaves(params))
+    if resume:
+        from autovc_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                       load_checkpoint)
+        latest = latest_checkpoint(save_dir)
+        if latest is not None:
+            blob = load_checkpoint(latest)
+            params, _, opt_state = _restore(blob, params, opt_state)
+            start_step = int(blob.get("step", start_step) or 0)
+            if speakers is not None:
+                speakers.update(blob.get("speakers", {}))
+            if verbose:
+                print(f"Resumed from '{latest}' at step {start_step}")
+    if tree_leaves(params)[0].device.type == "cuda":
+        PREC.exact_f32()
+
+    step_fn = make_se_step(cfg, tx)
+    n_total = n_epochs * steps_per_epoch
+    step = start_step
+    for epoch in range(1, n_epochs + 1):
+        for batch in dataset.batches(utterances_per_speaker,
+                                     n_batches=steps_per_epoch, seed=epoch):
+            params, opt_state, aux = step_fn(params, opt_state, batch)
+            step += 1
+            log_now = step % max(log_freq, 1) == 0
+            if verbose:
+                progbar(step - start_step, n_total,
+                        {"loss": round(float(aux["loss"]), 4)}
+                        if log_now else {})
+            if logger is not None and log_now:
+                logger.log({"loss": float(aux["loss"]),
+                            "grad_norm": float(aux["grad_norm"]),
+                            "epoch": epoch, "step": step}, step=step)
+        save_epoch = epoch % save_freq == 0 or epoch == n_epochs
+        if logger is not None and save_epoch:
+            S, U = batch.shape[:2]
+            rows, = _on_device(params, batch.reshape(S * U, *batch.shape[2:]))
+            with torch.no_grad():
+                emb = SE.forward(params, rows).reshape(S, U, -1)
+                sim = SE.similarity_matrix(params, emb)
+            logger.log({"eer": SE.equal_error_rate(sim.cpu().numpy()),
+                        "epoch": epoch, "step": step}, step=step)
+        if save_epoch and model_name:
+            from autovc_tpu_torch.utils.checkpoint import save_checkpoint
+            save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
+                            {"step": step, "params": params,
+                             "speakers": speakers or {},
+                             "opt_state": optax_layout(opt_state, params,
+                                                       oc)})
+    if verbose:
+        close_progbar()
+    return params, {"step": step, "opt_state": opt_state}
 
 
 def vocoder_loss_and_grads(params, x_in, y, mels, cfg: WaveRNNConfig,

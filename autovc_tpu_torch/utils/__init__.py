@@ -74,6 +74,21 @@ def tree_leaves(tree) -> list:
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure whose tensor leaves are ``leaves``,
+    taken in :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return next(it) if isinstance(node, torch.Tensor) else node
+
+    return walk(tree)
+
+
 def tree_clone(tree):
     """A copy of a parameter tree with every tensor leaf cloned."""
     if isinstance(tree, dict):

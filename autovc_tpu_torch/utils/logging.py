@@ -3,8 +3,8 @@
 
 A ``MetricsLogger`` owns the run: it forwards to wandb when the package
 imports and the mode is not 'disabled', and always appends JSONL records
-locally, so training is observable offline.  The JAX logger's histogram,
-figure and audio methods come with the port of their callers.
+locally, so training is observable offline.  The JAX logger's histogram
+and figure methods come with the port of their callers.
 """
 from __future__ import annotations
 
@@ -63,6 +63,19 @@ class MetricsLogger:
             f.write(json.dumps(record) + "\n")
         if self.run is not None:
             self.run.log(metrics, step=step)
+
+    def log_audio(self, name: str, wav, sr: int, caption: str = "",
+                  step: int | None = None, save_dir: str | None = None):
+        """Log converted audio: to wandb when a run is live, else to
+        ``save_dir/name.wav`` when ``save_dir`` is given, else nowhere."""
+        if self.run is not None:
+            import wandb
+            self.run.log({name: wandb.Audio(wav, caption=caption,
+                                            sample_rate=sr)}, step=step)
+        elif save_dir:
+            from autovc_tpu_torch.audio import io
+            os.makedirs(save_dir, exist_ok=True)
+            io.save_wav(os.path.join(save_dir, f"{name}.wav"), wav, sr)
 
     def log_artifact(self, path: str, name: str, type_: str) -> None:
         if self.run is not None:

@@ -1,7 +1,7 @@
 """VoiceConverter (counterpart of ``autovc_tpu/voice_converter.py``):
 ``__init__``, ``_embed``, ``_speaker_embedding``, ``convert`` on its
-``cut=True`` path, ``train`` (the AutoVC generator and the vocoder),
-``setup_logging`` and ``save``.
+``cut=True`` path, ``learn_speakers``, ``train`` (the AutoVC generator,
+the GE2E speaker encoder and the vocoder), ``setup_logging`` and ``save``.
 
 ``convert`` runs the JAX package's fused accelerator chain
 (``_fused_convert``): host preprocessing and slice geometry, then on the
@@ -31,7 +31,7 @@ from autovc_tpu_torch.models import LoadedModel, load_model, save_model
 from autovc_tpu_torch.ops import lstm_kernels as LK
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops import wavernn_kernels as WK
-from autovc_tpu_torch.utils import resolve_device
+from autovc_tpu_torch.utils import resolve_device, retrieve_file_paths
 from autovc_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -44,18 +44,33 @@ class VoiceConverter:
                  auto_encoder_params: Dict[str, Any] | None = None,
                  speaker_encoder_params: Dict[str, Any] | None = None,
                  vocoder_params: Dict[str, Any] | None = None,
+                 wandb_params: Dict[str, Any] | None = None,
                  verbose: bool = True,
-                 ae_precision: str = "auto",
+                 ae_precision: str | None = "auto",
+                 vocoder_backend: str | None = None, *,
                  vocoder_precision: str = "auto",
                  device=None, seed: int = 0):
         """Build a converter from checkpoint paths + config overrides.
 
-        ``device``: None runs on the GPU (and raises when there is none);
-        ``"cpu"`` runs on the CPU.  ``ae_precision`` is the auto-encoder's
-        matmul/conv policy and ``vocoder_precision`` the vocoder sampling
-        loop's ("bf16" = the JAX package's ``fast_math``): each "f32",
-        "bf16" or "auto" (bf16 on the GPU, f32 on the CPU).  Models with no
-        checkpoint get fresh parameters seeded by ``seed``."""
+        The positional parameters are the JAX constructor's, in its order;
+        ``wandb_params`` merges into ``config.wandb``.  ``ae_precision`` is
+        the auto-encoder's matmul/conv policy and ``vocoder_precision`` the
+        vocoder sampling loop's ("bf16" = the JAX package's
+        ``fast_math``): each "f32", "bf16" or "auto" (None: "auto"; bf16
+        on the GPU, f32 on the CPU).  ``vocoder_backend`` None, "auto" or
+        "pallas" all mean the port's one sampling path (kernel 1 on the
+        GPU, its plain loop on the CPU); the JAX package's "xla" scan is
+        not ported.  Keyword-only, the port's own: ``device`` (None runs
+        on the GPU and raises when there is none; ``"cpu"`` runs on the
+        CPU) and ``seed`` (fresh parameters of the models with no
+        checkpoint)."""
+        if vocoder_backend == "xla":
+            raise NotImplementedError(
+                "vocoder_backend='xla' is not ported: the port has one "
+                "sampling path, kernel 1 on the GPU and its plain loop on "
+                "the CPU (ROADMAP, Queue 3, deliberate deviations)")
+        if vocoder_backend not in (None, "auto", "pallas"):
+            raise ValueError(f"unknown vocoder_backend {vocoder_backend!r}")
         cfg = config or ConverterConfig()
         if auto_encoder_params:
             cfg = cfg.with_overrides(auto_encoder=auto_encoder_params)
@@ -63,10 +78,12 @@ class VoiceConverter:
             cfg = cfg.with_overrides(speaker_encoder=speaker_encoder_params)
         if vocoder_params:
             cfg = cfg.with_overrides(vocoder=vocoder_params)
+        if wandb_params:
+            cfg = cfg.with_overrides(wandb=wandb_params)
         self.config = cfg
         self.verbose = verbose
         self.device = resolve_device(device)
-        self.ae_precision = PREC.resolve(ae_precision, self.device)
+        self.ae_precision = PREC.resolve(ae_precision or "auto", self.device)
         self.vocoder_precision = PREC.resolve(vocoder_precision, self.device)
         kw = dict(verbose=verbose, seed=seed, device=self.device)
         self.AE: LoadedModel = load_model(
@@ -184,15 +201,18 @@ class VoiceConverter:
                 save_name=None, save_dir=None,
                 preprocess=None, preprocess_args=None,
                 outprocess=None, outprocess_args=None,
-                cut: bool = True, overlap: float = 0.5, seed: int = 0,
+                cut: bool = True, overlap: float = 0.5,
+                audio_log_dict: Dict[str, Any] | None = None, seed: int = 0,
                 use_ema: bool = False,
                 partial_frames: int | None = None) -> Audio:
         """Convert the content of ``source`` into the voice of ``target``.
 
         ``source``/``target`` are wav paths or :class:`Audio`; ``target``
         may also be a learned mean-speaker name.  ``save_name=False`` skips
-        saving.  Only the ``cut=True`` path (overlapping mel chunks) is
-        ported.  Returns the converted :class:`Audio`."""
+        saving; ``save_dir="wandb"`` logs the audio (and ``audio_log_dict``)
+        through the logger of :meth:`setup_logging` and writes no file.
+        Only the ``cut=True`` path (overlapping mel chunks) is ported.
+        Returns the converted :class:`Audio`."""
         if not cut:
             raise NotImplementedError("only convert(cut=True) is ported")
         cc = self.config.convert
@@ -245,6 +265,15 @@ class VoiceConverter:
                         if isinstance(source, str) else "source")
             trg_name = os.path.splitext(os.path.basename(str(target)))[0]
             save_name = f"{src_name}_to_{trg_name}.wav"
+        if save_dir == "wandb":
+            assert self.logger is not None, \
+                "setup_logging() must run before save_dir='wandb'"
+            self.logger.log_audio(save_name.replace(".wav", ""),
+                                  audio_out.wav, audio_out.sr,
+                                  caption=save_name)
+            if audio_log_dict:
+                self.logger.log(audio_log_dict)
+            return audio_out
         # as the JAX package: under results/ unless save_dir already is
         if save_dir is None:
             save_dir = "results"
@@ -257,12 +286,38 @@ class VoiceConverter:
             print(f"  saved '{out_path}'")
         return audio_out
 
+    def learn_speakers(self, mean_speaker_path,
+                       mean_speaker_path_excluded=()):
+        """Learn mean speaker embeddings into :attr:`speakers` (which
+        ``save("speaker_encoder", ...)`` writes).  ``mean_speaker_path``:
+        dict name -> path, or a list of 'name=path' strings."""
+        from autovc_tpu_torch.models import speaker_encoder as SEm
+        if not isinstance(mean_speaker_path, dict):
+            try:
+                mean_speaker_path = {
+                    k.strip(): v.strip()
+                    for k, v in (arg.split("=") for arg in mean_speaker_path)}
+            except Exception as e:
+                raise ValueError(
+                    "mean_speaker_path must be a dict or list of 'name=path' "
+                    "strings") from e
+        for speaker, path in mean_speaker_path.items():
+            files = retrieve_file_paths(path,
+                                        list(mean_speaker_path_excluded))
+            if self.verbose:
+                print(f"Learning mean embedding for '{speaker}' "
+                      f"({len(files)} files)...")
+            self.speakers[speaker] = SEm.learn_speaker(
+                self.SE.params, files, self.SE.config, self.device)
+        return self.speakers
+
     def train(self, data_path, model_type: str = "auto_encoder", **kwargs):
         """Train one of the models (``autovc_tpu.train.train_model``):
-        ``"auto_encoder"`` or ``"vocoder"`` (``"speaker_encoder"`` is not
-        ported).  Runs on the converter's device; the kernels' packed
-        weights of the trained model (lstm2's, the sampling loop's) are
-        rebuilt afterwards, so ``convert`` samples with them."""
+        ``"auto_encoder"``, ``"speaker_encoder"`` or ``"vocoder"``.  Runs
+        on the converter's device.  The kernels' packed weights of a
+        trained auto-encoder (lstm2's) or vocoder (the sampling loop's) are
+        rebuilt afterwards, so ``convert`` runs with them; the speaker
+        encoder packs its weights per call."""
         from autovc_tpu_torch import train as train_mod
         if model_type not in ("auto_encoder", "speaker_encoder", "vocoder"):
             raise ValueError(f"'{model_type}' is not a supported model_type")
@@ -272,7 +327,7 @@ class VoiceConverter:
             if model_type == "auto_encoder":
                 self._lstm2_packed = LK.pack(
                     self.AE.params["decoder"]["lstm2"], self.ae_precision)
-            else:
+            elif model_type == "vocoder":
                 self._vocoder_packed = WK.pack_weights(
                     self.vocoder.params, self.vocoder.config,
                     self.vocoder_precision == "bf16")

@@ -16,9 +16,11 @@ Phases (any failure exits non-zero):
      beside kernel 3's routine at the same rows), and the training
      kernels 6 (forward) and 7 (backward) at the decoder's lstm2 (f32 and
      bf16, and bf16 at a ragged 33 rows) and lstm1 geometries and the
-     speaker encoder's (kernel 6's and kernel 7's launch plans, kernel 7's
-     recurrence and dW times apart, each recurrence's time per round;
-     kernels 3 and 6 are one layer-skewed routine, csrc/lstm_fwd.cuh), and
+     speaker encoder's, at 48 rows and at a GE2E batch of 64 x 8 = 512
+     rows, where both kernels run several row groups (kernel 6's and
+     kernel 7's launch plans, kernel 7's recurrence and dW times apart,
+     each recurrence's time per round; kernels 3 and 6 are one
+     layer-skewed routine, csrc/lstm_fwd.cuh), and
      the GRU-pair training kernels 4 (forward) and 5
      (backward) at the vocoder's geometry (f32 and bf16, 8 x 2475) and the
      JAX bench's (bf16, 32 x 1375) (both layer-skewed: kernel 4's launch
@@ -41,7 +43,13 @@ Phases (any failure exits non-zero):
      model_type="vocoder")`` on synthetic wavs, bf16, batch 8 x 9 frames
      (2475 samples a row), 16 steps (kernels 4 and 5 once a step each),
      with the loss falling; one step profiled; then one f32 full-width
-     step on the card against the same step on the CPU.
+     step on the card against the same step on the CPU;
+  7. end to end, speaker-encoder training: ``train_speaker_encoder`` at
+     the full-width ``SpeakerEncoderConfig()``, bf16, GE2E batches of 64
+     speakers x 8 utterances x 160 frames from a seeded synthetic
+     dataset, 12 steps (kernels 6 and 7 once a step each), with the loss
+     falling and the EER logged; one step profiled; then one f32 step
+     (4 x 3 x 160) on the card against the same step on the CPU.
 It prints one JSON line per comparison, then the per-kernel summary line,
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
@@ -67,8 +75,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from autovc_tpu_torch import Audio, VoiceConverter  # noqa: E402
 from autovc_tpu_torch.audio import dsp, io as audio_io  # noqa: E402
 from autovc_tpu_torch.config import (AutoEncoderConfig,  # noqa: E402
-                                     OptimizerConfig, WaveRNNConfig)
+                                     OptimizerConfig, SpeakerEncoderConfig,
+                                     WaveRNNConfig)
 from autovc_tpu_torch.models import autoencoder as AE  # noqa: E402
+from autovc_tpu_torch.models import speaker_encoder as SE  # noqa: E402
 from autovc_tpu_torch.models import wavernn as WR  # noqa: E402
 from autovc_tpu_torch.ops import _build  # noqa: E402
 from autovc_tpu_torch.ops import gru_train_kernels as GT  # noqa: E402
@@ -1120,6 +1130,131 @@ def phase_vocoder_f32_vs_cpu(card: str) -> dict:
         lambda name: False, card, batch=[2, frames, T])
 
 
+class SyntheticSpeakers:
+    """A GE2E dataset of ``speakers`` synthetic speakers, made from
+    ``seed``: each speaker's mel rows are its prototype (uniform in
+    [0, 4) a mel band) plus uniform noise in [0, 1) a frame, as
+    ``tests/test_training.py``'s synthetic speakers."""
+
+    def __init__(self, speakers: int, frames: int, mels: int, seed: int):
+        self.protos = 4.0 * np.random.default_rng(seed).random(
+            (speakers, 1, 1, mels), dtype=np.float32)
+        self.shape, self.seed = (frames, mels), seed
+
+    def batches(self, utterances: int, n_batches: int, seed: int = 0):
+        rng = np.random.default_rng((self.seed, seed))
+        for _ in range(n_batches):
+            yield self.protos + rng.random(
+                (len(self.protos), utterances, *self.shape),
+                dtype=np.float32)
+
+
+def phase_se_train(card: str, steps: int = 12) -> dict:
+    """``train_speaker_encoder`` at the full-width ``SpeakerEncoderConfig()``
+    (3 x 256 on 40 mels, bf16, the config's optimizer) on GE2E batches of
+    64 speakers (the config's ``learn.batch_size``, the GE2E paper's N) x
+    8 utterances (the loop's default) x 160 frames from
+    :class:`SyntheticSpeakers`, 2 epochs of ``steps / 2``: every loss
+    finite, the mean of the last two below the first, the EER of each
+    epoch in [0, 1], kernels 6 and 7 launched once a step each.  Then one
+    step of the same step function profiled (device idle share, device
+    time by kernel) and kernel 7's recurrence and dW times over 3 steps."""
+    dev = torch.device("cuda")
+    cfg = SpeakerEncoderConfig()
+    S, U = cfg.learn.batch_size, 8
+    T = cfg.spectrogram.partial_utterance_n_frames
+    params = from_jax_params(SE.init(torch.Generator().manual_seed(21), cfg),
+                             dev)
+    data = SyntheticSpeakers(S, T, cfg.input_size, 22)
+    clock = StepClock()
+    for name in TRAIN_KERNELS:
+        KERNELS[name]["kernel"].launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, info = TRL.train_speaker_encoder(
+        params, data, cfg, n_epochs=2, utterances_per_speaker=U,
+        steps_per_epoch=steps // 2, log_freq=1, model_name="",
+        logger=clock, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: KERNELS[name]["kernel"].launches for name in TRAIN_KERNELS}
+    records = [(t, m) for t, m in clock.records if "loss" in m]
+    losses = [m["loss"] for _, m in records]
+    eers = [m["eer"] for _, m in clock.records if "eer" in m]
+    times = [t for t, _ in records]
+    step_s = statistics.median(b - a for a, b in zip(times, times[1:]))
+    ok = (info["step"] == steps and len(losses) == steps
+          and all(math.isfinite(v) for v in losses)
+          and (losses[-1] + losses[-2]) / 2 < losses[0]
+          and len(eers) == 2 and all(0.0 <= e <= 1.0 for e in eers)
+          and all(c == steps for c in counts.values()))
+
+    # one more step of the same step function, profiled (the first call
+    # warms up), and kernel 7's two launches apart over 3 more steps
+    tx = TRS.make_optimizer(cfg.optimizer, steps // 2,
+                            dim_model=cfg.embedding_size)
+    step_fn = TRL.make_se_step(cfg, tx)
+    opt_state = tx.init(tree_leaves(params))
+    batch = next(data.batches(U, 1, seed=99))
+    step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = device_busy(prof)
+    kernel_ms = kernel_ms_of(prof, ("lstm_fwd_kernel",
+                                    "lstm_train_bwd_kernel",
+                                    "dw_bf16_kernel"))
+    rec_ms, dw_ms, profiled = recurrence_and_dw_ms(
+        lambda: step_fn(params, opt_state, batch), "lstm_train_bwd_kernel")
+    res = {"phase": "se_train", "steps": info["step"], "epochs": 2,
+           "batch": [S, U, T, cfg.input_size],
+           "precision": cfg.learn.precision, "losses": losses, "eers": eers,
+           "launches": counts, "wall_s": wall, "median_step_s": step_s,
+           "utterances_per_s": S * U / step_s,
+           "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / prof_ms,
+           "device_idle_share_of_median_step":
+               1.0 - busy_ms / (step_s * 1e3),
+           # kernel 6 is lstm_fwd_kernel, kernel 7 lstm_train_bwd_kernel
+           # (the recurrence) and dw_bf16_kernel (its dW / db products)
+           "device_ms_by_kernel": top, "train_kernel_ms": kernel_ms,
+           "kernel7_recurrence_ms": rec_ms, "kernel7_dw_ms": dw_ms,
+           "kernel7_launches_profiled": profiled,
+           "kernel7_share_of_median_step": (rec_ms + dw_ms)
+           / (step_s * 1e3),
+           "card": card, "ok": ok}
+    log(res)
+    if not ok:
+        raise AssertionError(f"speaker-encoder training phase failed: {res}")
+    return counts
+
+
+def phase_se_f32_vs_cpu(card: str) -> dict:
+    """The speaker encoder's f32 GE2E step at full width (4 speakers x 3
+    utterances x 160 frames; kernels 6 and 7 in f32 on the card) held
+    against the CPU's by :func:`hold_f32_step`, the mel block perturbed;
+    the similarity bias's gradient is analytically zero (it shifts every
+    logit of a row alike)."""
+    cfg = SpeakerEncoderConfig()
+    block = next(SyntheticSpeakers(4, cfg.spectrogram.
+                                   partial_utterance_n_frames,
+                                   cfg.input_size, 23).batches(3, 1))
+
+    def grads_of(params, block):
+        loss, grads = TRL.se_loss_and_grads(tree_clone(params), block, "f32")
+        return float(loss), [g.cpu() for g in grads]
+
+    return hold_f32_step(
+        "se_f32_card_vs_cpu", grads_of,
+        SE.init(torch.Generator().manual_seed(24), cfg), (block,), (0,),
+        lambda name: name == "similarity_bias", card, batch=list(block.shape))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1158,8 +1293,17 @@ def main() -> int:
                        dev)
     compare_lstm_train("ragged", 2, 1024, 512, 33, 400, torch.bfloat16, gen,
                        dev)
-    compare_lstm_train("speaker_encoder", 3, 256, 40, 48, 160,
-                       torch.bfloat16, gen, dev, cotangents="h_fin")
+    se48 = compare_lstm_train("speaker_encoder", 3, 256, 40, 48, 160,
+                              torch.bfloat16, gen, dev, cotangents="h_fin")
+    # the speaker encoder's GE2E batch, 64 speakers x 8 utterances: both
+    # kernels over several row groups
+    se512 = compare_lstm_train("speaker_encoder_ge2e", 3, 256, 40, 512, 160,
+                               torch.bfloat16, gen, dev, cotangents="h_fin")
+    log({"phase": "compare", "kernel": "lstm_train se rows", **{
+        f"{r['rows']}_rows": {k: {m: r[k][m] for m in ("ms", "library_ms",
+                                                       "bound_ms")}
+                              for k in ("fwd", "bwd")}
+        for r in (se48, se512)}})
     # kernels 4 and 5 at the vocoder's training geometry, f32 and bf16
     # (the summary's), and the JAX bench's
     compare_gru_train(8, 9 * 275, torch.float32, gen, dev)
@@ -1171,6 +1315,9 @@ def main() -> int:
     phase_train_f32_vs_cpu(card)
     launches.update(phase_vocoder_train(card))
     phase_vocoder_f32_vs_cpu(card)
+    for name, count in phase_se_train(card).items():
+        launches[name] += count
+    phase_se_f32_vs_cpu(card)
 
     def entry(name, cmp, err):
         return {"name": name, "route": "cuda",

@@ -10,7 +10,10 @@ backend="pallas", interpret=True, fast_math=False)``.  Both sides load the
 same .ckpt files written by the JAX package, and the port's sampling noise
 is the JAX draw.  Bars: embedding MSE < 1e-8, post-mel MSE < 1e-6,
 waveform atol 1e-3."""
+import json
 import os
+import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -201,3 +204,104 @@ def test_convert_saves_where_the_jax_package_does(slice_run, tmp_path,
                        for p in tmp_path.rglob(out))
         written[name] = [os.path.dirname(f) for f in found]
     assert written["jax"] == written["torch"] == [where]
+
+
+@pytest.fixture
+def stubbed_vc(monkeypatch, tmp_path):
+    """A CPU converter whose model stages are stubbed with zeros (they do
+    not decide where the audio goes), run from an empty directory."""
+    monkeypatch.chdir(tmp_path)
+    vc = VoiceConverter(config=TConv().with_overrides(vocoder=VOC),
+                        device="cpu", verbose=False)
+    emb = np.zeros(256, np.float32)
+    monkeypatch.setattr(vc, "_embed", lambda audio: emb)
+    monkeypatch.setattr(vc, "_speaker_embedding", lambda *a: emb)
+    monkeypatch.setattr(vc, "_fused_convert",
+                        lambda *a, **k: np.zeros(2750, np.float32))
+    return vc
+
+
+def test_convert_to_wandb_logs_and_writes_no_file(stubbed_vc, tmp_path,
+                                                   monkeypatch):
+    """``save_dir="wandb"`` hands the audio to the logger's live run (a
+    stand-in run and ``wandb`` module: the package is not installed) and
+    logs ``audio_log_dict``; no file appears under the working
+    directory."""
+    wandb = types.ModuleType("wandb")
+    wandb.Audio = lambda wav, caption, sample_rate: (caption, sample_rate)
+    monkeypatch.setitem(sys.modules, "wandb", wandb)
+    logger = stubbed_vc.setup_logging()
+    audio = []
+    logger.run = type("Run", (), {"log": lambda self, m, step=None:
+                                  audio.append(m)})()
+    stubbed_vc.convert(Audio(_wav(0.2, 140.0, 4), sr_org=SR), "target",
+                       save_name="a.wav", save_dir="wandb", preprocess=(),
+                       outprocess=(), audio_log_dict={"epoch": 3})
+    logger.run = None
+    with open(logger.jsonl_path) as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["epoch"] for r in lines] == [3]
+    assert audio == [{"a": ("a.wav", SR)}, {"epoch": 3}]
+    assert not list(tmp_path.rglob("*.wav"))
+
+
+def test_convert_to_wandb_needs_setup_logging(stubbed_vc, tmp_path):
+    with pytest.raises(AssertionError, match="setup_logging"):
+        stubbed_vc.convert(Audio(_wav(0.2, 140.0, 4), sr_org=SR), "target",
+                           save_name="a.wav", save_dir="wandb",
+                           preprocess=(), outprocess=())
+    assert not list(tmp_path.rglob("*.wav"))
+
+
+def test_log_audio_writes_only_where_asked(tmp_path):
+    """With no live run ``log_audio`` writes ``save_dir/name.wav`` when it
+    has a ``save_dir``, else nothing, as the JAX logger."""
+    from autovc_tpu_torch.utils.logging import MetricsLogger
+    logger = MetricsLogger(log_dir=str(tmp_path / "logs"))
+    wav = _wav(0.1, 140.0, 5)
+    logger.log_audio("quiet", wav, SR)
+    logger.log_audio("kept", wav, SR, save_dir=str(tmp_path / "out"))
+    assert [p.name for p in tmp_path.rglob("*.wav")] == ["kept.wav"]
+
+
+def test_constructor_takes_jax_positional_parameters(tmp_path):
+    """The JAX constructor's positional order: the eighth parameter is
+    ``wandb_params`` (merged into ``config.wandb``), the ninth
+    ``verbose``; ``vocoder_backend`` None / "auto" / "pallas" are the one
+    sampling path and "xla" raises."""
+    vc = VoiceConverter(None, None, None, TConv().with_overrides(
+        vocoder=VOC), None, None, None,
+        {"mode": "disabled", "project": "positional"}, False, device="cpu")
+    assert vc.config.wandb.project == "positional"
+    assert vc.config.wandb.mode == "disabled" and vc.verbose is False
+    for backend in ("auto", "pallas"):
+        VoiceConverter(config=TConv().with_overrides(vocoder=VOC),
+                       verbose=False, vocoder_backend=backend, device="cpu")
+    with pytest.raises(NotImplementedError, match="one sampling path"):
+        VoiceConverter(vocoder_backend="xla", verbose=False, device="cpu")
+
+
+def test_speaker_encoder_training_repacks_nothing(tmp_path):
+    """``train(model_type="speaker_encoder")`` trains the speaker encoder
+    and leaves the auto-encoder's and the vocoder's packed weights as they
+    were."""
+    t = np.arange(int(1.0 * 16000)) / 16000
+    data = {}
+    for s in range(2):
+        d = tmp_path / f"spk{s}"
+        d.mkdir()
+        jio.save_wav(str(d / "u.wav"), (0.2 * np.sin(
+            2 * np.pi * (120.0 + 80.0 * s) * t)).astype(np.float32), 16000)
+        data[f"spk{s}"] = str(d)
+    cfg = TConv().with_overrides(
+        vocoder=VOC,
+        speaker_encoder={"spectrogram": {"partial_utterance_n_frames": 40}})
+    vc = VoiceConverter(config=cfg, device="cpu", verbose=False)
+    vc.logger = type("Cap", (), {"log": lambda self, m, step=None: None})()
+    vocoder_packed, lstm2_packed = vc._vocoder_packed, vc._lstm2_packed
+    info = vc.train(data, model_type="speaker_encoder", n_epochs=1,
+                    steps_per_epoch=1, utterances_per_speaker=2,
+                    model_name="")
+    assert info["step"] == vc.SE.step == 1
+    assert vc._vocoder_packed is vocoder_packed
+    assert vc._lstm2_packed is lstm2_packed

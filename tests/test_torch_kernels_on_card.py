@@ -15,7 +15,8 @@ import dataclasses
 import pytest
 import torch
 
-from autovc_tpu_torch.config import WaveRNNConfig
+from autovc_tpu_torch.config import SpeakerEncoderConfig, WaveRNNConfig
+from autovc_tpu_torch.models import speaker_encoder as SE
 from autovc_tpu_torch.models import wavernn as WR
 from autovc_tpu_torch.ops import gru_train_kernels as GT
 from autovc_tpu_torch.ops import lstm_kernels as LK
@@ -23,6 +24,9 @@ from autovc_tpu_torch.ops import lstm_train_kernels as LT
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops import rnn as R
 from autovc_tpu_torch.ops import wavernn_kernels as WK
+from autovc_tpu_torch.train import loop as TL
+from autovc_tpu_torch.train import schedules as TS
+from autovc_tpu_torch.utils import tree_leaves
 from autovc_tpu_torch.utils.bridge import from_jax_params
 
 SMALL = dict(compute_dims=16, res_out_dims=16, res_blocks=2,
@@ -200,6 +204,65 @@ def test_lstm_train_kernels_match_plain(cuda_device, L, B, H, dtype):
     want = LT.lstm_train_bwd_plain(ref[5], ref[3], ref[4], *cts, *wb)
     for a, b in zip(got, want):
         close(a, b, False)
+
+
+@pytest.mark.cuda
+def test_lstm_train_kernels_at_the_ge2e_batch(cuda_device):
+    """Kernels 6 and 7 at the speaker encoder's training geometry: 3 x 256
+    on 40 mels, a GE2E batch of 64 speakers x 8 utterances (512 rows) of
+    160 frames, bf16, the cotangent on h_fin only (the loss reads the last
+    layer's final h).  Both kernels take more than one row group here
+    (kernel 6 8 x 64 rows, kernel 7 4 x 128 on 132 SMs).  Within 2e-2 of
+    max |ref| of the plain versions."""
+    L, H, I, B, T = 3, 256, 40, 512, 160
+    gen = torch.Generator().manual_seed(11)
+    params = from_jax_params(R.init_lstm_stack(gen, I, H, L), cuda_device)
+    x = torch.randn(B, T, I, generator=gen).to(cuda_device)
+    xp0 = LK.hoist_xp0(params[0], x, "bf16")
+    whh = torch.stack([p["w_hh"] for p in params])
+    wih = torch.stack([p["w_ih"] for p in params[1:]])
+    bias = torch.stack([p["b_ih"] + p["b_hh"] for p in params[1:]])
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    assert LK.fwd_plan(B, H, L, True, sms).groups > 1
+    assert LT.bwd_plan(B, H, L, True, sms).groups > 1
+    wf = LT.pack_fwd(whh, wih, torch.bfloat16)
+    out = LT.fwd_launch(xp0, *wf, bias)
+    ref = LT.lstm_train_fwd_plain(xp0, *wf, bias)
+    for a, b in zip(out, ref):
+        _close(a, b, lambda s: 2e-2 * s)
+    cts = (torch.zeros(T, B, H, device=cuda_device),
+           torch.randn(B, H, generator=gen).to(cuda_device),
+           torch.zeros(B, H, device=cuda_device))
+    wb = LT.pack_bwd(whh, wih, torch.bfloat16)
+    got = LT.bwd_launch(ref[5], ref[3], ref[4], *cts, *wb)
+    want = LT.lstm_train_bwd_plain(ref[5], ref[3], ref[4], *cts, *wb)
+    for a, b in zip(got, want):
+        _close(a, b, lambda s: 2e-2 * s)
+
+
+@pytest.mark.cuda
+def test_bf16_se_step_on_the_card(cuda_device):
+    """One bf16 GE2E step of ``make_se_step`` at the speaker encoder's full
+    width and a GE2E batch (64 speakers x 8 utterances x 160 frames):
+    kernels 6 and 7 launch once each, the loss and every gradient are
+    finite, and the step moves the weights."""
+    cfg = SpeakerEncoderConfig()
+    gen = torch.Generator().manual_seed(12)
+    params = from_jax_params(SE.init(gen, cfg), cuda_device)
+    protos = 4.0 * torch.rand(64, 1, 1, 40, generator=gen)
+    batch = protos + torch.rand(64, 8, 160, 40, generator=gen)
+    LT.FWD.launches = LT.BWD.launches = 0
+    loss, grads = TL.se_loss_and_grads(params, batch, "bf16")
+    assert (LT.FWD.launches, LT.BWD.launches) == (1, 1)
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    tx = TS.make_optimizer(cfg.optimizer, 8, dim_model=cfg.embedding_size)
+    before = params["lstm"][2]["w_hh"].clone()
+    _, state, aux = TL.make_se_step(cfg, tx)(
+        params, tx.init(tree_leaves(params)), batch)
+    assert state["count"] == 1 and bool(torch.isfinite(aux["grad_norm"]))
+    assert not torch.equal(before, params["lstm"][2]["w_hh"])
 
 
 @pytest.mark.cuda
