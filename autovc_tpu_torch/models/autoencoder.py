@@ -15,12 +15,22 @@ batchnorm1d`), and both decoder stacks go through the training kernels 6
 and 7 (:func:`autovc_tpu_torch.ops.lstm_train_kernels.lstm_stack_train`).
 The encoder BLSTM is a plain recurrence in both.  ``mode`` is the
 matmul/conv precision policy ("f32" or "bf16").
+
+Batch serving (:func:`batch_forward_packed`) cuts every utterance's chunks
+into slabs of the ladder ``_SLAB_LADDER`` on the plan of least measured
+cost (:func:`_slab_plan` over ``_SLAB_MS``, the H100's own table), runs
+each slab through :func:`convert_slab` (lstm2 on kernel 2 at 8 rows,
+kernel 3 above) and merges the rows into one packed timeline at data
+offsets (:func:`merge_rows`, ``index_add_``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from autovc_tpu_torch.config import AutoEncoderConfig
 from autovc_tpu_torch.ops import conv as C
@@ -180,6 +190,19 @@ def loss(params: Params, x: torch.Tensor, c_org: torch.Tensor,
     return total, aux
 
 
+def _merge_chunks(mel_post: torch.Tensor, step: int) -> torch.Tensor:
+    """Mean overlap-add of one utterance's converted chunks (M, n_mels, N)
+    at hop ``step``: (n_mels, N + (M - 1) * step)."""
+    M, n_mels, N = mel_post.shape
+    total = N + (M - 1) * step
+    acc = mel_post.new_zeros(n_mels, total)
+    cnt = mel_post.new_zeros(1, total)
+    for i in range(M):
+        acc[:, i * step:i * step + N] += mel_post[i]
+        cnt[:, i * step:i * step + N] += 1.0
+    return acc / cnt
+
+
 def batch_forward(params: Params, chunks: torch.Tensor, c_org: torch.Tensor,
                   c_trg: torch.Tensor, cfg: AutoEncoderConfig,
                   overlap: float = 0.5, precision: str = "f32",
@@ -194,11 +217,191 @@ def batch_forward(params: Params, chunks: torch.Tensor, c_org: torch.Tensor,
     c_trg = c_trg.expand(M, c_trg.shape[-1])
     _, mel_post, _ = forward(params, chunks, c_org, c_trg, cfg, mode,
                              lstm2_packed)
+    return _merge_chunks(mel_post, int(N * (1 - overlap)))
+
+
+def batch_forward_many(params: Params, chunks: torch.Tensor,
+                       c_orgs: torch.Tensor, c_trg: torch.Tensor,
+                       counts: tuple, cfg: AutoEncoderConfig,
+                       overlap: float = 0.5, precision: str = "f32",
+                       lstm2_packed=None):
+    """Several utterances' chunks in one forward: ``chunks`` (rows, n_mels,
+    N) stacks every utterance's chunks (rows beyond ``sum(counts)`` are
+    padding), ``c_orgs`` (rows, emb) the source embedding of each row,
+    ``c_trg`` (1, emb) the shared target.  Returns the list of merged
+    (n_mels, T_i) mels, one per utterance."""
+    rows, _, N = chunks.shape
+    mode = PREC.resolve(precision, chunks.device)
+    c_trg_b = c_trg.expand(rows, c_trg.shape[-1])
+    _, mel_post, _ = forward(params, chunks, c_orgs, c_trg_b, cfg, mode,
+                             lstm2_packed)
     step = int(N * (1 - overlap))
-    total = N + (M - 1) * step
-    acc = mel_post.new_zeros(n_mels, total)
-    cnt = mel_post.new_zeros(1, total)
-    for i in range(M):
-        acc[:, i * step:i * step + N] += mel_post[i]
-        cnt[:, i * step:i * step + N] += 1.0
-    return acc / cnt
+    outs, row = [], 0
+    for M in counts:
+        outs.append(_merge_chunks(mel_post[row:row + M], step))
+        row += M
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# Batch serving: fixed-row slabs and a packed merge at data offsets
+# ---------------------------------------------------------------------------
+
+
+def convert_slab(params: Params, chunks: torch.Tensor, c_orgs: torch.Tensor,
+                 c_trgs: torch.Tensor, cfg: AutoEncoderConfig,
+                 precision: str = "f32", lstm2_packed=None) -> torch.Tensor:
+    """One slab of chunk rows through the generator in eval mode:
+    (S, n_mels, N) -> (S, n_mels, N) postnet mels.  Decoder lstm2 runs
+    kernel 2 at a slab of at most 8 rows and kernel 3 above (the routing of
+    :func:`decoder`); ``lstm2_packed`` as there."""
+    mode = PREC.resolve(precision, chunks.device)
+    _, mel_post, _ = forward(params, chunks, c_orgs, c_trgs, cfg, mode,
+                             lstm2_packed)
+    return mel_post
+
+
+def merge_rows(mel_rows: torch.Tensor, offsets: torch.Tensor,
+               out_frames: int) -> torch.Tensor:
+    """Mean overlap-add of converted chunk rows (R, n_mels, N) at frame
+    offsets (R,) (data, on the rows' device) into one (n_mels,
+    out_frames) timeline.  Padding rows point at the trash window
+    [out_frames, out_frames + N), which never reaches the output; frames
+    no row covers stay 0."""
+    R, n_mels, N = mel_rows.shape
+    dev = mel_rows.device
+    idx = (offsets.to(dev, torch.long)[:, None]
+           + torch.arange(N, device=dev)[None, :]).reshape(-1)
+    acc = mel_rows.new_zeros(n_mels, out_frames + N)
+    acc.index_add_(1, idx, mel_rows.transpose(0, 1).reshape(n_mels, R * N))
+    cnt = mel_rows.new_zeros(out_frames + N)
+    cnt.index_add_(0, idx, mel_rows.new_ones(R * N))
+    merged = torch.where(cnt > 0, acc / torch.clamp(cnt, min=1.0),
+                         torch.zeros_like(acc))
+    return merged[:, :out_frames]
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+# Slab sizes of batch serving: a workload is cut into slabs of these row
+# counts, each one :func:`convert_slab` call.
+_SLAB_LADDER = (8, 16, 32, 64, 128, 256)
+
+# convert_slab wall (ms) at each ladder size: bf16, T = 400, full width,
+# fresh seeded weights; chip_smoke.py's ``ae_slab_ms`` line (median of 5
+# after a warm-up) on an NVIDIA H100 80GB HBM3, 700.00 W.  The cost a row
+# falls to 64 rows (645 us) and is near flat beyond (612 at 128, 592 at
+# 256): kernel 3 runs the row groups of 64 one after another.
+_SLAB_MS = {8: 10.04, 16: 16.00, 32: 24.17, 64: 41.30, 128: 78.31,
+            256: 151.63}
+
+
+def _pick_slab(rows: int) -> int:
+    """The uniform slab size of least measured cost ceil(rows / s) *
+    _SLAB_MS[s]; ties go to the larger slab (fewer calls)."""
+    return min(_SLAB_LADDER,
+               key=lambda s: (-(-rows // s) * _SLAB_MS[s], -s))
+
+
+@functools.lru_cache(maxsize=512)
+def _slab_plan(rows: int) -> tuple:
+    """The multiset of ladder slab sizes of least measured cost that covers
+    at least ``rows`` rows (descending): a coin-change DP over 8-row
+    quanta of the whole row count."""
+    if rows <= 0:
+        return (_SLAB_LADDER[0],)
+    q = -(-rows // 8)
+    INF = float("inf")
+    best = [0.0] + [INF] * q
+    choice = [0] * (q + 1)
+    for n in range(1, q + 1):
+        for s in _SLAB_LADDER:
+            prev = max(0, n - s // 8)
+            c = best[prev] + _SLAB_MS[s]
+            if c < best[n]:
+                best[n], choice[n] = c, s
+    plan, n = [], q
+    while n > 0:
+        s = choice[n]
+        plan.append(s)
+        n = max(0, n - s // 8)
+    return tuple(sorted(plan, reverse=True))
+
+
+def batch_forward_packed(params: Params, chunk_sets, c_orgs, c_trg,
+                         cfg: AutoEncoderConfig, overlap: float = 0.5,
+                         precision: str = "f32", slab_rows: int | None = None,
+                         gap: int = 0, frame_bucket: int = 256,
+                         lstm2_packed=None):
+    """Several utterances' chunks through slabs of the mixed plan
+    (:func:`_slab_plan`, or ``slab_rows``-row slabs), merged into one
+    packed mel timeline on the chunks' device.
+
+    ``chunk_sets``: list of (M_i, n_mels, N) chunk tensors (hop N * (1 -
+    overlap)); ``c_orgs``: list of (emb,) source embeddings (numpy) or one
+    (n_utts, emb) tensor on the device; ``c_trg``: (1, emb) shared target.
+    Padding rows get zero chunks and zero source embeddings.  ``gap`` zero
+    frames sit before and after each utterance and the timeline is rounded
+    up to ``frame_bucket`` frames.  Returns (packed (n_mels, Fp_b),
+    starts, lengths): utterance u is packed[:, starts[u]:starts[u] +
+    lengths[u]]."""
+    n_mels, N = chunk_sets[0].shape[1:]
+    dev = chunk_sets[0].device
+    counts = [int(ch.shape[0]) for ch in chunk_sets]
+    if slab_rows is None:
+        plan = _slab_plan(sum(counts))
+    else:
+        if not (0 < slab_rows and slab_rows % 8 == 0):
+            raise ValueError(f"slab_rows must be a positive multiple of 8, "
+                             f"got {slab_rows}")
+        plan = (slab_rows,) * max(1, -(-sum(counts) // slab_rows))
+    step = int(N * (1 - overlap))
+    lengths = [N + (m - 1) * step for m in counts]
+    starts, o = [], gap
+    for L in lengths:
+        starts.append(o)
+        o += L + 2 * gap
+    Fp = starts[-1] + lengths[-1] + gap
+    Fp_b = _round_up(Fp, frame_bucket)
+
+    rows, R_b = sum(counts), sum(plan)
+    stacked = torch.cat([ch.float() for ch in chunk_sets], dim=0)
+    if R_b != rows:
+        stacked = F.pad(stacked, (0, 0, 0, 0, 0, R_b - rows))
+    offsets = np.full((R_b,), Fp_b, np.int64)          # the trash window
+    r = 0
+    for u, m in enumerate(counts):
+        offsets[r:r + m] = starts[u] + np.arange(m) * step
+        r += m
+    if not isinstance(c_orgs, torch.Tensor):
+        c_orgs = torch.as_tensor(np.stack(c_orgs), dtype=torch.float32,
+                                 device=dev)
+    # the per-row block is built on the device: with device embeddings the
+    # speaker encoder -> generator chain never reads back
+    c_rows = F.pad(torch.cat([c_orgs[u].float()[None].expand(m, -1)
+                              for u, m in enumerate(counts)]),
+                   (0, 0, 0, R_b - rows))
+    c_trg_row = torch.as_tensor(c_trg, dtype=torch.float32,
+                                device=dev).reshape(1, -1)
+    mel_rows, s = [], 0
+    for sz in plan:
+        mel_rows.append(convert_slab(
+            params, stacked[s:s + sz], c_rows[s:s + sz],
+            c_trg_row.expand(sz, -1), cfg, precision, lstm2_packed))
+        s += sz
+    mel_rows = torch.cat(mel_rows, dim=0)
+    packed = merge_rows(mel_rows, torch.from_numpy(offsets).to(dev), Fp_b)
+    return packed, starts, lengths
+
+
+def infer(params: Params, x: torch.Tensor, c_org: torch.Tensor,
+          c_trg: torch.Tensor, cfg: AutoEncoderConfig,
+          precision: str = "f32", lstm2_packed=None) -> torch.Tensor:
+    """The eval-mode postnet mel of whole (unchunked) mels (B, n_mels, T),
+    the ``cut=False`` path; ``lstm2_packed`` as for :func:`decoder`."""
+    mode = PREC.resolve(precision, x.device)
+    _, mel_post, _ = forward(params, x, c_org, c_trg, cfg, mode,
+                             lstm2_packed)
+    return mel_post

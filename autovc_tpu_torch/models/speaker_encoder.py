@@ -93,10 +93,13 @@ def _partial_rows(wav: np.ndarray, cfg: SpeakerEncoderConfig, device):
 
 def embed_utterances(params: Params, wavs,
                      cfg: SpeakerEncoderConfig = SpeakerEncoderConfig(),
-                     device=None):
+                     device=None, block: bool = True):
     """d-vectors for several utterances (at the SE's sample rate) in one
     forward on ``device`` (None: the GPU, or raise; ``"cpu"`` on request).
-    Returns a list of (emb,) float32 numpy arrays."""
+    Returns a list of (emb,) float32 numpy arrays; with ``block=False``
+    one (n_utts, emb) tensor on ``device`` instead (the per-utterance mean
+    and L2-normalise on the device, nothing read back), which batch
+    serving hands straight to the auto-encoder."""
     device = resolve_device(device)
     blocks = [_partial_rows(w, cfg, device) for w in wavs]
     counts = [int(b.shape[0]) for b in blocks]
@@ -105,7 +108,12 @@ def embed_utterances(params: Params, wavs,
     Rb = -(-R_ // 32) * 32
     if Rb != R_:
         rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, Rb - R_))
-    emb = forward(params, rows).cpu().numpy()
+    emb = forward(params, rows)
+    if not block:
+        raws = torch.stack([seg.mean(dim=0)
+                            for seg in torch.split(emb[:R_], counts)])
+        return raws / torch.linalg.norm(raws, dim=-1, keepdim=True)
+    emb = emb.cpu().numpy()
     outs, r = [], 0
     for n in counts:
         raw = emb[r:r + n].mean(axis=0)

@@ -22,11 +22,18 @@ a row bucket, the sampling loop
 the GPU), then crossfade-unfold, trim and fade (:func:`_finish`).
 ``batched=False`` is the same kernel at one row.
 
+Batch serving (:func:`generate_many`) runs one MelResNet pass over every
+utterance, joins all utterances' fold rows, samples them in slabs of at
+most ``_MAX_SLAB_ROWS`` rows (one kernel-1 pass a slab) and finishes each
+utterance into one flat int16 array (:func:`_finish_many`).
+
 Known deviations from the JAX package: ``auto_target`` takes the fixed
 reference geometry (the JAX fold picker scores fold lengths with TPU
 timings), and a fold geometry that is not a multiple of ``total_scale``
 raises (the JAX package falls back to its XLA scan there; the port has no
-second sampling path).
+second sampling path).  The JAX batch pass also caps its slab at the rows
+that fit the TPU kernel's VMEM budget (``_pallas_max_rows``); the port has
+no such cap, since kernel 1 takes any row count.
 """
 from __future__ import annotations
 
@@ -259,12 +266,18 @@ def _fold_rows(x: torch.Tensor, target_f: int, overlap_f: int, margin: int):
 
 def _prepare_frame_conditioning(params: Params, mel: torch.Tensor,
                                 cfg: WaveRNNConfig, target: int,
-                                overlap: int, batched: bool):
+                                overlap: int, batched: bool,
+                                aux_pre: torch.Tensor | None = None):
     """(mel_rows (B, fpf + 2J, feat), aux_rows (B, fpf, res_out)) for the
-    sampling loop (``wavernn.py:762-794``)."""
+    sampling loop (``wavernn.py:762-794``).  ``aux_pre``: the utterance's
+    MelResNet features (1, res_out, F), computed beforehand (batch serving
+    runs one MelResNet pass over every utterance), else computed here."""
     S = cfg.total_scale
     J = _upsample_margin(params["upsample"]["up_convs"], cfg.upsample_factors)
-    aux = _mel_resnet(params["upsample"]["resnet"], pad_mel(mel, cfg.pad))
+    if aux_pre is None:
+        aux = _mel_resnet(params["upsample"]["resnet"], pad_mel(mel, cfg.pad))
+    else:
+        aux = aux_pre
     aux = aux.transpose(1, 2)                         # (1, F, res_out)
     melT = mel.transpose(1, 2)                        # (1, F, feat)
     if not batched:
@@ -312,6 +325,26 @@ def _finish(samples: torch.Tensor, overlap: int, wave_len: int, hop: int,
     return out
 
 
+def _pcm16(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] float -> int16 PCM (round, clip to +-32767)."""
+    return torch.clamp(torch.round(x * 32767.0), -32767, 32767).to(
+        torch.int16)
+
+
+def _finish_many(samples: torch.Tensor, counts: tuple, wave_lens: tuple,
+                 overlap: int, hop: int) -> torch.Tensor:
+    """Batch serving's finish: per utterance (``counts[u]`` fold rows of
+    ``samples``) crossfade-unfold, trim to ``wave_lens[u]`` and the 20-hop
+    fade, then all utterances back to back as ONE flat int16 PCM array.
+    As the JAX ``_finish_many``, no mu-law expand (``_finish`` has one)."""
+    outs, row = [], 0
+    for n_folds, wl in zip(counts, wave_lens):
+        outs.append(_finish(samples[row:row + n_folds], overlap, wl, hop,
+                            True, False, 0))
+        row += n_folds
+    return _pcm16(torch.cat(outs))
+
+
 def _generate_program(params: Params, mel: torch.Tensor,
                       generator: torch.Generator | None, cfg: WaveRNNConfig,
                       target: int, overlap: int, batched: bool, mu_law: bool,
@@ -337,10 +370,12 @@ def generate(params: Params, mel, cfg: WaveRNNConfig = WaveRNNConfig(),
              generator: torch.Generator | None = None,
              batched: bool | None = None, target: int | None = None,
              overlap: int | None = None, mu_law: bool | None = None,
-             fast_math: bool = True, device=None) -> np.ndarray:
+             fast_math: bool = True, device=None, packed=None) -> np.ndarray:
     """Waveform (float32, length (F - 1) * hop_length) from a (1, feat, F)
     or (feat, F) mel.  Runs on the GPU unless ``device="cpu"``; ``params``
-    must live on that device."""
+    must live on that device.  ``packed``: the loop's weights at
+    ``fast_math`` (``wavernn_kernels.pack_weights``; built per call when
+    None)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         PREC.exact_f32()
@@ -359,5 +394,117 @@ def generate(params: Params, mel, cfg: WaveRNNConfig = WaveRNNConfig(),
     elif target is None:
         target = g.target
     out = _generate_program(params, mel, generator, cfg, target, overlap,
-                            batched, mu_law, fast_math)
+                            batched, mu_law, fast_math, packed)
     return out.cpu().numpy().astype(np.float32)
+
+
+# Fold rows a sampling pass of batch serving takes at most: the JAX
+# package's default slab, kept so that the slab geometry (and with it the
+# noise drawn for each slab) is the JAX one; not a measurement of this
+# port.
+_MAX_SLAB_ROWS = 64
+
+
+def _generate_many_program(params: Params, mels: tuple,
+                           generator: torch.Generator | None,
+                           cfg: WaveRNNConfig, target: int, overlap: int,
+                           fast_math: bool, slab_rows: int | None = None,
+                           packed=None) -> torch.Tensor:
+    """Batch serving's vocoder pass (``wavernn.py:921-1003``): one
+    MelResNet pass over every utterance (padded to the longest mel; valid
+    convs and eval-mode BatchNorm make it exact per utterance), each
+    utterance's frame-rate fold rows, the union of all folds padded to
+    ``n_slabs x SLAB`` rows, one sampling pass a slab (the noise drawn slab
+    by slab from ``generator``), then :func:`_finish_many`: the flat int16
+    PCM of every utterance."""
+    aux_all = None
+    if len(mels) > 1:
+        Fmax = max(int(m.shape[-1]) for m in mels)
+        stacked = torch.cat([F.pad(m, (0, Fmax - m.shape[-1]))
+                             for m in mels], dim=0)
+        aux_all = _mel_resnet(params["upsample"]["resnet"],
+                              pad_mel(stacked, cfg.pad))
+    conds, auxs, counts, wave_lens = [], [], [], []
+    for u, mel in enumerate(mels):
+        wave_lens.append((int(mel.shape[-1]) - 1) * cfg.hop_length)
+        aux_pre = (None if aux_all is None
+                   else aux_all[u:u + 1, :, :mel.shape[-1]])
+        cond, aux = _prepare_frame_conditioning(
+            params, mel, cfg, target, overlap, True, aux_pre)
+        conds.append(cond)
+        auxs.append(aux)
+        counts.append(int(cond.shape[0]))
+    cond = torch.cat(conds, dim=0)
+    aux = torch.cat(auxs, dim=0)
+    total_folds = int(cond.shape[0])
+
+    slab_rows = _MAX_SLAB_ROWS if slab_rows is None else slab_rows
+    if not (slab_rows > 0 and slab_rows % 8 == 0):
+        raise ValueError(f"slab_rows must be a positive multiple of 8, "
+                         f"got {slab_rows}")
+    SLAB = min(slab_rows, _row_bucket(total_folds))
+    n_slabs = max(1, -(-total_folds // SLAB))
+    padded = n_slabs * SLAB
+    if padded != total_folds:
+        cond = F.pad(cond, (0, 0, 0, 0, 0, padded - total_folds))
+        aux = F.pad(aux, (0, 0, 0, 0, 0, padded - total_folds))
+    slab_outs = [WK.generate_rows(params, cond[s * SLAB:(s + 1) * SLAB],
+                                  aux[s * SLAB:(s + 1) * SLAB], cfg,
+                                  fast_math, generator, packed)
+                 for s in range(n_slabs)]
+    samples = torch.cat(slab_outs, dim=0)[:total_folds]
+    return _finish_many(samples, tuple(counts), tuple(wave_lens), overlap,
+                        cfg.hop_length)
+
+
+def generate_many(params: Params, mels, cfg: WaveRNNConfig = WaveRNNConfig(),
+                  generator: torch.Generator | None = None,
+                  target: int | None = None, overlap: int | None = None,
+                  fast_math: bool = True, block: bool = True,
+                  slab_rows: int | None = None, device=None, packed=None):
+    """Vocode several utterances in one sampling loop over the union of
+    their folds (the JAX ``generate_many``, with ``generator`` in place of
+    ``key``; its ``unroll``, ``backend`` and ``interpret`` have no
+    counterpart: the port has one sampling path).
+
+    ``mels``: (feat, F) or (1, feat, F) arrays or tensors.  ``slab_rows``:
+    fold rows a sampling pass (default ``_MAX_SLAB_ROWS``); ``packed`` as
+    for :func:`generate`.  Runs on the GPU unless ``device="cpu"``;
+    ``params`` live there.  Returns the float32 waveforms (length (F_i -
+    1) * hop_length each), or with ``block=False`` a collector that returns
+    them: the int16 copy to pinned host memory is then started behind a
+    CUDA event (on the CPU it is immediate), so that the caller can
+    dispatch the next batch before collecting this one."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        PREC.exact_f32()
+    g = cfg.generate
+    overlap = g.overlap if overlap is None else overlap
+    mels = tuple(
+        (m if isinstance(m, torch.Tensor)
+         else torch.from_numpy(np.asarray(m, np.float32))).to(
+            dev, torch.float32).reshape(1, m.shape[-2], m.shape[-1])
+        for m in mels)
+    wave_lens = [(int(m.shape[-1]) - 1) * cfg.hop_length for m in mels]
+    if target == "auto" or (target is None and g.auto_target):
+        target = auto_fold_target(sum(wave_lens), overlap, cfg)
+    elif target is None:
+        target = g.target
+    flat = _generate_many_program(params, mels, generator, cfg, target,
+                                  overlap, fast_math, slab_rows, packed)
+    if dev.type == "cuda":
+        host = torch.empty(flat.shape, dtype=torch.int16, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(dev))
+    else:
+        host, copied = flat, None
+
+    def collect():
+        if copied is not None:
+            copied.synchronize()
+        pcm = host.numpy().astype(np.float32) / 32767.0
+        offsets = np.cumsum([0] + wave_lens)
+        return [pcm[a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+
+    return collect() if block else collect

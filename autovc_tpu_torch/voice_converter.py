@@ -1,14 +1,24 @@
 """VoiceConverter (counterpart of ``autovc_tpu/voice_converter.py``):
-``__init__``, ``_embed``, ``_speaker_embedding``, ``convert`` on its
-``cut=True`` path, ``learn_speakers``, ``train`` (the AutoVC generator,
-the GE2E speaker encoder and the vocoder), ``setup_logging`` and ``save``.
+``__init__``, ``_embed``, ``_embed_many``, ``_speaker_embedding``,
+``convert`` (``cut=True`` and ``cut=False``, ``pad_to_seconds``),
+``convert_batch``, ``convert_multiple``, ``learn_speakers``, ``train``
+(the AutoVC generator, the GE2E speaker encoder and the vocoder),
+``setup_logging`` and ``save``.  Not ported yet: ``convert``'s
+``parallel=`` / ``mesh=``, ``convert_batch(parallel="pipeline")`` (both
+multi-device), ``close`` and the ``setup_wandb`` alias.
 
 ``convert`` runs the JAX package's fused accelerator chain
 (``_fused_convert``): host preprocessing and slice geometry, then on the
 device PCM16 wav -> AE mel chunks -> AutoVC generator with the overlap-add
 merge -> WaveRNN generation -> PCM16 waveform, with only the wav going up
-and the waveform coming back.  The kernels' packed weights (decoder lstm2,
-the vocoder loop) are built once, at construction.
+and the waveform coming back.  ``cut=False`` converts the host mel of the
+whole utterance in one generator pass (``autoencoder.infer``) and vocodes
+it with ``wavernn.generate``.  ``convert_batch`` is batch serving: every
+source's chunks through the slab-planned generator
+(``autoencoder.batch_forward_packed``), every utterance's folds through
+one sampling loop (``wavernn.generate_many``).  The kernels' packed
+weights (decoder lstm2, the vocoder loop) are built once, at
+construction.
 
 Each stage of ``convert`` is a ``torch.profiler`` range named
 ``convert/<stage>``.  Setting ``stage_times`` to a dict makes ``convert``
@@ -20,6 +30,8 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
+from itertools import product
 from typing import Any, Dict
 
 import numpy as np
@@ -131,6 +143,18 @@ class VoiceConverter:
         return SEm.embed_utterances(self.SE.params, [wav], self.SE.config,
                                     self.device)[0]
 
+    def _embed_many(self, audios) -> torch.Tensor:
+        """d-vectors of several utterances in one forward, as one (n, emb)
+        tensor on the converter's device (``embed_utterances(...,
+        block=False)``): the speaker encoder -> generator chain of batch
+        serving never reads back."""
+        from autovc_tpu_torch.models import speaker_encoder as SEm
+        se_sr = self.SE.config.spectrogram.sr
+        wavs = [a.wav if a.sr == se_sr else io.resample(a.wav, a.sr, se_sr)
+                for a in audios]
+        return SEm.embed_utterances(self.SE.params, wavs, self.SE.config,
+                                    self.device, block=False)
+
     def _speaker_embedding(self, target, preprocess, preprocess_args,
                            sr) -> np.ndarray:
         """Registry lookup by name, else embed the utterance (path or
@@ -192,10 +216,38 @@ class VoiceConverter:
                     self.vocoder.params, post[None], gen, wr_cfg, target,
                     g.overlap, g.batched, mu_law,
                     self.vocoder_precision == "bf16", self._vocoder_packed)
-                pcm = torch.clamp(torch.round(out * 32767.0), -32767,
-                                  32767).to(torch.int16)
+                pcm = WRm._pcm16(out)
             with self._stage("download"):
                 return pcm.cpu().numpy().astype(np.float32) / 32767.0
+
+    def _unchunked_convert(self, wav, c_source, c_target, ae_cfg, seed,
+                           ae_params, lstm2_packed) -> np.ndarray:
+        """``cut=False`` (``voice_converter.py:400-404``): the host mel of
+        the whole utterance, one eval-mode generator pass over it
+        (``autoencoder.infer``: lstm2 at one row over every frame), then
+        ``wavernn.generate`` with the converter's packed loop weights."""
+        from autovc_tpu_torch.models import autoencoder as AEm
+        from autovc_tpu_torch.models import wavernn as WRm
+
+        dev = self.device
+        with torch.inference_mode():
+            with self._stage("mel"):
+                mel = dsp.mel_spec_auto_encoder(wav, ae_cfg.spectrogram)
+                mel = torch.from_numpy(np.asarray(mel, np.float32)).to(dev)
+            with self._stage("autoencoder"):
+                post = AEm.infer(
+                    ae_params, mel[None],
+                    torch.as_tensor(np.asarray(c_source, np.float32),
+                                    device=dev),
+                    torch.as_tensor(np.asarray(c_target, np.float32),
+                                    device=dev),
+                    ae_cfg, self.ae_precision, lstm2_packed)
+            with self._stage("vocoder"):
+                return WRm.generate(
+                    self.vocoder.params, post, self.vocoder.config,
+                    torch.Generator(device=dev).manual_seed(seed),
+                    fast_math=self.vocoder_precision == "bf16", device=dev,
+                    packed=self._vocoder_packed)
 
     def convert(self, source, target, sr: int | None = None,
                 save_name=None, save_dir=None,
@@ -203,7 +255,7 @@ class VoiceConverter:
                 outprocess=None, outprocess_args=None,
                 cut: bool = True, overlap: float = 0.5,
                 audio_log_dict: Dict[str, Any] | None = None, seed: int = 0,
-                use_ema: bool = False,
+                use_ema: bool = False, pad_to_seconds: float | None = None,
                 partial_frames: int | None = None) -> Audio:
         """Convert the content of ``source`` into the voice of ``target``.
 
@@ -211,10 +263,12 @@ class VoiceConverter:
         may also be a learned mean-speaker name.  ``save_name=False`` skips
         saving; ``save_dir="wandb"`` logs the audio (and ``audio_log_dict``)
         through the logger of :meth:`setup_logging` and writes no file.
-        Only the ``cut=True`` path (overlapping mel chunks) is ported.
+        ``cut=False`` converts the unchunked mel in one pass.
+        ``pad_to_seconds=s`` zero-pads the preprocessed source up to a
+        multiple of ``s`` seconds before embedding and converting, and
+        trims the waveform to the span of the unpadded wav's slices.  The
+        JAX ``parallel`` / ``mesh`` / ``fuse_dispatch`` are not ported.
         Returns the converted :class:`Audio`."""
-        if not cut:
-            raise NotImplementedError("only convert(cut=True) is ported")
         cc = self.config.convert
         sr = sr or cc.sr
         preprocess = cc.preprocess if preprocess is None else preprocess
@@ -231,6 +285,12 @@ class VoiceConverter:
             audio_src = (Audio(source, sr) if isinstance(source, str)
                          else source)
             audio_src.preprocess(*preprocess, **preprocess_args)
+        true_samples = len(audio_src.wav)
+        if pad_to_seconds:
+            bucket = int(round(pad_to_seconds * audio_src.sr))
+            pad = (-len(audio_src.wav)) % bucket
+            if pad:
+                audio_src.wav = np.pad(audio_src.wav, (0, pad))
         with self._stage("embed_source"):
             c_source = self._embed(audio_src)[None]
         with self._stage("embed_target"):
@@ -246,9 +306,24 @@ class VoiceConverter:
             ae_cfg = ae_cfg.with_overrides(
                 spectrogram={"partial_utterance_n_frames": partial_frames})
         mel_cfg = ae_cfg.spectrogram
-        waveform = self._fused_convert(
-            audio_src.wav, c_source, c_target, ae_cfg, overlap, seed,
-            self._ae_params(use_ema), None if use_ema else self._lstm2_packed)
+        ae_params = self._ae_params(use_ema)
+        lstm2_packed = None if use_ema else self._lstm2_packed
+        if cut:
+            waveform = self._fused_convert(
+                audio_src.wav, c_source, c_target, ae_cfg, overlap, seed,
+                ae_params, lstm2_packed)
+        else:
+            waveform = self._unchunked_convert(
+                audio_src.wav, c_source, c_target, ae_cfg, seed, ae_params,
+                lstm2_packed)
+        if pad_to_seconds:
+            # keep exactly the span the unpadded slice set gives
+            _, true_slices = dsp.compute_partial_slices(
+                true_samples, mel_cfg.sr,
+                partial_utterance_n_frames=mel_cfg.partial_utterance_n_frames,
+                overlap=overlap, mel_window_step=mel_cfg.mel_window_step)
+            waveform = waveform[:(true_slices[-1].stop - 1)
+                                * mel_cfg.hop_length]
 
         with self._stage("outprocess"):
             audio_out = Audio(waveform, sr=sr, sr_org=mel_cfg.sr)
@@ -285,6 +360,123 @@ class VoiceConverter:
         if self.verbose:
             print(f"  saved '{out_path}'")
         return audio_out
+
+    def convert_batch(self, sources, target, sr: int | None = None,
+                      preprocess=None, preprocess_args=None,
+                      outprocess=None, outprocess_args=None,
+                      overlap: float = 0.5, seed: int = 0,
+                      save_dir=None, use_ema: bool = False,
+                      parallel: str | None = None, devices=None):
+        """Batch serving: many sources (wav paths or directories) into one
+        target voice, each stage one pass over every utterance.
+
+        Host preprocessing runs in a thread pool; then, on the calling
+        thread, each source's PCM16 mel chunks on the device, one speaker
+        encoder forward for all sources, every chunk through the
+        slab-planned generator merged into one packed timeline, and every
+        utterance's folds through one sampling loop; the outprocessing and
+        the files (``{name}_to_{trg}.wav`` directly in ``save_dir``, as the
+        JAX package writes them) in a thread pool again.  Returns a list of
+        converted :class:`Audio`.  ``parallel="pipeline"`` (with
+        ``devices``), the two-stage multi-device server, is not ported."""
+        from autovc_tpu_torch.models import autoencoder as AEm
+        from autovc_tpu_torch.models import wavernn as WRm
+        from autovc_tpu_torch.ops import melspec as MEL
+
+        if parallel == "pipeline":
+            raise NotImplementedError(
+                "convert_batch(parallel='pipeline') is not ported (ROADMAP, "
+                "Queue 1, item 9: multi-device)")
+        if parallel is not None:
+            raise ValueError(f"parallel must be None or 'pipeline', "
+                             f"got {parallel!r}")
+        cc = self.config.convert
+        sr = sr or cc.sr
+        preprocess = cc.preprocess if preprocess is None else preprocess
+        preprocess_args = dict(cc.preprocess_args if preprocess_args is None
+                               else preprocess_args)
+        outprocess = cc.outprocess if outprocess is None else outprocess
+        outprocess_args = dict(cc.outprocess_args if outprocess_args is None
+                               else outprocess_args)
+        sources = retrieve_file_paths(sources)
+        c_target = self._speaker_embedding(target, preprocess,
+                                           preprocess_args, sr)[None]
+        ae_cfg = self.AE.config
+
+        def load(src):
+            audio = Audio(src, sr)
+            audio.preprocess(*preprocess, **preprocess_args)
+            return audio
+
+        workers = min(8, len(sources) or 1)
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            audios = list(ex.map(load, sources))
+        with torch.inference_mode():
+            all_chunks = [MEL.mel_spec_auto_encoder_sliced(
+                a.wav, ae_cfg.spectrogram, overlap=overlap, pcm16=True,
+                device=self.device)[0] for a in audios]
+            c_orgs = self._embed_many(audios)
+            packed, starts, lengths = AEm.batch_forward_packed(
+                self._ae_params(use_ema), all_chunks, c_orgs, c_target,
+                ae_cfg, overlap, self.ae_precision,
+                lstm2_packed=None if use_ema else self._lstm2_packed)
+            post_mels = [packed[:, s:s + L] for s, L in zip(starts, lengths)]
+            wavs = WRm.generate_many(
+                self.vocoder.params, post_mels, self.vocoder.config,
+                torch.Generator(device=self.device).manual_seed(seed),
+                fast_math=self.vocoder_precision == "bf16",
+                device=self.device, packed=self._vocoder_packed)
+
+        trg = os.path.splitext(os.path.basename(str(target)))[0]
+
+        def finish(src_wav):
+            src, wav = src_wav
+            audio_out = Audio(wav, sr=sr, sr_org=ae_cfg.spectrogram.sr)
+            audio_out.preprocess(*outprocess, **outprocess_args)
+            if save_dir is not None:
+                os.makedirs(save_dir, exist_ok=True)
+                name = os.path.splitext(os.path.basename(src))[0]
+                audio_out.save(os.path.join(save_dir, f"{name}_to_{trg}.wav"))
+            return audio_out
+
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            return list(ex.map(finish, zip(sources, wavs)))
+
+    def convert_multiple(self, sources, targets,
+                         match_method: str = "all_combinations",
+                         bidirectional: bool = False, **convert_params):
+        """One :meth:`convert` per (source, target) pair:
+        ``"all_combinations"`` crosses every source with every target,
+        ``"align"`` zips them; ``bidirectional`` also converts each target
+        into each source.  A target may be a learned mean-speaker name (not
+        with ``bidirectional``)."""
+        sources = retrieve_file_paths(sources)
+        target_args = [targets] if isinstance(targets, str) else list(targets)
+        resolved = []
+        for t in target_args:
+            if t in self.speakers:
+                if bidirectional:
+                    raise ValueError("bidirectional conversion cannot source "
+                                     "from a mean speaker embedding")
+                resolved.append(t)
+            else:
+                resolved.extend(retrieve_file_paths(t))
+        if match_method == "align":
+            if len(sources) != len(resolved):
+                raise ValueError(f"match_method='align' needs as many "
+                                 f"sources as targets, got {len(sources)} "
+                                 f"and {len(resolved)}")
+            matches = list(zip(sources, resolved))
+        elif match_method == "all_combinations":
+            matches = list(product(sources, resolved))
+        else:
+            raise ValueError(f"unknown match_method {match_method!r}")
+        audio_objects = [self.convert(s, t, **convert_params)
+                         for s, t in matches]
+        if bidirectional:
+            audio_objects.extend(self.convert_multiple(
+                resolved, sources, match_method, **convert_params))
+        return audio_objects
 
     def learn_speakers(self, mean_speaker_path,
                        mean_speaker_path_excluded=()):

@@ -26,7 +26,12 @@ Phases (any failure exits non-zero):
      JAX bench's (bf16, 32 x 1375) (both layer-skewed: kernel 4's launch
      plan and time per round, kernel 5's launch plan, its recurrence and
      dW times apart, its time per round; kernel 5 runs on kernel 4's
-     saved state);
+     saved state); for batch serving, kernel 3 at lstm2 and lstm1 at every
+     slab of the ladder above 8 rows (16-256; 128 and 256 rows run 2 and
+     4 row groups), kernel 1 at its 64-row slab (f32 pinned, and bf16 over
+     a whole fold), kernel 2 at one row over the 24 s wav's unchunked mel
+     (f32 and bf16), and the ``ae_slab_ms`` line: ``convert_slab``'s wall
+     at each slab size, the source of ``autoencoder._SLAB_MS``;
   4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
      seeded weights) converts a ~4 s wav (decoder lstm2 through kernel 2
      at 1 row), a ~10 s wav (3 mel chunks: kernel 2 at 3 rows, for lstm1
@@ -34,6 +39,17 @@ Phases (any failure exits non-zero):
      kernel's launch count read around each conversion; then converts each
      again under ``torch.profiler`` (the device's idle share) and with its
      stages timed (where the wall time goes);
+  8. end to end, batch serving (run after 4): ``convert_batch`` of
+     serve-8 (8 wavs of 2-24 s) and serve-24 (24 wavs of 10 s), bf16, each
+     the median wall of 3 serves after a warm-up and its audio-s/s beside
+     the summed wall of ``convert`` on the same wavs one by one, the slab
+     plans, the kernels' launches under ``torch.profiler`` (kernels 1 and
+     3 must launch) and the device idle share; every output finite and as
+     long as ``convert``'s; in f32 with row-invariant pinned noise each
+     utterance of ``convert_batch`` equal to ``convert`` of its wav
+     (max |err| < 1e-3); ``convert(cut=False)`` of the 10 s (timed) and
+     24 s wavs and ``pad_to_seconds`` 5 and 3 on the 10 s one, each of its
+     expected length;
   5. end to end, training: ``VoiceConverter().train`` of the AutoVC
      generator on synthetic wavs, bf16, batch 16 x 400 frames, at least 8
      steps (kernels 6 and 7 twice a step each), with the loss falling;
@@ -666,10 +682,11 @@ def compare_wavernn_bf16(cfg, params, rows: int, fpf: int, gen,
 def compare_wavernn(gen, dev) -> dict:
     """Kernel 1 against the plain loop, at rd = fc = 512, MOL:
       * f32, 8 rows x 4 frames, drawn noise: atol 1e-3;
-      * f32, 48 rows x 4 frames, pinned noise: atol 1e-3;
+      * f32, 48 and 64 rows x 4 frames, pinned noise: atol 1e-3;
       * bf16 (the main path's tensor-core products) at the main path's
         row buckets, 16 (the 4 s wav's 10 folds) and 48 (the 24 s wav's
-        48), on a full 11000 + 2 * 550 fold (44 frames, 12100 steps):
+        48), and at batch serving's 64-row slab, on a full 11000 + 2 *
+        550 fold (44 frames, 12100 steps):
         - drawn noise, the first 8 steps: atol 1e-2 (later, a pick that
           one side flips decorrelates the streams); all steps finite, in
           [-1, 1], mean and std within 0.1 and 0.15 of the f32 kernel's
@@ -685,21 +702,23 @@ def compare_wavernn(gen, dev) -> dict:
           the GRU state rounded to bf16 gives ~1.25, a misplaced bias far
           more.
     Logs kernel 1's plan (``WK.device_plan`` of the timed launches) and
-    its us a step at 16 and 48 rows.  Returns the 16-row bf16 full-fold
-    comparison, with its kernel time."""
+    its us a step at 16, 48 and 64 rows.  Returns the 16-row bf16
+    full-fold comparison, with its kernel time."""
     cfg = WaveRNNConfig()
     params = from_jax_params(WR.init(gen, cfg), dev)
-    for rows, pinned in ((8, False), (48, True)):
+    for rows, pinned in ((8, False), (48, True), (WR._MAX_SLAB_ROWS, True)):
         compare_wavernn_f32(cfg, params, rows, pinned, gen, dev)
     fpf = (11000 + 2 * 550) // cfg.total_scale
+    bf16_rows = (16, 48, WR._MAX_SLAB_ROWS)
     res = {rows: compare_wavernn_bf16(cfg, params, rows, fpf, gen, dev)
-           for rows in (16, 48)}
+           for rows in bf16_rows}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     log({"phase": "wavernn_sample plan", "sms": sms, **{
         f"{rows}_rows": dict(res[rows]["plan"],
                              us_per_step=res[rows]["us_per_step"],
-                             ms=res[rows]["ms"])
-        for rows in (16, 48)}})
+                             ms=res[rows]["ms"],
+                             us_per_row_step=res[rows]["us_per_step"] / rows)
+        for rows in bf16_rows}})
     return res[16]
 
 
@@ -819,6 +838,288 @@ def phase_end_to_end(card: str) -> dict:
             if counts[name] < 1:
                 raise AssertionError(f"the {seconds} s conversion did not "
                                      f"launch {name}")
+    return launches
+
+
+def ae_slab_ms(gen, dev, card: str, reps: int = 5) -> dict:
+    """``convert_slab`` wall (host clock to a device synchronise, median of
+    ``reps`` after a warm-up) at each slab size of the ladder: bf16, T =
+    400, full width, fresh seeded weights.  The source of
+    ``autoencoder._SLAB_MS``; kernel 3's row groups of lstm2 beside it."""
+    cfg = AutoEncoderConfig()
+    params = from_jax_params(AE.init(gen, cfg), dev)
+    packed = LK.pack(params["decoder"]["lstm2"], "bf16")
+    ms, groups = {}, {}
+    with torch.inference_mode():
+        for S in AE._SLAB_LADDER:
+            chunks = torch.rand(S, cfg.n_mels, 400, generator=gen).to(dev)
+            c = torch.nn.functional.normalize(
+                torch.randn(2 * S, cfg.dim_emb, generator=gen), dim=1).to(dev)
+
+            def run():
+                AE.convert_slab(params, chunks, c[:S], c[S:], cfg, "bf16",
+                                packed)
+                torch.cuda.synchronize()
+
+            run()
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                run()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            ms[S] = statistics.median(walls)
+            groups[S] = (LK.device_plan(S, 1024, 2, True, dev).groups
+                         if S > LK.LATENCY_MAX_ROWS else 0)
+    res = {"phase": "ae_slab_ms", "precision": "bf16", "T": 400,
+           "ms": ms, "us_per_row": {S: ms[S] * 1e3 / S for S in ms},
+           "lstm2_kernel3_groups": groups, "card": card}
+    log(res)
+    return res
+
+
+# Batch serving's two workloads (source wav seconds): eight mixed
+# lengths, and 24 wavs of 10 s (3 chunks each: 72 generator rows).
+SERVES = {"serve-8": (2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 16.0, 24.0),
+          "serve-24": (10.0,) * 24}
+SERVE_TAGS = {"wavernn_sample": "wr_kernel",
+              "lstm_stack_skewed": "lstm_small_kernel",
+              "lstm_stack_stream": "lstm_fwd_kernel"}
+
+
+def chunk_count(n_samples: int, mel_cfg) -> int:
+    """Mel chunks of a cut=True conversion of ``n_samples``."""
+    return len(dsp.compute_partial_slices(
+        n_samples, mel_cfg.sr,
+        partial_utterance_n_frames=mel_cfg.partial_utterance_n_frames,
+        mel_window_step=mel_cfg.mel_window_step)[1])
+
+
+def expected_frames(n_samples: int, mel_cfg) -> int:
+    """Merged mel frames of a cut=True conversion of ``n_samples``."""
+    N = mel_cfg.partial_utterance_n_frames
+    return N + (chunk_count(n_samples, mel_cfg) - 1) * (N // 2)
+
+
+def expected_samples(n_samples: int, mel_cfg) -> int:
+    """Waveform length of a cut=True conversion of ``n_samples``."""
+    return (expected_frames(n_samples, mel_cfg) - 1) * mel_cfg.hop_length
+
+
+def write_wavs(tmp: str, name: str, seconds, sr: int) -> list[str]:
+    paths = []
+    for k, sec in enumerate(seconds):
+        paths.append(os.path.join(tmp, f"{name}_{k:02d}.wav"))
+        audio_io.save_wav(paths[-1], synthetic_wav(sec, sr, 200 + k), sr)
+    return paths
+
+
+def serve_workload(vc, name: str, paths, target, card: str) -> dict:
+    """One workload through ``convert_batch`` (bf16): a profiled warm-up,
+    three timed serves (the first with the launch counts read around it), one
+    under ``torch.profiler`` (device idle share, launches by kernel name),
+    then ``convert`` of each wav one by one.  Fails unless kernels 1 and 3
+    launched, every output is finite and as long as ``convert``'s."""
+    sr = 22050
+    mel_cfg = vc.AE.config.spectrogram
+    wr_cfg = vc.vocoder.config
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def serve():
+        return vc.convert_batch(paths, Audio(target.copy(), sr_org=sr))
+
+    # warm-up (allocator, cuDNN plans, the profiler's start-up): not
+    # timed, not counted
+    with torch.profiler.profile(activities=acts):
+        serve()
+    walls = []
+    for i in range(3):
+        if i == 0:
+            for spec in KERNELS.values():
+                spec["kernel"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = serve()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = {k: KERNELS[k]["kernel"].launches
+                      for k in CONVERT_KERNELS}
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        serve()
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = device_busy(prof)
+    by_tag = kernel_launch_ms(prof, tuple(SERVE_TAGS.values()))
+    prof_launches = {k: len(by_tag.get(tag, []))
+                     for k, tag in SERVE_TAGS.items()}
+    one_walls, singles = [], []
+    for p in paths:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles.append(vc.convert(p, Audio(target.copy(), sr_org=sr),
+                                  save_name=False))
+        torch.cuda.synchronize()
+        one_walls.append(time.perf_counter() - t0)
+
+    lens = [len(audio_io.load_wav(p)[0]) for p in paths]
+    expected = [expected_samples(n, mel_cfg) for n in lens]
+    chunks = [chunk_count(n, mel_cfg) for n in lens]
+    S = wr_cfg.total_scale
+    folds = sum(WR._fold_count(expected_frames(n, mel_cfg),
+                               wr_cfg.generate.target // S,
+                               wr_cfg.generate.overlap // S) for n in lens)
+    slab = min(WR._MAX_SLAB_ROWS, WR._row_bucket(folds))
+    audio_s = sum(len(o.wav) for o in outs) / sr
+    wall = statistics.median(walls)
+    res = {"phase": "batch_serving", "workload": name,
+           "seconds_in": [round(n / sr, 3) for n in lens],
+           "audio_s": audio_s, "wall_s": walls, "median_wall_s": wall,
+           "audio_s_per_s": audio_s / wall,
+           "one_by_one_wall_s": sum(one_walls),
+           "one_by_one_audio_s_per_s": audio_s / sum(one_walls),
+           "ae_rows": sum(chunks), "ae_slab_plan": AE._slab_plan(sum(chunks)),
+           "vocoder_folds": folds, "vocoder_slab_rows": slab,
+           "vocoder_slabs": -(-folds // slab),
+           "launches": counts, "profiler_launches": prof_launches,
+           "profiled_wall_ms": prof_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / prof_ms,
+           "device_ms_by_kernel": top, "card": card}
+    log(res)
+    for k in ("wavernn_sample", "lstm_stack_stream"):
+        if prof_launches[k] < 1 or counts[k] < 1:
+            raise AssertionError(f"{name} did not launch {k}: {res}")
+    for o, one, e in zip(outs, singles, expected):
+        if not np.all(np.isfinite(o.wav)):
+            raise AssertionError(f"{name}: non-finite output")
+        if not len(o.wav) == len(one.wav) == e:
+            raise AssertionError(f"{name}: output length {len(o.wav)}, "
+                                 f"convert's {len(one.wav)}, expected {e}")
+    return counts
+
+
+def batch_f32_hold(tmp: str, target, card: str, bar: float = 1e-3) -> dict:
+    """f32 generator and vocoder, row-invariant pinned noise: each
+    utterance of ``convert_batch`` over three wavs of 1-3 s equals
+    ``convert`` of the same wav, max |err| < ``bar`` (both through int16
+    PCM; no outprocess).  A fold at a wrong slab offset or an utterance cut
+    at a wrong fold changes whole folds."""
+    sr = 22050
+    vc = VoiceConverter(verbose=False, ae_precision="f32",
+                        vocoder_precision="f32")
+    paths = write_wavs(tmp, "hold", (1.0, 2.0, 3.0), sr)
+    draw = WK.draw_noise
+
+    def pinned(steps, rows, pick_dim, generator, device):
+        # the same sequence on every row and in every call, one Gumbel
+        # lane a step raised by 1e3 (as phase 3's pinned holds): a fold's
+        # samples depend on its conditioning alone, wherever it sits in a
+        # slab, and no pick hangs on the logits' last bits
+        g = torch.Generator().manual_seed(11)
+        gumbel, logistic = draw(steps, 1, pick_dim, g, "cpu")
+        lane = torch.randint(0, pick_dim, (steps, 1, 1), generator=g)
+        gumbel = gumbel.scatter(-1, lane, 1e3)
+        return (gumbel.expand(steps, rows, pick_dim).contiguous().to(device),
+                logistic.expand(steps, rows).contiguous().to(device))
+
+    WK.draw_noise = pinned
+    try:
+        outs = vc.convert_batch(paths, Audio(target.copy(), sr_org=sr),
+                                outprocess=())
+        singles = [vc.convert(p, Audio(target.copy(), sr_org=sr),
+                              outprocess=(), save_name=False) for p in paths]
+    finally:
+        WK.draw_noise = draw
+    errs = []
+    for o, one in zip(outs, singles):
+        if o.wav.shape != one.wav.shape:
+            raise AssertionError(f"f32 hold: lengths {o.wav.shape} and "
+                                 f"{one.wav.shape}")
+        errs.append(float(np.max(np.abs(o.wav - one.wav))))
+    res = {"phase": "batch_serving f32 hold", "seconds_in": [1, 2, 3],
+           "max_abs_err": errs, "rms": [float(np.sqrt(np.mean(
+               o.wav.astype(np.float64) ** 2))) for o in outs],
+           "tolerance": f"max |err| < {bar}", "ok": max(errs) < bar,
+           "card": card}
+    log(res)
+    if not res["ok"]:
+        raise AssertionError(f"convert_batch disagrees with convert: {res}")
+    return res
+
+
+def unchunked_and_padded(vc, target, card: str) -> dict:
+    """``convert(cut=False)`` of the 10 s and 24 s wavs (lstm2 on kernel 2
+    at one row over every frame), the 10 s one timed after a 2 s warm-up;
+    ``pad_to_seconds`` 5 and 3 on the 10 s wav.  Each output finite and of
+    its expected length (cut=False: (mel frames - 1) x hop; padded:
+    ``convert``'s)."""
+    sr = 22050
+    mel_cfg = vc.AE.config.spectrogram
+    counts = {k: 0 for k in CONVERT_KERNELS}
+
+    def convert(wav, **kw):
+        for spec in KERNELS.values():
+            spec["kernel"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = vc.convert(Audio(wav.copy(), sr_org=sr),
+                         Audio(target.copy(), sr_org=sr), save_name=False,
+                         **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in CONVERT_KERNELS:
+            counts[k] += KERNELS[k]["kernel"].launches
+        return out, wall, {k: KERNELS[k]["kernel"].launches
+                           for k in CONVERT_KERNELS}
+
+    convert(synthetic_wav(2.0, sr, 2), cut=False)
+    res = {"phase": "convert paths", "card": card}
+    for sec in (10.0, 24.0):
+        wav = synthetic_wav(sec, sr, int(sec))
+        frames = dsp.mel_spec_auto_encoder(wav, mel_cfg).shape[-1]
+        out, wall, n = convert(wav, cut=False)
+        res[f"cut_false_{int(sec)}s"] = {
+            "mel_frames": frames, "samples_out": len(out.wav),
+            "wall_s": wall, "audio_s_per_s": len(out.wav) / sr / wall,
+            "launches": n}
+        if not np.all(np.isfinite(out.wav)) \
+                or len(out.wav) != (frames - 1) * mel_cfg.hop_length:
+            raise AssertionError(f"cut=False {sec} s: {res}")
+        if n["lstm_stack_skewed"] < 1 or n["wavernn_sample"] < 1:
+            raise AssertionError(f"cut=False {sec} s did not run kernels 1 "
+                                 f"and 2: {n}")
+    wav = synthetic_wav(10.0, sr, 10)
+    for pad in (5.0, 3.0):
+        out, wall, n = convert(wav, pad_to_seconds=pad)
+        res[f"pad_to_{pad:g}s"] = {"samples_out": len(out.wav),
+                                   "wall_s": wall}
+        if not np.all(np.isfinite(out.wav)) \
+                or len(out.wav) != expected_samples(len(wav), mel_cfg):
+            raise AssertionError(f"pad_to_seconds={pad}: {res}")
+    log(res)
+    return counts
+
+
+def phase_batch_serving(card: str) -> dict:
+    """Batch serving on ``VoiceConverter()`` (default config, fresh seeded
+    weights, bf16): serve-8 and serve-24 (:func:`serve_workload`), the f32
+    hold of ``convert_batch`` against ``convert``
+    (:func:`batch_f32_hold`), then ``cut=False`` and ``pad_to_seconds``
+    (:func:`unchunked_and_padded`).  Returns the kernels' launches."""
+    sr = 22050
+    vc = VoiceConverter(verbose=False)
+    target = synthetic_wav(3.0, sr, 99)
+    launches = {k: 0 for k in CONVERT_KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, seconds in SERVES.items():
+            counts = serve_workload(vc, name, write_wavs(tmp, name, seconds,
+                                                         sr), target, card)
+            for k in CONVERT_KERNELS:
+                launches[k] += counts[k]
+        batch_f32_hold(tmp, target, card)
+        for k, n in unchunked_and_padded(vc, target, card).items():
+            launches[k] += n
     return launches
 
 
@@ -1281,6 +1582,21 @@ def main() -> int:
     compare_lstm("lstm_stack_skewed", 8, torch.bfloat16, gen, dev)
     for geom in (SE_STACK, LSTM1):
         compare_lstm("lstm_stack_skewed", 8, torch.bfloat16, gen, dev, geom)
+    # batch serving: kernel 3 at every slab of the ladder above 8 rows
+    # (128 and 256 rows: several row groups), lstm2 and lstm1; kernel 2
+    # at one row over the 24 s wav's unchunked mel (cut=False); then the
+    # generator's wall at each slab size (the planner's cost table)
+    for rows in AE._SLAB_LADDER[1:]:
+        for geom in (LSTM2, LSTM1):
+            compare_lstm("lstm_stack_stream", rows, torch.bfloat16, gen, dev,
+                         geom)
+    long_T = dsp.mel_spec_auto_encoder(
+        synthetic_wav(24.0, 22050, 24),
+        AutoEncoderConfig().spectrogram).shape[-1]
+    for dt in (torch.float32, torch.bfloat16):
+        compare_lstm("lstm_stack_skewed", 1, dt, gen, dev,
+                     (2, 1024, 512, long_T))
+    ae_slab_ms(gen, dev, card)
     # kernels 6 and 7 at the training path's geometries: decoder lstm2 in
     # f32 and bf16, lstm1 (input 2 * 32 + 256), the speaker encoder's stack
     # (cotangent on h_fin only) and lstm2 at a ragged 33 rows (kernel 7's
@@ -1311,6 +1627,8 @@ def main() -> int:
     compare_gru_train(32, 5 * 275, torch.bfloat16, gen, dev)
     k1 = compare_wavernn(gen, dev)
     launches = phase_end_to_end(card)
+    for name, count in phase_batch_serving(card).items():
+        launches[name] += count
     launches.update(phase_train(card))
     phase_train_f32_vs_cpu(card)
     launches.update(phase_vocoder_train(card))

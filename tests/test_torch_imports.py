@@ -51,7 +51,8 @@ def test_port_imports_and_converts_without_jax():
         from autovc_tpu_torch import Audio, ConverterConfig, VoiceConverter
         cfg = ConverterConfig().with_overrides(vocoder={
             "rnn_dims": 32, "fc_dims": 32,
-            "generate": {"target": 1375, "overlap": 550}})
+            "generate": {"target": 1375, "overlap": 550}},
+            auto_encoder={"spectrogram": {"partial_utterance_n_frames": 64}})
         vc = VoiceConverter(config=cfg, device="cpu", verbose=False)
         t = np.arange(11025) / 22050
         wav = (0.3 * np.sin(2 * np.pi * 180 * t)).astype(np.float32)
@@ -60,6 +61,20 @@ def test_port_imports_and_converts_without_jax():
                          partial_frames=64)
         assert out.wav.shape == (63 * 275,), out.wav.shape
         assert np.all(np.isfinite(out.wav))
+        import os, tempfile
+        from autovc_tpu_torch.audio import io
+        with tempfile.TemporaryDirectory() as d:
+            os.mkdir(os.path.join(d, "src"))
+            for k in range(2):
+                io.save_wav(os.path.join(d, "src", f"s{k}.wav"), wav, 22050)
+            io.save_wav(os.path.join(d, "trg.wav"), wav, 22050)
+            outs = vc.convert_batch(os.path.join(d, "src"),
+                                    os.path.join(d, "trg.wav"),
+                                    save_dir=os.path.join(d, "out"))
+            assert sorted(os.listdir(os.path.join(d, "out"))) == [
+                "s0_to_trg.wav", "s1_to_trg.wav"]
+        assert [o.wav.shape for o in outs] == [(63 * 275,)] * 2
+        assert all(np.all(np.isfinite(o.wav)) for o in outs)
         bad = [m for m in sys.modules
                if m in ("jax", "jaxlib", "autovc_tpu")
                or m.startswith(("jax.", "jaxlib.", "autovc_tpu."))]
@@ -102,6 +117,8 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     params = load_model("vocoder", verbose=False, device="cpu").params
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TW.generate(params, np.zeros((80, 5), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TW.generate_many(params, [np.zeros((80, 5), np.float32)])
     with pytest.raises(RuntimeError):
         load_model("vocoder", verbose=False, device="cuda")
     from autovc_tpu_torch.models import speaker_encoder as TSE

@@ -568,3 +568,79 @@ def test_sampling_kernel_noise_from_l2(cuda_device):
     beside the rest, so stage A reads the noise (and fc3) from L2."""
     plan = _sampling_case(cuda_device, True, 512, 64, mode="RAW", bits=9)
     assert not plan.noise_smem and not plan.fc3_resident
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,groups", [(128, 2), (256, 4)])
+def test_lstm_stream_at_serving_slabs(cuda_device, rows, groups):
+    """Kernel 3 at batch serving's largest slabs, lstm2's width (2 x 1024,
+    input 512), bf16: 128 and 256 rows run 2 and 4 row groups one after
+    another; within 2e-2 of max |ref|."""
+    gen = torch.Generator().manual_seed(rows)
+    params = from_jax_params(R.init_lstm_stack(gen, 512, 1024, 2),
+                             cuda_device)
+    x = torch.randn(rows, 24, 512, generator=gen).to(cuda_device)
+    xp0 = LK.hoist_xp0(params[0], x, "bf16")
+    packed = LK.pack_stack(params, torch.bfloat16)
+    assert LK.device_plan(rows, 1024, 2, True, cuda_device).groups == groups
+    LK.STREAM.launches = 0
+    out = LK.launch(LK.STREAM, xp0, *packed)
+    assert LK.STREAM.launches == 1
+    _close(out, LK.lstm_stack_plain(xp0, *packed), lambda s: 2e-2 * s)
+
+
+@pytest.mark.cuda
+def test_sampling_kernel_f32_at_the_serving_slab(cuda_device):
+    """Kernel 1 in f32 at batch serving's 64-row slab, rnn_dims = fc_dims
+    = 512, pinned noise: atol 1e-3."""
+    _sampling_case(cuda_device, False, 512, WR._MAX_SLAB_ROWS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_stack_kernel_over_an_unchunked_utterance(cuda_device, dtype):
+    """Kernel 2 at lstm2 (2 x 1024, input 512), one row, over the 1925
+    frames of a 24 s wav's unchunked mel (``convert(cut=False)``): f32 at
+    atol 1e-4, bf16 within 2e-2 of max |ref|."""
+    _small_case(cuda_device, 2, 1, 1024, dtype, T=1925, I=512)
+
+
+@pytest.mark.cuda
+def test_convert_batch_on_the_card(cuda_device, tmp_path):
+    """``convert_batch`` of three wavs (4, 8 and 12 s: 9 chunks) at the
+    default config on the card: kernel 1 runs, and decoder lstm2 runs
+    kernel 3 on the plan's slabs above 8 rows (kernel 2 at 8); finite
+    waveforms as long as ``convert``'s."""
+    import numpy as np
+
+    from autovc_tpu_torch import Audio, VoiceConverter
+    from autovc_tpu_torch.audio import dsp, io
+    from autovc_tpu_torch.models import autoencoder as AE
+
+    sr = 22050
+    rng = np.random.default_rng(0)
+    paths = []
+    for k, sec in enumerate((4.0, 8.0, 12.0)):
+        t = np.arange(int(sec * sr)) / sr
+        wav = (0.2 * np.sin(2 * np.pi * (120 + 40 * k) * t)
+               + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+        paths.append(str(tmp_path / f"s{k}.wav"))
+        io.save_wav(paths[-1], wav, sr)
+    vc = VoiceConverter(verbose=False)
+    mel_cfg = vc.AE.config.spectrogram
+    rows = sum(len(dsp.compute_partial_slices(
+        int(sec * sr), sr,
+        partial_utterance_n_frames=mel_cfg.partial_utterance_n_frames,
+        mel_window_step=mel_cfg.mel_window_step)[1])
+        for sec in (4.0, 8.0, 12.0))
+    plan = AE._slab_plan(rows)
+    target = Audio(paths[0], sr)
+    WK.SAMPLE.launches = LK.STREAM.launches = LK.SKEWED.launches = 0
+    outs = vc.convert_batch(paths, target)
+    assert WK.SAMPLE.launches >= 1
+    assert (LK.STREAM.launches >= 1) == (max(plan) > 8), plan
+    assert (LK.SKEWED.launches >= 1) == (min(plan) == 8), plan
+    for p, out in zip(paths, outs):
+        one = vc.convert(p, target, save_name=False)
+        assert np.all(np.isfinite(out.wav))
+        assert out.wav.shape == one.wav.shape
