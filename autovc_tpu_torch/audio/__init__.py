@@ -9,6 +9,8 @@ from autovc_tpu_torch.audio import dsp, io, tools
 
 __all__ = ["Audio", "dsp", "io", "tools"]
 
+_VAD_SRS = np.array([8000, 16000, 32000, 48000])
+
 
 class Audio:
     def __init__(self, wav, sr: int | None = None, sr_org: int | None = None):
@@ -41,7 +43,11 @@ class Audio:
 
     def preprocess(self, *pipeline, **kwargs):
         """Apply named tools from :mod:`autovc_tpu_torch.audio.tools` in
-        order; shared kwargs are routed to every tool that accepts them."""
+        order; shared kwargs are routed to every tool that accepts them.
+        A pipeline with ``trim_long_silences`` first resamples to the
+        nearest VAD rate (8, 16, 32 or 48 kHz), as the JAX package does."""
+        if "trim_long_silences" in pipeline:
+            self.resample(int(_VAD_SRS[np.argmin(abs(_VAD_SRS - self.sr))]))
         for name in pipeline:
             if name is None:
                 continue

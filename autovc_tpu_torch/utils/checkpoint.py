@@ -8,7 +8,10 @@ they are read back as ``torch.bfloat16`` tensors (no ``ml_dtypes``).  Every
 other leaf comes back as a numpy array; :func:`autovc_tpu_torch.utils.bridge.
 from_jax_params` turns the tree into tensors.  Nothing is unpickled.  The
 writer takes trees of tensors, numpy arrays and JSON scalars, and writes
-synchronously and atomically (temporary file, then rename).
+synchronously and atomically (temporary file, then rename).  A
+reference PyTorch file (``_is_torch_checkpoint``) is not a ``.ckpt``:
+``models.load_model`` reads it through :mod:`autovc_tpu_torch.utils.
+torch_compat`.
 """
 from __future__ import annotations
 
@@ -111,8 +114,21 @@ def is_checkpoint(path: str) -> bool:
         return False
 
 
+def _is_torch_checkpoint(path: str) -> bool:
+    """True for a PyTorch file: a ``.pt`` / ``.pyt`` / ``.pth`` name, or a
+    zip without ``manifest.json`` (torch's serialisation is a zip too)."""
+    if path.endswith((".pt", ".pyt", ".pth")):
+        return True
+    return zipfile.is_zipfile(path) and not is_checkpoint(path)
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """Load a v2 checkpoint's payload tree (``step``, ``params``, extras)."""
+    """Load a v2 checkpoint's payload tree (``step``, ``params``, extras).
+    A PyTorch file is refused: ``models.load_model`` converts those."""
+    if _is_torch_checkpoint(path):
+        raise ValueError(
+            f"{path} is a PyTorch checkpoint; use load_model() which converts "
+            "it via torch_compat")
     if not is_checkpoint(path):
         raise ValueError(f"{path} is not a v2 .ckpt container")
     with zipfile.ZipFile(path) as zf:

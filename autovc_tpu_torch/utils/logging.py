@@ -3,8 +3,9 @@
 
 A ``MetricsLogger`` owns the run: it forwards to wandb when the package
 imports and the mode is not 'disabled', and always appends JSONL records
-locally, so training is observable offline.  The JAX logger's histogram
-and figure methods come with the port of their callers.
+locally, so training is observable offline; ``finish`` ends the run.
+The JAX logger's histogram and figure methods come with the port of their
+callers.
 """
 from __future__ import annotations
 
@@ -83,3 +84,9 @@ class MetricsLogger:
             artifact = wandb.Artifact(name, type_)
             artifact.add_file(path)
             self.run.log_artifact(artifact)
+
+    def finish(self) -> None:
+        """End the wandb run, if one is live."""
+        if self.run is not None:
+            self.run.finish()
+            self.run = None

@@ -3,9 +3,10 @@
 ``convert`` (``cut=True`` and ``cut=False``, ``pad_to_seconds``),
 ``convert_batch``, ``convert_multiple``, ``learn_speakers``, ``train``
 (the AutoVC generator, the GE2E speaker encoder and the vocoder),
-``setup_logging`` and ``save``.  Not ported yet: ``convert``'s
-``parallel=`` / ``mesh=``, ``convert_batch(parallel="pipeline")`` (both
-multi-device), ``close`` and the ``setup_wandb`` alias.
+``setup_logging`` (and its alias ``setup_wandb``), ``save`` and ``close``.
+Not ported yet: ``convert``'s ``parallel=`` / ``mesh=`` and
+``convert_batch(parallel="pipeline")`` (multi-device; both raise
+``NotImplementedError``).
 
 ``convert`` runs the JAX package's fused accelerator chain
 (``_fused_convert``): host preprocessing and slice geometry, then on the
@@ -256,7 +257,9 @@ class VoiceConverter:
                 cut: bool = True, overlap: float = 0.5,
                 audio_log_dict: Dict[str, Any] | None = None, seed: int = 0,
                 use_ema: bool = False, pad_to_seconds: float | None = None,
-                partial_frames: int | None = None) -> Audio:
+                partial_frames: int | None = None,
+                parallel: str | None = None, mesh=None,
+                fuse_dispatch: bool | None = None) -> Audio:
         """Convert the content of ``source`` into the voice of ``target``.
 
         ``source``/``target`` are wav paths or :class:`Audio`; ``target``
@@ -266,9 +269,20 @@ class VoiceConverter:
         ``cut=False`` converts the unchunked mel in one pass.
         ``pad_to_seconds=s`` zero-pads the preprocessed source up to a
         multiple of ``s`` seconds before embedding and converting, and
-        trims the waveform to the span of the unpadded wav's slices.  The
-        JAX ``parallel`` / ``mesh`` / ``fuse_dispatch`` are not ported.
-        Returns the converted :class:`Audio`."""
+        trims the waveform to the span of the unpadded wav's slices.
+        ``fuse_dispatch`` is accepted with any value and changes nothing:
+        in the JAX package it chooses between one jitted program for mel,
+        generator and vocoder (the wav uploaded as PCM16) and staged
+        programs; the port always runs the chain of the first, issued on
+        one stream and synchronised once, when the waveform comes back
+        (``_fused_convert``).  ``parallel`` / ``mesh`` (the
+        multi-device strategies) are not ported and raise
+        ``NotImplementedError`` when given.  Returns the converted
+        :class:`Audio`."""
+        if parallel is not None or mesh is not None:
+            raise NotImplementedError(
+                "convert(parallel=..., mesh=...) is not ported (ROADMAP, "
+                "Queue 1, item 9: multi-device)")
         cc = self.config.convert
         sr = sr or cc.sr
         preprocess = cc.preprocess if preprocess is None else preprocess
@@ -532,6 +546,9 @@ class VoiceConverter:
                 run_config={"config": "autovc_tpu_torch"}, **params)
         return self.logger
 
+    # the reference's name (voice_converter.py:418), kept as an alias
+    setup_wandb = setup_logging
+
     def save(self, model_type: str, model_name: str, save_dir=None) -> str:
         """Write one model as a v2 ``.ckpt`` (readable by both packages)."""
         model: LoadedModel = {"auto_encoder": self.AE,
@@ -541,3 +558,9 @@ class VoiceConverter:
         if self.logger is not None:
             self.logger.log_artifact(path, model_name, model_type)
         return path
+
+    def close(self):
+        """Finish the logger's run and drop the logger."""
+        if self.logger is not None:
+            self.logger.finish()
+            self.logger = None

@@ -65,14 +65,31 @@ Phases (any failure exits non-zero):
      speakers x 8 utterances x 160 frames from a seeded synthetic
      dataset, 12 steps (kernels 6 and 7 once a step each), with the loss
      falling and the EER logged; one step profiled; then one f32 step
-     (4 x 3 x 160) on the card against the same step on the CPU.
+     (4 x 3 x 160) on the card against the same step on the CPU;
+  9. the command line, in-process (``autovc_tpu_torch.__main__.main``)
+     from a scratch directory: full-width seeded checkpoints written with
+     ``save_model`` and named through ``model_dir`` (the generator), the
+     artifact cache ``AUTOVC_MODEL_CACHE`` (the speaker encoder) and a
+     path (the vocoder); a convert of the 4 s and 24 s wavs, timed, then
+     under ``torch.profiler`` (kernels 1, 2 and 3 must launch; each wav
+     finite, not silent and of its expected length; the wall and the
+     device idle share); a convert with ``trim_long_silences`` of a wav
+     with a 2 s silent gap beside one without; the reference's three
+     PyTorch checkpoint formats written from ``tests/torch_mirrors.py``,
+     loaded onto the card and held in f32 against their mirrors there
+     (the generator, the speaker embedding, the vocoder's conditioning
+     network), then converted from by path; a 2-step generator training
+     run (kernels 6 and 7 must launch) and a convert with the checkpoint
+     it wrote, resolved by name.
 It prints one JSON line per comparison, then the per-kernel summary line,
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1556,6 +1573,342 @@ def phase_se_f32_vs_cpu(card: str) -> dict:
         lambda name: name == "similarity_bias", card, batch=list(block.shape))
 
 
+
+class OutputTap:
+    """Keeps every :class:`Audio` that ``VoiceConverter.convert`` returns
+    while it is entered (the command line writes only the int16 files)."""
+
+    def __enter__(self):
+        self.outputs = []
+        self._convert = VoiceConverter.convert
+
+        # wrapped: the command line reads convert's signature
+        @functools.wraps(self._convert)
+        def convert(vc, *args, **kwargs):
+            out = self._convert(vc, *args, **kwargs)
+            self.outputs.append(out)
+            return out
+
+        VoiceConverter.convert = convert
+        return self
+
+    def __exit__(self, *exc):
+        VoiceConverter.convert = self._convert
+
+
+def cli_run(argv, kernels, profile: bool = False) -> dict:
+    """``autovc_tpu_torch.__main__.main(argv)`` in-process: its wall
+    (host clock to a device synchronise), the launches of ``kernels`` in
+    it (the wrappers' counts, set to 0 just before), what ``convert``
+    returned and, with ``profile``, the device's busy ms and idle share
+    under ``torch.profiler``."""
+    from autovc_tpu_torch.__main__ import main as cli_main
+    for name in kernels:
+        KERNELS[name]["kernel"].launches = 0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with OutputTap() as tap, (torch.profiler.profile(activities=acts)
+                              if profile else contextlib.nullcontext()) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res = {"wall_s": wall,
+           "launches": {k: KERNELS[k]["kernel"].launches for k in kernels},
+           "outputs": tap.outputs}
+    if profile:
+        busy_ms, top = device_busy(prof)
+        res.update(device_busy_ms=busy_ms,
+                   device_idle_share=1.0 - busy_ms / (wall * 1e3),
+                   device_ms_by_kernel=top)
+    return res
+
+
+def check_outputs(what: str, run: dict, files, n_in, mel_cfg) -> list:
+    """Each converted wav finite, as long as a ``cut=True`` conversion of
+    its source gives, not silent, and its file of that length."""
+    lens = []
+    for out, path, n in zip(run["outputs"], files, n_in, strict=True):
+        want = expected_samples(n, mel_cfg)
+        got = len(audio_io.load_wav(path)[0])
+        rms = float(np.sqrt(np.mean(out.wav.astype(np.float64) ** 2)))
+        if not (np.all(np.isfinite(out.wav)) and len(out.wav) == got == want
+                and rms > 1e-4):
+            raise AssertionError(f"{what}: {path} has {len(out.wav)} / "
+                                 f"{got} samples (want {want}), rms {rms}")
+        lens.append(got)
+    return lens
+
+
+def require_launches(what: str, launches: dict, kernels) -> None:
+    for k in kernels:
+        if launches[k] < 1:
+            raise AssertionError(f"{what} did not launch {k}: {launches}")
+
+
+def reference_files(tmp: str, dev) -> dict:
+    """The reference's three checkpoint formats, written from
+    ``tests/torch_mirrors.py`` at its default (full) widths, seeded
+    (``tests/test_torch_checkpoints.py``): {model_type: (mirror on
+    ``dev``, path)}."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    try:
+        from torch_mirrors import (MirrorAutoVC, MirrorSpeakerEncoder,
+                                   MirrorWaveRNN)
+    finally:
+        sys.path.pop(0)
+    torch.manual_seed(13)
+    ae, se, wr = MirrorAutoVC(), MirrorSpeakerEncoder(), MirrorWaveRNN()
+    for m in (ae, wr):
+        for bn in m.modules():
+            if isinstance(bn, torch.nn.BatchNorm1d):
+                with torch.no_grad():
+                    bn.running_mean.uniform_(-0.5, 0.5)
+                    bn.running_var.uniform_(0.5, 2.0)
+    paths = {k: os.path.join(tmp, f) for k, f in (
+        ("auto_encoder", "AutoVC_ref.pt"),
+        ("speaker_encoder", "SpeakerEncoder_ref.pt"),
+        ("vocoder", "WaveRNN_ref.pyt"))}
+    torch.save({"step": 200_000, "model_state": ae.state_dict(),
+                "optimizer_state": torch.optim.Adam(
+                    ae.parameters()).state_dict()}, paths["auto_encoder"])
+    hilde = torch.nn.functional.normalize(torch.randn(256), dim=0)
+    torch.save({"step": 3_000, "model_state": se.state_dict(),
+                "speakers": {"hilde": hilde}}, paths["speaker_encoder"])
+    torch.save(wr.state_dict(), paths["vocoder"])
+    return {k: (m.eval().to(dev), paths[k]) for k, m in (
+        ("auto_encoder", ae), ("speaker_encoder", se), ("vocoder", wr))}
+
+
+# f32 holds of the reference files against their mirrors on the card (TF32
+# off): |port - mirror| <= REF_BAR * max |mirror| + 1e-5.  The port's f32
+# products sum in another order than cuDNN's over at most a few thousand
+# terms of ~1e-7 relative rounding each.
+REF_BAR = 1e-4
+
+
+def hold_reference_files(refs: dict, card: str, dev) -> dict:
+    """``load_model(path, device="cuda")`` of each reference file, then in
+    f32 the port's generator (post-net mel and content codes), speaker
+    embedding and vocoder conditioning network (``wavernn.upsample``) on
+    the card against the mirror module's forward on the card."""
+    from autovc_tpu_torch.models import load_model
+    g = torch.Generator().manual_seed(7)
+    loaded = {k: load_model(k, p, verbose=False, device=dev)
+              for k, (_, p) in refs.items()}
+    x = torch.rand(2, 80, 192, generator=g).to(dev)
+    c = torch.nn.functional.normalize(torch.randn(2, 256, generator=g),
+                                      dim=1).to(dev)
+    utt = torch.randn(4, 160, 40, generator=g).to(dev)
+    mel = torch.rand(1, 80, 24, generator=g).to(dev)
+    wr_cfg = WaveRNNConfig()
+    with torch.no_grad():
+        _, post, codes = AE.forward(loaded["auto_encoder"].params, x, c, c,
+                                    AutoEncoderConfig(), "f32")[:3]
+        _, post_ref, codes_ref = refs["auto_encoder"][0](x, c, c)
+        emb = SE.forward(loaded["speaker_encoder"].params, utt, "f32")
+        emb_ref = refs["speaker_encoder"][0](utt)
+        up = WR.upsample(loaded["vocoder"].params["upsample"], mel, wr_cfg)
+        up_ref = refs["vocoder"][0].upsample(mel)
+    pairs = {"ae_post_mel": (post, post_ref), "ae_codes": (codes, codes_ref),
+             "se_embedding": (emb, emb_ref),
+             "vocoder_cond_mels": (up[0], up_ref[0]),
+             "vocoder_cond_aux": (up[1], up_ref[1])}
+    res = {"phase": "cli reference files", "precision": "f32", "card": card,
+           "steps": {k: m.step for k, m in loaded.items()},
+           "speakers": sorted(loaded["speaker_encoder"].speakers)}
+    ok = (res["steps"] == {"auto_encoder": 200_000, "speaker_encoder": 3_000,
+                           "vocoder": 0} and res["speakers"] == ["hilde"])
+    for name, (got, want) in pairs.items():
+        err = float((got - want).abs().max())
+        bar = REF_BAR * float(want.abs().max()) + 1e-5
+        res[name] = {"max_abs_err": err, "bar": bar,
+                     "shape": list(got.shape)}
+        ok = ok and got.shape == want.shape and err <= bar
+    res["ok"] = ok
+    log(res)
+    if not ok:
+        raise AssertionError(f"reference files disagree with their mirrors: "
+                             f"{res}")
+    return res
+
+
+def phase_cli(card: str) -> dict:
+    """Phase 9: ``python -m autovc_tpu_torch`` in-process on the card
+    (``main(argv)``, default widths, fresh seeded weights), from a
+    scratch working directory.  Returns the launches of the runs that
+    convert (kernels 1-3) and train (kernels 6 and 7)."""
+    from autovc_tpu_torch.models import load_model, save_model
+    dev = torch.device("cuda")
+    sr = 22050
+    mel_cfg = AutoEncoderConfig().spectrogram
+    launches = {k: 0 for k in CONVERT_KERNELS + TRAIN_KERNELS}
+
+    def add(run):
+        for k, n in run["launches"].items():
+            launches[k] += n
+
+    cwd, cache_env = os.getcwd(), os.environ.get("AUTOVC_MODEL_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            # checkpoints by name: the generator in a model_dir, the
+            # speaker encoder in the artifact cache, the vocoder by path
+            for i, (kind, where) in enumerate((
+                    ("auto_encoder", "ae_models"),
+                    ("speaker_encoder", "cache"), ("vocoder", "voc"))):
+                save_model(load_model(kind, seed=40 + i, verbose=False,
+                                      device=dev), f"{kind}.ckpt",
+                           os.path.join(tmp, where))
+            os.environ["AUTOVC_MODEL_CACHE"] = os.path.join(tmp, "cache")
+            write_s = time.perf_counter() - t0
+            srcs = [os.path.join(tmp, f"src{s:02d}.wav") for s in (4, 24)]
+            for p, s in zip(srcs, (4, 24)):
+                audio_io.save_wav(p, synthetic_wav(s, sr, 90 + s), sr)
+            trg = os.path.join(tmp, "trg.wav")
+            audio_io.save_wav(trg, synthetic_wav(3.0, sr, 99), sr)
+            n_in = [len(audio_io.load_wav(p)[0]) for p in srcs]
+            named = ["-mode", "convert", "-quiet",
+                     "-auto_encoder", "auto_encoder.ckpt",
+                     "-auto_encoder_params",
+                     f"model_dir={os.path.join(tmp, 'ae_models')}",
+                     "-speaker_encoder", "speaker_encoder.ckpt",
+                     "-vocoder", os.path.join(tmp, "voc", "vocoder.ckpt"),
+                     "-targets", trg]
+
+            def outs(d, paths):
+                return [os.path.join(tmp, d, os.path.splitext(
+                    os.path.basename(p))[0] + "_to_trg.wav") for p in paths]
+
+            # the 4 s and 24 s wavs by name: timed, then profiled
+            argv = named + ["-sources", *srcs, "-save_dir",
+                            os.path.join(tmp, "named")]
+            timed = cli_run(argv, CONVERT_KERNELS)
+            prof = cli_run(argv, CONVERT_KERNELS, profile=True)
+            for run in (timed, prof):
+                require_launches("the CLI convert", run["launches"],
+                                 CONVERT_KERNELS)
+                lens = check_outputs("the CLI convert", run,
+                                     outs("named", srcs), n_in, mel_cfg)
+            add(timed)
+            res = {"phase": "cli convert", "seconds_in": [4.0, 24.0],
+                   "checkpoint_write_s": write_s,
+                   "wall_s": timed["wall_s"],
+                   "profiled_wall_s": prof["wall_s"],
+                   "launches": timed["launches"],
+                   "profiled_launches": prof["launches"],
+                   "device_busy_ms": prof["device_busy_ms"],
+                   "device_idle_share": prof["device_idle_share"],
+                   "device_ms_by_kernel": prof["device_ms_by_kernel"],
+                   "samples_out": lens, "card": card}
+            log(res)
+
+            # trim_long_silences: 3 s, 2 s of near silence, 3 s.  The
+            # pipeline resamples to the nearest VAD rate (16 kHz) and, as
+            # in the JAX package, converts those samples as 22.05 kHz ones
+            gap_wav = np.concatenate([
+                synthetic_wav(3.0, sr, 31),
+                1e-4 * np.random.default_rng(32).standard_normal(
+                    2 * sr).astype(np.float32),
+                synthetic_wav(3.0, sr, 33)])
+            gap = os.path.join(tmp, "gap.wav")
+            audio_io.save_wav(gap, gap_wav, sr)
+            pre = ("normalize_volume", "trim_long_silences")
+            host = Audio(gap, sr).preprocess(*pre, target_dBFS=-20)
+            plain = cli_run(named + ["-sources", gap, "-save_dir",
+                                     os.path.join(tmp, "plain")],
+                            CONVERT_KERNELS)
+            trim = cli_run(named + ["-sources", gap, "-save_dir",
+                                    os.path.join(tmp, "trim"),
+                                    "-convert_params", f"preprocess={pre}"],
+                           CONVERT_KERNELS)
+            n_gap = len(audio_io.load_wav(gap)[0])
+            plain_len = check_outputs("the untrimmed convert", plain,
+                                      outs("plain", [gap]), [n_gap], mel_cfg)
+            trim_len = check_outputs("the trimmed convert", trim,
+                                     outs("trim", [gap]), [len(host.wav)],
+                                     mel_cfg)
+            for run in (plain, trim):
+                add(run)
+            trimmed_s = len(host.wav) / host.sr
+            res = {"phase": "cli trim", "seconds_in": len(gap_wav) / sr,
+                   "silent_gap_s": 2.0, "trimmed_sr": host.sr,
+                   "trimmed_s": trimmed_s,
+                   "samples_out": {"untrimmed": plain_len[0],
+                                   "trimmed": trim_len[0]},
+                   "wall_s": {"untrimmed": plain["wall_s"],
+                              "trimmed": trim["wall_s"]}, "card": card}
+            log(res)
+            # bar: the 2 s gap goes and the 6 s of signal stays, within
+            # 0.25 s (the VAD's smoothing and dilation at 20 ms windows)
+            if host.sr != 16000 or abs(trimmed_s - 6.0) > 0.25:
+                raise AssertionError(f"trim_long_silences: {res}")
+
+            # reference PyTorch files: held against their mirrors, then one
+            # CLI convert with all three by path
+            refs = reference_files(tmp, dev)
+            hold_reference_files(refs, card, dev)
+            ref = cli_run(["-mode", "convert", "-quiet",
+                           "-auto_encoder", refs["auto_encoder"][1],
+                           "-speaker_encoder", refs["speaker_encoder"][1],
+                           "-vocoder", refs["vocoder"][1],
+                           "-sources", srcs[0], "-targets", trg,
+                           "-save_dir", os.path.join(tmp, "ref")],
+                          CONVERT_KERNELS)
+            require_launches("the CLI convert from reference files",
+                             ref["launches"],
+                             ("wavernn_sample", "lstm_stack_skewed"))
+            check_outputs("the CLI convert from reference files", ref,
+                          outs("ref", srcs[:1]), n_in[:1], mel_cfg)
+            add(ref)
+            log({"phase": "cli reference convert", "wall_s": ref["wall_s"],
+                 "launches": ref["launches"], "card": card})
+
+            # train the generator a few steps, then convert with the
+            # checkpoint it saved, resolved by name in its save_dir
+            data = os.path.join(tmp, "train_wavs")
+            os.makedirs(data)
+            for i in range(4):
+                audio_io.save_wav(os.path.join(data, f"speaker{i}_{i}.wav"),
+                                  synthetic_wav(22.5, sr, 120 + i), sr)
+            train = cli_run(["-mode", "train", "-quiet", "-data_path", data,
+                             "-model_type", "auto_encoder", "-n_epochs", "1",
+                             "-batch_size", "16", "-model_name",
+                             "ae_trained.ckpt", "-save_dir",
+                             os.path.join(tmp, "trained")], TRAIN_KERNELS)
+            require_launches("the CLI train", train["launches"],
+                             TRAIN_KERNELS)
+            add(train)
+            after = cli_run(["-mode", "convert", "-quiet",
+                             "-auto_encoder", "ae_trained.ckpt",
+                             "-auto_encoder_params",
+                             f"model_dir={os.path.join(tmp, 'trained')}",
+                             "-sources", srcs[0], "-targets", trg,
+                             "-save_dir", os.path.join(tmp, "after")],
+                            CONVERT_KERNELS)
+            require_launches("the CLI convert after training",
+                             after["launches"],
+                             ("wavernn_sample", "lstm_stack_skewed"))
+            check_outputs("the CLI convert after training", after,
+                          outs("after", srcs[:1]), n_in[:1], mel_cfg)
+            add(after)
+            log({"phase": "cli train then convert",
+                 "train_wall_s": train["wall_s"],
+                 "train_launches": train["launches"],
+                 "convert_wall_s": after["wall_s"],
+                 "convert_launches": after["launches"], "card": card})
+        finally:
+            os.chdir(cwd)
+            if cache_env is None:
+                os.environ.pop("AUTOVC_MODEL_CACHE", None)
+            else:
+                os.environ["AUTOVC_MODEL_CACHE"] = cache_env
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1636,6 +1989,8 @@ def main() -> int:
     for name, count in phase_se_train(card).items():
         launches[name] += count
     phase_se_f32_vs_cpu(card)
+    for name, count in phase_cli(card).items():
+        launches[name] += count
 
     def entry(name, cmp, err):
         return {"name": name, "route": "cuda",

@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``autovc_tpu_torch`` and ``chip_smoke.py``
 import nothing of JAX or of the JAX package (checked in a subprocess where
-both are made unimportable), the port runs a CPU conversion there, and the
+both are made unimportable), the port runs a CPU conversion there (through
+``convert``, ``convert_batch`` and the command line), and the
 entry points refuse to fall back to the CPU when no GPU is present."""
 import os
 import shutil
@@ -47,7 +48,9 @@ def test_port_imports_and_converts_without_jax():
             importlib.import_module(name)
         assert {"autovc_tpu_torch.ops.gru_train_kernels",
                 "autovc_tpu_torch.ops.mol",
-                "autovc_tpu_torch.train.loop"} <= names, names
+                "autovc_tpu_torch.train.loop", "autovc_tpu_torch.cli",
+                "autovc_tpu_torch.__main__",
+                "autovc_tpu_torch.utils.torch_compat"} <= names, names
         from autovc_tpu_torch import Audio, ConverterConfig, VoiceConverter
         cfg = ConverterConfig().with_overrides(vocoder={
             "rnn_dims": 32, "fc_dims": 32,
@@ -75,6 +78,19 @@ def test_port_imports_and_converts_without_jax():
                 "s0_to_trg.wav", "s1_to_trg.wav"]
         assert [o.wav.shape for o in outs] == [(63 * 275,)] * 2
         assert all(np.all(np.isfinite(o.wav)) for o in outs)
+        from autovc_tpu_torch.__main__ import main
+        with tempfile.TemporaryDirectory() as d:
+            io.save_wav(os.path.join(d, "s.wav"), wav, 22050)
+            main(["-mode", "convert", "-quiet", "-auto_encoder_params",
+                  "spectrogram={'partial_utterance_n_frames': 64}",
+                  "-vocoder_params", "rnn_dims=32", "fc_dims=32",
+                  "generate={'target': 1375, 'overlap': 550}",
+                  "-sources", os.path.join(d, "s.wav"), "-targets",
+                  os.path.join(d, "s.wav"), "-save_dir",
+                  os.path.join(d, "results"), "-convert_params",
+                  "preprocess=('normalize_volume', 'trim_long_silences')"],
+                 device="cpu")
+            assert os.listdir(os.path.join(d, "results")) == ["s_to_s.wav"]
         bad = [m for m in sys.modules
                if m in ("jax", "jaxlib", "autovc_tpu")
                or m.startswith(("jax.", "jaxlib.", "autovc_tpu."))]
