@@ -15,14 +15,18 @@ def train_model(vc, model_type: str, data_path, **kwargs):
     ``use_mean_speaker_embedding``.  For ``speaker_encoder``,
     ``data_path`` is a dict speaker name -> path or list of paths; a
     stack deeper than the CUDA kernels carry raises before the dataset is
-    built."""
+    built.
+
+    ``source_examples`` / ``target_examples`` (the auto-encoder only;
+    auto_encoder/model.py:347-357): after each epoch the converter takes
+    the epoch's generator, lstm2's packed kernel weights rebuilt from it,
+    and converts every source into every target (``convert_multiple``),
+    logging the audio to a live wandb run or writing it under
+    ``results/training_examples/``."""
     if model_type not in ("auto_encoder", "speaker_encoder", "vocoder"):
         raise ValueError(f"'{model_type}' is not a supported model_type")
-    if kwargs.pop("source_examples", None) or kwargs.pop("target_examples",
-                                                          None):
-        raise NotImplementedError("the per-epoch conversion examples "
-                                  "(source_examples / target_examples) are "
-                                  "not ported yet (ROADMAP, Next)")
+    source_examples = kwargs.pop("source_examples", None)
+    target_examples = kwargs.pop("target_examples", None)
     dataset_keys = {"preprocess", "preprocess_args", "cut",
                     "data_path_excluded", "one_hot",
                     "use_mean_speaker_embedding"}
@@ -55,9 +59,21 @@ def train_model(vc, model_type: str, data_path, **kwargs):
         data_path, speaker_encoder=vc.SE.params,
         speaker_encoder_params=vc.SE.config, speakers=vc.speakers,
         cfg=vc.AE.config, verbose=vc.verbose, device=vc.device, **ds_kwargs)
+    on_epoch_end = None
+    if source_examples and target_examples:
+        def on_epoch_end(epoch, params):
+            vc.AE.params = params
+            vc._pack_weights("auto_encoder")
+            live = getattr(vc.logger, "run", None) is not None
+            vc.convert_multiple(
+                source_examples, target_examples,
+                save_dir="wandb" if live else "training_examples",
+                audio_log_dict={"epoch": epoch})
+
     params, ema, info = loop.train_autoencoder(
         vc.AE.params, dataset, vc.AE.config, logger=vc.logger,
-        verbose=vc.verbose, start_step=vc.AE.step, **kwargs)
+        verbose=vc.verbose, start_step=vc.AE.step,
+        on_epoch_end=on_epoch_end, **kwargs)
     vc.AE.params = params
     vc.AE.step = info["step"]
     vc.AE.extras["ema_params"] = ema

@@ -10,9 +10,20 @@ return the same trees they were given, so the JAX signatures hold.  As in
 the JAX package the optimizer sees every leaf of the tree, BatchNorm
 statistics included (their gradient is zero, so Adam leaves them where
 the forward put them), and the AutoVC EMA covers the whole tree.
+
+At each save epoch the loops do what the JAX loops do, in their order:
+the checkpoint is saved asynchronously (``save_checkpoint(block=False)``,
+waited for before the loop returns), and a logger that has the
+``MetricsLogger`` methods gets the parameter (and, for the generator,
+gradient) histograms and a figure: the generator's original-vs-
+reconstruction mel, the speaker encoder's embedding TSNE.  A figure whose
+plotting package (matplotlib, scikit-learn) is missing is skipped, with
+the reason printed when ``verbose``.  A logger with only ``log`` gets the
+scalars alone.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Callable, Dict
 
@@ -27,6 +38,10 @@ from autovc_tpu_torch.train import schedules
 from autovc_tpu_torch.utils import (close_progbar, progbar, tree_clone,
                                     tree_leaves, tree_unflatten)
 from autovc_tpu_torch.utils.bridge import from_jax_params
+from autovc_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                               load_checkpoint,
+                                               save_checkpoint,
+                                               wait_for_saves)
 
 
 @torch.no_grad()
@@ -82,18 +97,22 @@ def loss_and_grads(params, x, c_org, cfg: AutoEncoderConfig,
 
 
 def make_ae_step(cfg: AutoEncoderConfig, tx: schedules.Optimizer,
-                 ema_decay: float, precision: str | None = None) -> Callable:
+                 ema_decay: float, precision: str | None = None,
+                 with_grads: bool = False) -> Callable:
     """AutoVC train step.  ``precision`` ("bf16" by default, from
     ``cfg.learn.precision``) is the matmul/conv policy; parameters,
     gradients, Adam moments, EMA and BatchNorm statistics stay f32.
     ``step(params, opt_state, ema, x, c_org) -> (params, opt_state, ema,
     aux)``; aux carries ``loss``, ``loss_recon``, ``loss_recon0``,
     ``loss_content`` and ``grad_norm`` (before clipping), all device
-    scalars."""
+    scalars, and with ``with_grads`` the raw (pre-clip) gradients as
+    ``grads``, a tree of ``params``' structure, for the histograms."""
     precision = precision or cfg.learn.precision
 
     def step(params, opt_state, ema, x, c_org):
         aux, grads = loss_and_grads(params, x, c_org, cfg, precision)
+        if with_grads:
+            aux["grads"] = tree_unflatten(params, grads)
         aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state)
         ema_update(ema, params, ema_decay)
         return params, opt_state, ema, aux
@@ -130,6 +149,23 @@ def _restore(blob, params, opt_state):
     return params, ema, opt_state
 
 
+def _log_figure(logger, name: str, draw: Callable, step: int,
+                verbose: bool) -> None:
+    """``logger.log_figure(name, draw())`` for a logger that has the
+    method; skipped, with the reason printed when ``verbose``, where
+    ``draw`` finds its plotting package missing."""
+    log_figure = getattr(logger, "log_figure", None)
+    if log_figure is None:
+        return
+    try:
+        fig = draw()
+    except ImportError as e:
+        if verbose:
+            print(f"[metrics] figure skipped: {e}")
+        return
+    log_figure(name, fig, step=step)
+
+
 def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
                       n_epochs: int | None = None,
                       batch_size: int | None = None,
@@ -148,11 +184,16 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
 
     ``resume=True`` restores params + EMA + optimizer state + step from the
     newest checkpoint in ``save_dir``.  The loss stays on the device and is
-    pulled to the host once per ``log_freq`` window.  ``mesh`` (the
-    data-parallel loop) is not ported."""
+    pulled to the host once per ``log_freq`` window.  At each save epoch
+    (every ``save_freq``-th and the last): the asynchronous save (with
+    ``model_name``), the ``params`` and ``grads`` histograms (the last
+    step's raw gradients), the reconstruction figure of the last batch's
+    first row, then ``on_epoch_end(epoch, params)`` (every epoch).
+    ``mesh`` (the data-parallel loop) is not ported."""
     if mesh is not None:
         raise NotImplementedError("the data-parallel training loop (mesh=) "
-                                  "is not ported yet (ROADMAP, Next)")
+                                  "is not ported (ROADMAP, Queue 1, item 9: "
+                                  "multi-device)")
     lc, oc = cfg.learn, cfg.optimizer
     if opt_overrides:
         oc = oc.with_overrides(**opt_overrides)
@@ -172,8 +213,6 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
     ema = tree_clone(params)
 
     if resume:
-        from autovc_tpu_torch.utils.checkpoint import (latest_checkpoint,
-                                                       load_checkpoint)
         latest = latest_checkpoint(save_dir)
         if latest is not None:
             blob = load_checkpoint(latest)
@@ -182,10 +221,14 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
             if verbose:
                 print(f"Resumed from '{latest}' at step {start_step}")
 
-    step_fn = make_ae_step(cfg, tx, ema_decay, precision=precision)
+    # the gradient tree rides in aux only for a logger that histograms it
+    hist = getattr(logger, "log_tree_histograms", None)
+    step_fn = make_ae_step(cfg, tx, ema_decay, precision=precision,
+                           with_grads=hist is not None)
     n_total = n_epochs * steps_per_epoch
     step = start_step
     loss_hist, t_start = [], time.time()
+    x = c = None   # the last batch, for the reconstruction figure
     for epoch in range(1, n_epochs + 1):
         for x, c in dataset.batches(batch_size, shuffle=True, seed=epoch):
             params, opt_state, ema, aux = step_fn(params, opt_state, ema,
@@ -209,16 +252,36 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
                             "learning_rate": float(lr_schedule(step)),
                             "epoch": epoch, "step": step}, step=step)
                 loss_hist = []
-        if (epoch % save_freq == 0 or epoch == n_epochs) and model_name:
-            from autovc_tpu_torch.utils.checkpoint import save_checkpoint
+        save_epoch = epoch % save_freq == 0 or epoch == n_epochs
+        if save_epoch and model_name:
             save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
                             {"step": step, "params": params,
-                             "ema_params": ema, "opt_state": opt_state})
+                             "ema_params": ema, "opt_state": opt_state},
+                            block=False)
+        if logger is not None and x is not None and save_epoch:
+            if hist is not None:
+                hist("params", params, step=step)
+                hist("grads", aux["grads"], step=step)
+            _log_figure(logger, "mel_reconstruction", functools.partial(
+                _reconstruction_figure, params, x, c, cfg), step, verbose)
         if on_epoch_end is not None:
             on_epoch_end(epoch, params)
+    wait_for_saves()
     if verbose:
         close_progbar()
     return params, ema, {"step": step, "opt_state": opt_state}
+
+
+def _reconstruction_figure(params, x, c, cfg: AutoEncoderConfig):
+    """The original-vs-reconstruction mel figure of the first row of a
+    batch, from an eval-mode f32 forward (auto_encoder/model.py:371-374,
+    439-450)."""
+    from autovc_tpu_torch.models import autoencoder as AE
+    from autovc_tpu_torch.utils import visual
+    x1, c1 = _on_device(params, x[:1], c[:1])
+    with torch.no_grad():
+        _, post, _ = AE.forward(params, x1, c1, c1, cfg)
+    return visual.plot_conversion(x1[0].cpu().numpy(), post[0].cpu().numpy())
 
 
 def se_loss_and_grads(params, batch, precision: str):
@@ -306,15 +369,17 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
     checkpoint in ``save_dir`` (either package's) and updates
     ``speakers`` from it.
 
-    On CUDA the stack runs kernels 6/7, which carry at most
+    The save epoch logs, in the JAX loop's order, the EER, the
+    ``params`` histograms, saves asynchronously and logs the TSNE figure
+    of the last block's embeddings; the loop waits for its saves before it
+    returns.  On CUDA the stack runs kernels 6/7, which carry at most
     ``lstm_train_kernels.MAX_LAYERS`` = 4 layers: a deeper speaker
-    encoder raises here, before any batch is drawn.  Not ported: the
-    parameter histograms and the TSNE figure of the save epochs (the JAX
-    loop makes them only for a logger that has the methods; no logged
-    scalar depends on them) and ``mesh`` (the data-parallel loop)."""
+    encoder raises here, before any batch is drawn.  ``mesh`` (the
+    data-parallel loop) is not ported."""
     if mesh is not None:
         raise NotImplementedError("the data-parallel training loop (mesh=) "
-                                  "is not ported yet (ROADMAP, Next)")
+                                  "is not ported (ROADMAP, Queue 1, item 9: "
+                                  "multi-device)")
     check_se_depth(params)
     from autovc_tpu_torch.models import speaker_encoder as SE
     lc, oc = cfg.learn, cfg.optimizer
@@ -330,8 +395,6 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
                                   dim_model=cfg.embedding_size)
     opt_state = tx.init(tree_leaves(params))
     if resume:
-        from autovc_tpu_torch.utils.checkpoint import (latest_checkpoint,
-                                                       load_checkpoint)
         latest = latest_checkpoint(save_dir)
         if latest is not None:
             blob = load_checkpoint(latest)
@@ -370,13 +433,21 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
                 sim = SE.similarity_matrix(params, emb)
             logger.log({"eer": SE.equal_error_rate(sim.cpu().numpy()),
                         "epoch": epoch, "step": step}, step=step)
+            hist = getattr(logger, "log_tree_histograms", None)
+            if hist is not None:
+                hist("params", params, step=step)
         if save_epoch and model_name:
-            from autovc_tpu_torch.utils.checkpoint import save_checkpoint
             save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
                             {"step": step, "params": params,
                              "speakers": speakers or {},
                              "opt_state": optax_layout(opt_state, params,
-                                                       oc)})
+                                                       oc)}, block=False)
+        if logger is not None and save_epoch:
+            from autovc_tpu_torch.utils import visual
+            _log_figure(logger, "embedding_tsne", functools.partial(
+                visual.visualise_embedding, emb.cpu().numpy()), step,
+                verbose)
+    wait_for_saves()
     if verbose:
         close_progbar()
     return params, {"step": step, "opt_state": opt_state}
@@ -424,20 +495,20 @@ def train_vocoder(params, dataset, cfg: WaveRNNConfig,
 
     The loss stays on the device and is pulled to the host only at the
     steps that log it (every ``log_freq``-th).  With ``model_name`` the
-    loop saves ``{step, params, opt_state}`` after each epoch;
+    loop saves ``{step, params, opt_state}`` asynchronously after each
+    epoch and waits for the writes before it returns;
     ``resume=True`` restores them from the newest checkpoint in
     ``save_dir`` (the JAX package's vocoder checkpoints too).  ``mesh``
     (the data-parallel loop) is not ported."""
     if mesh is not None:
         raise NotImplementedError("the data-parallel training loop (mesh=) "
-                                  "is not ported yet (ROADMAP, Next)")
+                                  "is not ported (ROADMAP, Queue 1, item 9: "
+                                  "multi-device)")
     oc = OptimizerConfig(lr=lr, lr_scheduler="constant", grad_clip_norm=4.0)
     tx = schedules.make_optimizer(oc, steps_per_epoch)
     opt_state = tx.init(tree_leaves(params))
     save_dir = save_dir or cfg.model_dir
     if resume:
-        from autovc_tpu_torch.utils.checkpoint import (latest_checkpoint,
-                                                       load_checkpoint)
         latest = latest_checkpoint(save_dir)
         if latest is not None:
             blob = load_checkpoint(latest)
@@ -468,10 +539,10 @@ def train_vocoder(params, dataset, cfg: WaveRNNConfig,
                             "grad_norm": float(aux["grad_norm"]),
                             "epoch": epoch, "step": step}, step=step)
         if model_name:
-            from autovc_tpu_torch.utils.checkpoint import save_checkpoint
             save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
                             {"step": step, "params": params,
-                             "opt_state": opt_state})
+                             "opt_state": opt_state}, block=False)
+    wait_for_saves()
     if verbose:
         close_progbar()
     return params, {"step": step, "opt_state": opt_state}

@@ -18,8 +18,8 @@ it with ``wavernn.generate``.  ``convert_batch`` is batch serving: every
 source's chunks through the slab-planned generator
 (``autoencoder.batch_forward_packed``), every utterance's folds through
 one sampling loop (``wavernn.generate_many``).  The kernels' packed
-weights (decoder lstm2, the vocoder loop) are built once, at
-construction.
+weights (decoder lstm2, the vocoder loop) are built at construction and
+rebuilt by ``_pack_weights`` wherever training changes the parameters.
 
 Each stage of ``convert`` is a ``torch.profiler`` range named
 ``convert/<stage>``.  Setting ``stage_times`` to a dict makes ``convert``
@@ -107,13 +107,25 @@ class VoiceConverter:
             cfg.speaker_encoder.model_dir, cfg.speaker_encoder, **kw)
         self.vocoder: LoadedModel = load_model(
             "vocoder", vocoder, cfg.vocoder.model_dir, cfg.vocoder, **kw)
-        self._lstm2_packed = LK.pack(self.AE.params["decoder"]["lstm2"],
-                                     self.ae_precision)
-        self._vocoder_packed = WK.pack_weights(
-            self.vocoder.params, self.vocoder.config,
-            self.vocoder_precision == "bf16")
+        self._pack_weights("auto_encoder")
+        self._pack_weights("vocoder")
         self.stage_times: Dict[str, float] | None = None
         self.logger: MetricsLogger | None = None
+
+    @torch.no_grad()
+    def _pack_weights(self, model_type: str) -> None:
+        """Rebuild the kernels' packed weights of ``model_type`` from its
+        current parameters: decoder lstm2's (``"auto_encoder"``) or the
+        sampling loop's (``"vocoder"``).  ``convert`` runs lstm2 and the
+        loop from these, not from the parameter tree, so whoever changes
+        the parameters (``train``, the per-epoch examples) calls this."""
+        if model_type == "auto_encoder":
+            self._lstm2_packed = LK.pack(self.AE.params["decoder"]["lstm2"],
+                                         self.ae_precision)
+        elif model_type == "vocoder":
+            self._vocoder_packed = WK.pack_weights(
+                self.vocoder.params, self.vocoder.config,
+                self.vocoder_precision == "bf16")
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -522,21 +534,16 @@ class VoiceConverter:
         ``"auto_encoder"``, ``"speaker_encoder"`` or ``"vocoder"``.  Runs
         on the converter's device.  The kernels' packed weights of a
         trained auto-encoder (lstm2's) or vocoder (the sampling loop's) are
-        rebuilt afterwards, so ``convert`` runs with them; the speaker
-        encoder packs its weights per call."""
+        rebuilt afterwards (:meth:`_pack_weights`), so ``convert`` runs with
+        them; the speaker encoder packs its weights per call.  The
+        auto-encoder's ``source_examples`` / ``target_examples`` are
+        converted after each epoch with that epoch's weights."""
         from autovc_tpu_torch import train as train_mod
         if model_type not in ("auto_encoder", "speaker_encoder", "vocoder"):
             raise ValueError(f"'{model_type}' is not a supported model_type")
         self.setup_logging()
         info = train_mod.train_model(self, model_type, data_path, **kwargs)
-        with torch.no_grad():
-            if model_type == "auto_encoder":
-                self._lstm2_packed = LK.pack(
-                    self.AE.params["decoder"]["lstm2"], self.ae_precision)
-            elif model_type == "vocoder":
-                self._vocoder_packed = WK.pack_weights(
-                    self.vocoder.params, self.vocoder.config,
-                    self.vocoder_precision == "bf16")
+        self._pack_weights(model_type)
         return info
 
     def setup_logging(self, **params) -> MetricsLogger:

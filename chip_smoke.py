@@ -80,7 +80,29 @@ Phases (any failure exits non-zero):
      (the generator, the speaker embedding, the vocoder's conditioning
      network), then converted from by path; a 2-step generator training
      run (kernels 6 and 7 must launch) and a convert with the checkpoint
-     it wrote, resolved by name.
+     it wrote, resolved by name;
+ 10. the training extras, from a scratch directory (``phase_train_extras``):
+     ``VoiceConverter().train`` of the generator, bf16, 2 epochs of 2
+     steps of 16 x 400 frames, each epoch a save epoch, with a JSONL
+     ``MetricsLogger`` and the per-epoch conversion examples of the 4 s
+     and 24 s wavs (kernels 1, 2, 3, 6 and 7 must launch): a ``params``
+     and a ``grads`` histogram of every leaf at each save epoch, the
+     examples finite, not silent and of their length, the reconstruction
+     figure written or reported skipped with its reason; measured, each
+     save epoch's save stall and histogram time, the wait at the end, and
+     a blocking and an asynchronous save of the same payload in turns,
+     with the checkpoint's bytes.  At f32 the epoch-2 example of the 4 s
+     wav equals ``convert`` by a converter loaded from the epoch-2
+     checkpoint (within one int16 step) and differs from the epoch-1
+     example.  The speaker encoder, GE2E 64 x 8 x 160, 2 epochs of 2
+     steps: its histograms, asynchronous checkpoint and TSNE figure
+     (written or reported skipped).  One generator step under
+     ``profiling.trace`` writes a trace.  Then the roofline: phase 4's
+     conversions (their mel, generator and vocoder stages) and phases
+     5-7's median steps through ``utils/roofline.py`` at the card's peaks
+     (``chip_spec``), printed as JSON; an entry faster than its
+     throughput bound fails the run.
+Every kernel's ``bound_ms`` takes its peaks from ``roofline.chip_spec``.
 It prints one JSON line per comparison, then the per-kernel summary line,
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
@@ -93,6 +115,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -109,7 +132,7 @@ from autovc_tpu_torch import Audio, VoiceConverter  # noqa: E402
 from autovc_tpu_torch.audio import dsp, io as audio_io  # noqa: E402
 from autovc_tpu_torch.config import (AutoEncoderConfig,  # noqa: E402
                                      OptimizerConfig, SpeakerEncoderConfig,
-                                     WaveRNNConfig)
+                                     WandbConfig, WaveRNNConfig)
 from autovc_tpu_torch.models import autoencoder as AE  # noqa: E402
 from autovc_tpu_torch.models import speaker_encoder as SE  # noqa: E402
 from autovc_tpu_torch.models import wavernn as WR  # noqa: E402
@@ -123,12 +146,11 @@ from autovc_tpu_torch.ops import wavernn_kernels as WK  # noqa: E402
 from autovc_tpu_torch.train import loop as TRL  # noqa: E402
 from autovc_tpu_torch.train import schedules as TRS  # noqa: E402
 from autovc_tpu_torch.utils import tree_clone, tree_leaves  # noqa: E402
+from autovc_tpu_torch.utils import checkpoint as CK  # noqa: E402
+from autovc_tpu_torch.utils import profiling  # noqa: E402
+from autovc_tpu_torch.utils import roofline as RL  # noqa: E402
 from autovc_tpu_torch.utils.bridge import from_jax_params  # noqa: E402
-
-# Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a
-# kernel is max(bytes / HBM rate, operations / peak rate of their type).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from autovc_tpu_torch.utils.logging import MetricsLogger  # noqa: E402
 
 KERNELS = {
     "wavernn_sample": dict(
@@ -182,8 +204,14 @@ def nbytes(*ts) -> int:
 
 
 def bound(bytes_moved: int, ops: float, dtype) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    """The least ms the card could take: max(bytes / its HBM rate,
+    operations / its peak rate for their type), the card's published
+    peaks from ``roofline.chip_spec``."""
+    spec = RL.chip_spec()
+    peak = (spec.peak_bf16_tflops if dtype == torch.bfloat16
+            else spec.peak_f32_tflops)
+    t_bytes = bytes_moved / (spec.hbm_gbs * 1e9) * 1e3
+    t_ops = ops / (peak * 1e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -777,16 +805,56 @@ def device_busy(prof) -> tuple[float, dict]:
     return busy / 1e3, top
 
 
-def phase_end_to_end(card: str) -> dict:
+class CallTimer:
+    """Replaces ``owner.<name>`` while entered with a wrapper that keeps
+    each call's wall (host clock, ``walls``) and the device ms between
+    CUDA events recorded just before and after it (``device_ms``)."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+
+    def __enter__(self):
+        self.walls, self._events = [], []
+        self._fn = fn = getattr(self.owner, self.name)
+
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.walls.append(time.perf_counter() - t0)
+                end.record()
+                self._events.append((start, end))
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self._fn)
+
+    @property
+    def device_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self._events]
+
+
+def phase_end_to_end(card: str) -> tuple[dict, list]:
     """Each wav converts three times after a warm-up: once timed with the
     launch counts read around it (the main path), once under
     ``torch.profiler`` (device busy share, device time by kernel), once with
     ``VoiceConverter.stage_times`` set (each stage's wall to a device
-    synchronise)."""
+    synchronise; the sampling loop's device ms, ``wavernn_kernels.
+    generate_rows`` between CUDA events, in the same run).  Returns the
+    launches and each conversion's line."""
     sr = 22050
     vc = VoiceConverter(verbose=False)
     target = Audio(synthetic_wav(3.0, sr, 99), sr_org=sr)
     launches = {name: 0 for name in CONVERT_KERNELS}
+    results = []
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
 
@@ -827,7 +895,8 @@ def phase_end_to_end(card: str) -> dict:
         prof_wall_ms = (time.time() - t0) * 1e3
         busy_ms, top = device_busy(prof)
         vc.stage_times = {}
-        convert(wav)
+        with CallTimer(WK, "generate_rows") as loop:
+            convert(wav)
         stage_s, vc.stage_times = vc.stage_times, None
 
         rms = float(np.sqrt(np.mean(out.wav.astype(np.float64) ** 2)))
@@ -839,8 +908,10 @@ def phase_end_to_end(card: str) -> dict:
                "device_busy_ms": busy_ms,
                "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
                "device_ms_by_kernel": top, "stage_s": stage_s,
+               "sampling_loop_ms": loop.device_ms,
                "card": card}
         log(res)
+        results.append(res)
         if not np.all(np.isfinite(out.wav)):
             raise AssertionError("non-finite output")
         if rms <= 1e-4:
@@ -855,7 +926,7 @@ def phase_end_to_end(card: str) -> dict:
             if counts[name] < 1:
                 raise AssertionError(f"the {seconds} s conversion did not "
                                      f"launch {name}")
-    return launches
+    return launches, results
 
 
 def ae_slab_ms(gen, dev, card: str, reps: int = 5) -> dict:
@@ -1229,7 +1300,7 @@ def phase_train(card: str, steps_min: int = 8) -> dict:
     log(res)
     if not ok:
         raise AssertionError(f"training phase failed: {res}")
-    return counts
+    return res
 
 
 def leaf_names(tree, path="") -> list[str]:
@@ -1421,7 +1492,7 @@ def phase_vocoder_train(card: str, steps: int = 16) -> dict:
     log(res)
     if not ok:
         raise AssertionError(f"vocoder training phase failed: {res}")
-    return counts
+    return res
 
 
 def phase_vocoder_f32_vs_cpu(card: str) -> dict:
@@ -1549,7 +1620,7 @@ def phase_se_train(card: str, steps: int = 12) -> dict:
     log(res)
     if not ok:
         raise AssertionError(f"speaker-encoder training phase failed: {res}")
-    return counts
+    return res
 
 
 def phase_se_f32_vs_cpu(card: str) -> dict:
@@ -1909,6 +1980,340 @@ def phase_cli(card: str) -> dict:
     return launches
 
 
+EXTRAS_KERNELS = CONVERT_KERNELS + TRAIN_KERNELS
+
+
+def hist_records(logger) -> list:
+    """(name, record, step) of every histogram line of a logger's JSONL."""
+    with open(logger.jsonl_path) as f:
+        return [(k, v, r.get("_step")) for r in map(json.loads, f)
+                for k, v in r.items() if k.startswith("hist/")]
+
+
+def hold_histograms(what: str, logger, expected: list) -> int:
+    """The logger's histogram lines are exactly ``expected`` ((name,
+    step) in order), each with a finite mean and its bins summing to its
+    count.  Returns the count of values histogrammed."""
+    recs = hist_records(logger)
+    got = [(k, step) for k, _, step in recs]
+    if got != expected:
+        raise AssertionError(f"{what}: histogram lines {got[:4]}... "
+                             f"({len(got)}) are not {expected[:4]}... "
+                             f"({len(expected)})")
+    for k, v, _ in recs:
+        if not (math.isfinite(v["mean"]) and sum(v["bins"]) == v["count"]):
+            raise AssertionError(f"{what}: bad histogram {k}: {v}")
+    return sum(v["count"] for _, v, _ in recs)
+
+
+def figure_status(logger, stem: str, modules) -> dict:
+    """Whether the loop wrote its ``stem`` figures as PNGs beside the
+    logger's JSONL, or why it could not (the first of ``modules`` that
+    does not import).  A figure missing though every module imports
+    fails."""
+    out = os.path.dirname(logger.jsonl_path)
+    pngs = sorted(f for f in os.listdir(out)
+                  if f.startswith(stem) and f.endswith(".png"))
+    if pngs:
+        return {"figure": "written", "files": pngs}
+    for name in modules:
+        try:
+            __import__(name)
+        except ImportError as e:
+            return {"figure": "skipped", "reason": str(e)}
+    raise AssertionError(f"no {stem} figure written though {modules} "
+                         f"import")
+
+
+def extras_ae(tmp: str, data: str, sources, target: str, card: str) -> dict:
+    """``VoiceConverter().train`` of the generator at the default config,
+    bf16, 2 epochs of 2 steps of 16 x 400, every epoch a save epoch,
+    with a JSONL ``MetricsLogger`` and the per-epoch conversion examples:
+    kernels 1-3 (the examples: the 4 s wav at 1 chunk, the 24 s at 9)
+    and 6/7 must launch; a ``params`` and a ``grads`` histogram of every
+    leaf at each save epoch; each example finite, not silent and of its
+    length; the figure written or reported skipped.  Measured: each save
+    epoch's save stall (``block=False``) and histogram time, the wait at
+    the end, then a blocking and an asynchronous save of the same payload
+    in turns (wall, stall, wait, bytes).  Returns the launches."""
+    mel_cfg = AutoEncoderConfig().spectrogram
+    vc = VoiceConverter(verbose=False)
+    logger = MetricsLogger(WandbConfig(mode="disabled"),
+                           log_dir=os.path.join(tmp, "logs"))
+    vc.logger = logger
+    ckpt = os.path.join(tmp, "ckpt")
+    with CallTimer(TRL, "save_checkpoint") as saves, \
+            CallTimer(TRL, "wait_for_saves") as waits, \
+            CallTimer(logger, "log_tree_histograms") as hists, \
+            OutputTap() as tap:
+        for name in EXTRAS_KERNELS:
+            KERNELS[name]["kernel"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = vc.train(data, model_type="auto_encoder", n_epochs=2,
+                        batch_size=16, log_freq=1, save_freq=1,
+                        model_name="ae.ckpt", save_dir=ckpt,
+                        source_examples=sources, target_examples=[target])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: KERNELS[k]["kernel"].launches for k in EXTRAS_KERNELS}
+    require_launches("the generator's training with examples", counts,
+                     EXTRAS_KERNELS)
+    if info["step"] != 4:
+        raise AssertionError(f"{info['step']} steps, not 4")
+    names = leaf_names(vc.AE.params)
+    values = hold_histograms("generator", logger, [
+        (f"hist/{tree}/{n}", step) for step in (2, 4)
+        for tree in ("params", "grads") for n in names])
+    examples = []
+    for path in sources:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        out = os.path.join("results", "training_examples",
+                           f"{stem}_to_target.wav")
+        wav = audio_io.load_wav(out)[0]
+        rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+        want = expected_samples(len(audio_io.load_wav(path)[0]), mel_cfg)
+        if not (np.all(np.isfinite(wav)) and rms > 1e-4
+                and len(wav) == want):
+            raise AssertionError(f"example {out}: {len(wav)} samples "
+                                 f"(want {want}), rms {rms}")
+        examples.append({"file": out, "samples": len(wav), "rms": rms})
+    if len(tap.outputs) != 2 * len(sources):
+        raise AssertionError(f"{len(tap.outputs)} example conversions, "
+                             f"not {2 * len(sources)}")
+
+    payload = {"step": info["step"], "params": vc.AE.params,
+               "ema_params": vc.AE.extras["ema_params"],
+               "opt_state": info["opt_state"]}
+    turns = []
+    path = os.path.join(ckpt, "turn.ckpt")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        CK.save_checkpoint(path, payload, block=True)
+        blocking = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        CK.save_checkpoint(path, payload, block=False)
+        stall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        CK.wait_for_saves()
+        turns.append({"block_true_s": blocking, "block_false_stall_s": stall,
+                      "then_wait_s": time.perf_counter() - t0})
+    res = {"phase": "train_extras generator", "steps": info["step"],
+           "epochs": 2, "batch": [16, 80, 400], "precision": "bf16",
+           "wall_s": wall, "launches": counts,
+           "histograms": len(hist_records(logger)),
+           "values_histogrammed": values,
+           "save_stall_s_by_epoch": saves.walls,
+           "histogram_s_by_epoch": [sum(hists.walls[i:i + 2])
+                                    for i in (0, 2)],
+           "wait_for_saves_s": waits.walls,
+           "example_conversions": len(tap.outputs), "examples": examples,
+           "checkpoint_bytes": os.path.getsize(os.path.join(ckpt,
+                                                            "ae.ckpt")),
+           "save_turns": turns,
+           **figure_status(logger, "mel_reconstruction", ("matplotlib",)),
+           "card": card}
+    log(res)
+    shutil.rmtree(ckpt)            # ~0.9 GB of checkpoints
+    return counts
+
+
+EXAMPLE_BAR = 1.0 / 32767      # one int16 step of the written waveform
+
+
+def extras_example_hold(tmp: str, data: str, source: str, target: str,
+                        card: str) -> None:
+    """The per-epoch example at f32 (``ae_precision`` and
+    ``vocoder_precision``): the epoch-2 example of the 4 s wav equals
+    ``convert`` by a fresh converter (same seed) loaded from the epoch-2
+    checkpoint, within one int16 step, and differs from the epoch-1
+    example."""
+    kw = dict(verbose=False, ae_precision="f32", vocoder_precision="f32")
+    vc = VoiceConverter(**kw)
+    vc.logger = StepClock()
+    ckpt = os.path.join(tmp, "ckpt_f32")
+    with OutputTap() as tap:
+        vc.train(data, model_type="auto_encoder", n_epochs=2, batch_size=16,
+                 log_freq=1, save_freq=1, model_name="ae.ckpt",
+                 save_dir=ckpt, source_examples=[source],
+                 target_examples=[target])
+    epoch1, epoch2 = (o.wav for o in tap.outputs)
+    fresh = VoiceConverter(auto_encoder=os.path.join(ckpt, "ae.ckpt"), **kw)
+    again = fresh.convert(source, target, save_name=False).wav
+    shutil.rmtree(ckpt)
+    err = float(np.abs(again - epoch2).max())
+    moved = float(np.abs(epoch2 - epoch1).max())
+    res = {"phase": "train_extras example hold", "precision": "f32",
+           "samples": len(epoch2), "max_abs_err": err, "bar": EXAMPLE_BAR,
+           "epoch1_vs_epoch2_max_abs": moved, "card": card}
+    log(res)
+    if not (len(again) == len(epoch2) and err <= EXAMPLE_BAR
+            and moved > EXAMPLE_BAR):
+        raise AssertionError(f"example hold failed: {res}")
+
+
+def extras_se(tmp: str, card: str, dev) -> dict:
+    """``train_speaker_encoder`` at the full-width config, GE2E 64 x 8 x
+    160, 2 epochs of 2 steps, each a save epoch, with a JSONL logger: a
+    ``params`` histogram of every leaf at each, the asynchronous
+    checkpoint on disk at the end, the TSNE figure written or reported
+    skipped.  Returns kernels 6/7's launches."""
+    cfg = SpeakerEncoderConfig()
+    params = from_jax_params(SE.init(torch.Generator().manual_seed(21), cfg),
+                             dev)
+    logger = MetricsLogger(WandbConfig(mode="disabled"),
+                           log_dir=os.path.join(tmp, "se_logs"))
+    with CallTimer(logger, "log_tree_histograms") as hists, \
+            CallTimer(TRL, "save_checkpoint") as saves:
+        for name in TRAIN_KERNELS:
+            KERNELS[name]["kernel"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, info = TRL.train_speaker_encoder(
+            params, SyntheticSpeakers(cfg.learn.batch_size, 160,
+                                      cfg.input_size, 22), cfg,
+            n_epochs=2, utterances_per_speaker=8, steps_per_epoch=2,
+            log_freq=1, save_freq=1, model_name="se.ckpt",
+            save_dir=os.path.join(tmp, "se_ckpt"), logger=logger,
+            verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {k: KERNELS[k]["kernel"].launches for k in TRAIN_KERNELS}
+    if any(c != 4 for c in counts.values()) or info["step"] != 4:
+        raise AssertionError(f"SE extras: {info['step']} steps, {counts}")
+    hold_histograms("speaker encoder", logger, [
+        (f"hist/params/{n}", step) for step in (2, 4)
+        for n in leaf_names(params)])
+    blob = CK.load_checkpoint(os.path.join(tmp, "se_ckpt", "se.ckpt"))
+    if blob["step"] != 4:
+        raise AssertionError(f"SE checkpoint at step {blob['step']}")
+    log({"phase": "train_extras speaker encoder", "steps": info["step"],
+         "batch": [cfg.learn.batch_size, 8, 160], "wall_s": wall,
+         "launches": counts, "save_stall_s_by_epoch": saves.walls,
+         "histogram_s_by_epoch": hists.walls,
+         **figure_status(logger, "embedding_tsne", ("matplotlib",
+                                                    "sklearn")),
+         "card": card})
+    return counts
+
+
+def extras_trace(tmp: str, card: str, dev) -> None:
+    """One generator step (default config, bf16, 16 x 400) under
+    ``profiling.trace``: a non-empty Chrome trace file."""
+    cfg = AutoEncoderConfig()
+    params = from_jax_params(AE.init(torch.Generator().manual_seed(5), cfg),
+                             dev)
+    tx = TRS.make_optimizer(cfg.optimizer, 1)
+    step_fn = TRL.make_ae_step(cfg, tx, cfg.learn.ema_decay)
+    opt_state, ema = tx.init(tree_leaves(params)), tree_clone(params)
+    g = torch.Generator().manual_seed(6)
+    x = torch.rand(16, 80, 400, generator=g).to(dev)
+    c = torch.nn.functional.normalize(torch.randn(16, 256, generator=g),
+                                      dim=1).to(dev)
+    step_fn(params, opt_state, ema, x, c)      # warm-up
+    out = os.path.join(tmp, "trace")
+    t0 = time.perf_counter()
+    with profiling.trace(out):
+        profiling.sync(step_fn(params, opt_state, ema, x, c)[0])
+    wall = time.perf_counter() - t0
+    files = [os.path.join(out, f) for f in os.listdir(out)]
+    sizes = [os.path.getsize(f) for f in files]
+    log({"phase": "train_extras trace", "files": len(files),
+         "bytes": sizes, "traced_wall_s": wall, "card": card})
+    if len(files) != 1 or sizes[0] == 0:
+        raise AssertionError(f"profiling.trace wrote {files} ({sizes})")
+
+
+def phase_train_extras(card: str, dev=torch.device("cuda")) -> dict:
+    """Phase 10: the training extras at full width, from a scratch
+    working directory (the examples land under ``results/`` there).
+    Returns the launches of the generator's and the speaker encoder's
+    runs."""
+    sr = 22050
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            data = os.path.join(tmp, "data")
+            os.mkdir(data)
+            # 4 wavs of 22.5 s: 32 chunks of 400 frames, 2 steps of 16
+            for i in range(4):
+                audio_io.save_wav(os.path.join(data, f"speaker{i % 2}_{i}.wav"),
+                                  synthetic_wav(22.5, sr, 300 + i), sr)
+            sources = write_wavs(tmp, "example", (4.0, 24.0), sr)
+            target = os.path.join(tmp, "target.wav")
+            audio_io.save_wav(target, synthetic_wav(3.0, sr, 99), sr)
+            launches = extras_ae(tmp, data, sources, target, card)
+            extras_example_hold(tmp, data, sources[0], target, card)
+            for name, count in extras_se(tmp, card, dev).items():
+                launches[name] += count
+            extras_trace(tmp, card, dev)
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def phase_roofline(card: str, conversions, train, vocoder, se) -> list:
+    """Phase 4's three conversions (their mel, generator and vocoder
+    stages, the stage walls) and phases 5-7's median steps accounted
+    through ``roofline`` against the card's peaks.  The vocoder stage's
+    latency model is the sampling loop's own device time a step in the
+    run whose stages were timed; the generator's is
+    ``STREAM_STEP_FLOOR_US`` a frame.
+    An entry whose time is below its throughput bound fails the run."""
+    spec = RL.chip_spec()
+    ae_cfg, wr_cfg = AutoEncoderConfig(), WaveRNNConfig()
+    mel_cfg, g = ae_cfg.spectrogram, wr_cfg.generate
+    N = mel_cfg.partial_utterance_n_frames
+    steps = g.target + 2 * g.overlap
+    entries = []
+    for conv in conversions:
+        sec, chunks, stage = conv["seconds_in"], conv["chunks"], \
+            conv["stage_s"]
+        frames = N + (chunks - 1) * (N // 2)
+        rows = WR._row_bucket(WR._fold_count(
+            (frames - 1) * wr_cfg.hop_length, g.target, g.overlap))
+        fl, by = RL.melspec_cost(frames, mel_cfg.n_fft, mel_cfg.n_mels,
+                                 mel_cfg.window_length)
+        entries.append(RL.account(f"mel {sec:g}s", fl, by, stage["mel"],
+                                  spec))
+        fl, by = RL.ae_forward_cost(ae_cfg, chunks, N)
+        entries.append(RL.account(
+            f"generator {sec:g}s ({chunks} rows)", fl, by,
+            stage["autoencoder"], spec, compute_dtype="bf16",
+            sequential_steps=N, step_floor_us=RL.STREAM_STEP_FLOOR_US))
+        fl_c, by_c = RL.wavernn_conditioning_cost(
+            wr_cfg, 1, (frames - 1) * wr_cfg.hop_length)
+        fl_s, by_s = RL.wavernn_step_cost(wr_cfg, rows)
+        fl_p, by_p = RL.wavernn_prologue_cost(wr_cfg, rows, steps)
+        loop_ms, = conv["sampling_loop_ms"]
+        floor_us = loop_ms * 1e3 / steps
+        entries.append(RL.account(
+            f"vocoder {sec:g}s ({rows} rows)", fl_c + fl_s * steps + fl_p,
+            by_c + by_s * steps + by_p, stage["vocoder"], spec,
+            compute_dtype="bf16", sequential_steps=steps,
+            step_floor_us=floor_us))
+    for name, (fl, by), res in (
+            ("ae_train_step 16x400", RL.ae_train_cost(ae_cfg, 16, N), train),
+            ("vocoder_train_step 8x2475",
+             RL.vocoder_train_cost(wr_cfg, 8, 9 * wr_cfg.hop_length),
+             vocoder),
+            ("se_train_step 64x8x160", RL.se_train_cost(
+                SpeakerEncoderConfig(), 64, 8, 160), se)):
+        entries.append(RL.account(name, fl, by, res["median_step_s"], spec,
+                                  compute_dtype="bf16"))
+    log({"phase": "roofline", "spec": dataclasses.asdict(spec),
+         "stream_step_floor_us": RL.STREAM_STEP_FLOOR_US,
+         "entries": entries, "card": card})
+    log({"phase": "roofline table",
+         "lines": RL.format_table(entries).splitlines()})
+    bad = [e["component"] for e in entries if not e["measurement_valid"]]
+    if bad:
+        raise AssertionError(f"roofline entries faster than their bound "
+                             f"(a wrong count or clock): {bad}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1979,18 +2384,24 @@ def main() -> int:
     k45 = compare_gru_train(8, 9 * 275, torch.bfloat16, gen, dev)
     compare_gru_train(32, 5 * 275, torch.bfloat16, gen, dev)
     k1 = compare_wavernn(gen, dev)
-    launches = phase_end_to_end(card)
+    launches, conversions = phase_end_to_end(card)
     for name, count in phase_batch_serving(card).items():
         launches[name] += count
-    launches.update(phase_train(card))
+    train = phase_train(card)
+    launches.update(train["launches"])
     phase_train_f32_vs_cpu(card)
-    launches.update(phase_vocoder_train(card))
+    vocoder = phase_vocoder_train(card)
+    launches.update(vocoder["launches"])
     phase_vocoder_f32_vs_cpu(card)
-    for name, count in phase_se_train(card).items():
+    se = phase_se_train(card)
+    for name, count in se["launches"].items():
         launches[name] += count
     phase_se_f32_vs_cpu(card)
     for name, count in phase_cli(card).items():
         launches[name] += count
+    for name, count in phase_train_extras(card).items():
+        launches[name] += count
+    phase_roofline(card, conversions, train, vocoder, se)
 
     def entry(name, cmp, err):
         return {"name": name, "route": "cuda",

@@ -50,7 +50,10 @@ def test_port_imports_and_converts_without_jax():
                 "autovc_tpu_torch.ops.mol",
                 "autovc_tpu_torch.train.loop", "autovc_tpu_torch.cli",
                 "autovc_tpu_torch.__main__",
-                "autovc_tpu_torch.utils.torch_compat"} <= names, names
+                "autovc_tpu_torch.utils.torch_compat",
+                "autovc_tpu_torch.utils.profiling",
+                "autovc_tpu_torch.utils.roofline",
+                "autovc_tpu_torch.utils.visual"} <= names, names
         from autovc_tpu_torch import Audio, ConverterConfig, VoiceConverter
         cfg = ConverterConfig().with_overrides(vocoder={
             "rnn_dims": 32, "fc_dims": 32,
