@@ -78,13 +78,15 @@ def init(gen: torch.Generator,
 
 def encoder(params: Params, x: torch.Tensor, c_org: torch.Tensor,
             freq: int, dim_neck: int, mode: str = "f32",
-            train: bool = False):
+            train: bool = False, group=None):
     """(B, n_mels, T), (B, emb) -> (codes_fwd (B, n_fwd, neck),
-    codes_bwd (B, n_bwd, neck))."""
+    codes_bwd (B, n_bwd, neck)).  ``group``: sync BatchNorm over a
+    process group's ranks in training (``conv.batchnorm1d``)."""
     T = x.shape[-1]
     h = torch.cat([x, c_org[:, :, None].expand(*c_org.shape, T)], dim=1)
     for p in params["convs"]:
-        h = C.conv_bn(p, h, 5, activation=torch.relu, mode=mode, train=train)
+        h = C.conv_bn(p, h, 5, activation=torch.relu, mode=mode, train=train,
+                      group=group)
     out = R.bilstm_stack(params["blstm"], h.transpose(1, 2), mode)
     out_f, out_b = out[..., :dim_neck], out[..., dim_neck:]
     return out_f[:, freq - 1::freq, :], out_b[:, ::freq, :]
@@ -104,17 +106,18 @@ def upsample_codes(codes_fwd: torch.Tensor, codes_bwd: torch.Tensor,
 
 
 def decoder(params: Params, x: torch.Tensor, mode: str = "f32",
-            lstm2_packed=None, train: bool = False):
+            lstm2_packed=None, train: bool = False, group=None):
     """(B, T, 2*neck+emb) -> (B, T, n_mels).  ``lstm2_packed``: lstm2's
     inference kernel weights, ``lstm_kernels.pack(params["lstm2"], mode)``
-    (built per call when None)."""
+    (built per call when None); ``group`` as for :func:`encoder`."""
     if train:
         h, _ = LT.lstm_stack_train(params["lstm1"], x, mode)
     else:
         h = LK.lstm_stack_rec(params["lstm1"], x, mode)
     h = h.transpose(1, 2)
     for p in params["convs"]:
-        h = C.conv_bn(p, h, 5, activation=torch.relu, mode=mode, train=train)
+        h = C.conv_bn(p, h, 5, activation=torch.relu, mode=mode, train=train,
+                      group=group)
     h = h.transpose(1, 2)
     if train:
         h, _ = LT.lstm_stack_train(params["lstm2"], h, mode)
@@ -126,14 +129,14 @@ def decoder(params: Params, x: torch.Tensor, mode: str = "f32",
 
 
 def postnet(params: Params, x: torch.Tensor, mode: str = "f32",
-            train: bool = False):
+            train: bool = False, group=None):
     """(B, n_mels, T) -> residual (B, n_mels, T); tanh on all but the last
-    conv."""
+    conv; ``group`` as for :func:`encoder`."""
     h = x
     n = len(params["convs"])
     for i, p in enumerate(params["convs"]):
         h = C.conv_bn(p, h, 5, activation=torch.tanh if i < n - 1 else None,
-                      mode=mode, train=train)
+                      mode=mode, train=train, group=group)
     return h
 
 
@@ -145,42 +148,47 @@ def _flatten_codes(codes_fwd, codes_bwd) -> torch.Tensor:
 
 def content_codes(params: Params, x: torch.Tensor, c_org: torch.Tensor,
                   cfg: AutoEncoderConfig, mode: str = "f32",
-                  train: bool = False) -> torch.Tensor:
+                  train: bool = False, group=None) -> torch.Tensor:
     """Encoder-only pass (the reference's ``forward(..., c_trg=None)``):
     the flattened content codes (B, (n_fwd + n_bwd) * neck)."""
     return _flatten_codes(*encoder(params["encoder"], x, c_org, cfg.freq,
-                                   cfg.dim_neck, mode, train))
+                                   cfg.dim_neck, mode, train, group))
 
 
 def forward(params: Params, x: torch.Tensor, c_org: torch.Tensor,
             c_trg: torch.Tensor, cfg: AutoEncoderConfig, mode: str = "f32",
-            lstm2_packed=None, train: bool = False):
+            lstm2_packed=None, train: bool = False, group=None):
     """Full generator pass: (mel_decoder, mel_postnet, content_codes) with
-    mels (B, n_mels, T); ``lstm2_packed`` as for :func:`decoder`."""
+    mels (B, n_mels, T); ``lstm2_packed`` as for :func:`decoder`,
+    ``group`` as for :func:`encoder`."""
     T = x.shape[-1]
     codes_fwd, codes_bwd = encoder(params["encoder"], x, c_org, cfg.freq,
-                                   cfg.dim_neck, mode, train)
+                                   cfg.dim_neck, mode, train, group)
     up = upsample_codes(codes_fwd, codes_bwd, cfg.freq, T)
     dec_in = torch.cat([up, c_trg[:, None, :].expand(x.shape[0], T, -1)],
                        dim=-1)
     mel_dec = decoder(params["decoder"], dec_in, mode, lstm2_packed,
-                      train).transpose(1, 2)
-    mel_post = mel_dec + postnet(params["postnet"], mel_dec, mode, train)
+                      train, group).transpose(1, 2)
+    mel_post = mel_dec + postnet(params["postnet"], mel_dec, mode, train,
+                                 group)
     return mel_dec, mel_post, _flatten_codes(codes_fwd, codes_bwd)
 
 
 def loss(params: Params, x: torch.Tensor, c_org: torch.Tensor,
          cfg: AutoEncoderConfig, mu: float = 1.0, lambd: float = 1.0,
-         mode: str = "f32", train: bool = True):
+         mode: str = "f32", train: bool = True, group=None):
     """Three-term AutoVC loss (``autoencoder.py:274-294``):
     MSE(postnet, x) + mu * MSE(decoder, x) + lambd * L1(codes(recon),
     codes), the reconstruction's codes from the encoder re-run on the
     postnet output.  In training the BatchNorm statistics move twice, in
     the JAX package's order: the forward's, then the encoder's again on
-    the re-run.  Returns (loss, aux dict of device scalars)."""
+    the re-run.  ``group``: sync BatchNorm over a process group (the
+    terms stay means over this rank's rows).  Returns (loss, aux dict of
+    device scalars)."""
     mel_dec, mel_post, codes = forward(params, x, c_org, c_org, cfg, mode,
-                                       train=train)
-    recon_codes = content_codes(params, mel_post, c_org, cfg, mode, train)
+                                       train=train, group=group)
+    recon_codes = content_codes(params, mel_post, c_org, cfg, mode, train,
+                                group)
     l_post = torch.mean((mel_post - x) ** 2)
     l_dec = torch.mean((mel_dec - x) ** 2)
     l_content = torch.mean(torch.abs(recon_codes - codes))

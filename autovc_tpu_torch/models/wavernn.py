@@ -85,12 +85,14 @@ def init(gen: torch.Generator, cfg: WaveRNNConfig = WaveRNNConfig()) -> Params:
 
 
 def _mel_resnet(params: Params, m: torch.Tensor, train: bool = False,
-                mode: str = "f32") -> torch.Tensor:
+                mode: str = "f32", group=None) -> torch.Tensor:
     """(B, feat, F) -> (B, res_out, F - 2*pad): valid conv, then 1x1
     residual blocks.  ``train``: batch-statistics BatchNorm whose running
-    statistics move in place."""
+    statistics move in place; ``group``: over a process group's global
+    batch (sync BatchNorm, ``conv.batchnorm1d``)."""
     def conv_bn(conv, bn, x):
-        return C.batchnorm1d(bn, C.conv1d(conv, x, mode=mode), train)
+        return C.batchnorm1d(bn, C.conv1d(conv, x, mode=mode), train,
+                             group=group)
 
     x = torch.relu(conv_bn(params["conv_in"], params["bn_in"], m))
     for blk in params["blocks"]:
@@ -130,12 +132,13 @@ def _composite_upsample_kernel(up_convs, factors):
 
 
 def upsample(params: Params, m: torch.Tensor, cfg: WaveRNNConfig,
-             train: bool = False, mode: str = "f32"):
+             train: bool = False, mode: str = "f32", group=None):
     """Conditioning upsampler: m (B, feat, F), pad-extended by ``pad``
     frames a side -> (mels (B, T, feat), aux (B, T, res_out)) with
     T = (F - 2*pad) * total_scale (``wavernn.py:152-191``).  The smoothing
-    chain runs in f32 under both policies, as in the JAX package."""
-    aux = _mel_resnet(params["resnet"], m, train, mode)
+    chain runs in f32 under both policies, as in the JAX package.
+    ``group`` as for :func:`_mel_resnet`."""
+    aux = _mel_resnet(params["resnet"], m, train, mode, group)
     aux = torch.repeat_interleave(aux, cfg.total_scale, dim=-1)
     K, J = _composite_upsample_kernel(params["up_convs"],
                                       cfg.upsample_factors)
@@ -159,10 +162,11 @@ def upsample(params: Params, m: torch.Tensor, cfg: WaveRNNConfig,
 
 def forward(params: Params, x: torch.Tensor, mels: torch.Tensor,
             cfg: WaveRNNConfig, train: bool = False,
-            mode: str = "f32") -> torch.Tensor:
+            mode: str = "f32", group=None) -> torch.Tensor:
     """Teacher-forced pass: previous samples x (B, T) and mels (B, feat, F)
-    with T = (F - 2*pad) * total_scale -> logits (B, T, n_classes)."""
-    cond, aux = upsample(params["upsample"], mels, cfg, train, mode)
+    with T = (F - 2*pad) * total_scale -> logits (B, T, n_classes).
+    ``group`` as for :func:`_mel_resnet`."""
+    cond, aux = upsample(params["upsample"], mels, cfg, train, mode, group)
     d, rd, fcd = cfg.aux_dims, cfg.rnn_dims, cfg.fc_dims
     inp = torch.cat([x[..., None], cond, aux[..., :d]], dim=-1)
     # time-major from here to the logits
@@ -195,15 +199,16 @@ def encode_mu_law(x: torch.Tensor, mu: int) -> torch.Tensor:
 
 def loss(params: Params, x_in: torch.Tensor, y_target: torch.Tensor,
          mels: torch.Tensor, cfg: WaveRNNConfig, train: bool = True,
-         mode: str = "f32") -> torch.Tensor:
+         mode: str = "f32", group=None) -> torch.Tensor:
     """Vocoder training loss (``wavernn.py:279-304``): the MOL negative
     log-likelihood (mode 'MOL') or the cross-entropy over quantised classes
     (mode 'RAW', in the mu-law companded domain when
-    ``cfg.generate.mu_law``)."""
+    ``cfg.generate.mu_law``).  ``group``: sync BatchNorm over a process
+    group (the loss stays a mean over this rank's rows)."""
     if cfg.mode == "RAW" and cfg.generate.mu_law:
         x_in = encode_mu_law(x_in, cfg.n_classes)
         y_target = encode_mu_law(y_target, cfg.n_classes)
-    logits = forward(params, x_in, mels, cfg, train, mode)
+    logits = forward(params, x_in, mels, cfg, train, mode, group)
     if cfg.mode == "MOL":
         return MOL.discretized_mix_logistic_loss(logits, y_target[..., None])
     n = cfg.n_classes

@@ -104,22 +104,39 @@ def linear(params: Params, x: torch.Tensor, mode: str = "f32"):
 
 
 def batchnorm1d(params: Params, x: torch.Tensor, train: bool = False,
-                momentum: float = 0.1, eps: float = 1e-5):
+                momentum: float = 0.1, eps: float = 1e-5, group=None):
     """BatchNorm over (B, C, T), statistics over (B, T).
 
     Eval mode normalises with the running statistics.  Train mode
     normalises with the batch's (biased variance) and moves the running
     statistics in place: ``new = (1 - momentum) * old + momentum * batch``
     with the UNBIASED batch variance, as ``nn.BatchNorm1d`` and the JAX
-    function do."""
+    function do.
+
+    ``group`` (a process group; the JAX function's ``axis_name``) makes
+    train mode sync BatchNorm: the per-channel sum, sum of squares and
+    element count are summed over the group's ranks in one differentiable
+    all-reduce, so every rank normalises with, and moves its running
+    statistics by, the statistics of the global batch."""
     if train:
-        mean = torch.mean(x, dim=(0, 2))
-        var = torch.mean(x * x, dim=(0, 2)) - mean * mean
-        n = x.shape[0] * x.shape[2]
+        if group is None:
+            mean = torch.mean(x, dim=(0, 2))
+            var = torch.mean(x * x, dim=(0, 2)) - mean * mean
+            n = x.shape[0] * x.shape[2]
+            unbiased = var * (n / max(n - 1, 1))
+        else:
+            from autovc_tpu_torch.parallel import collectives as COL
+            C = x.shape[1]
+            stats = COL.all_reduce_sum(torch.cat([
+                torch.sum(x, dim=(0, 2)), torch.sum(x * x, dim=(0, 2)),
+                x.new_full((1,), float(x.shape[0] * x.shape[2]))]), group)
+            n = stats[2 * C]
+            mean = stats[:C] / n
+            var = stats[C:2 * C] / n - mean * mean
+            unbiased = var * (n / torch.clamp(n - 1, min=1.0))
         with torch.no_grad():
             params["mean"].mul_(1 - momentum).add_(momentum * mean)
-            params["var"].mul_(1 - momentum).add_(
-                momentum * (var * (n / max(n - 1, 1))))
+            params["var"].mul_(1 - momentum).add_(momentum * unbiased)
     else:
         mean, var = params["mean"], params["var"]
     inv = torch.rsqrt(var + eps) * params["scale"]
@@ -129,10 +146,11 @@ def batchnorm1d(params: Params, x: torch.Tensor, train: bool = False,
 
 def conv_bn(params: Params, x: torch.Tensor, kernel_size: int,
             activation=None, mode: str = "f32",
-            train: bool = False) -> torch.Tensor:
+            train: bool = False, group=None) -> torch.Tensor:
     """conv(k, same-pad) -> BN (``train``: batch statistics, running
-    statistics updated in place) -> optional activation."""
+    statistics updated in place; ``group``: over the group's global batch)
+    -> optional activation."""
     out = conv1d(params["conv"], x, padding=(kernel_size - 1) // 2,
                  mode=mode)
-    out = batchnorm1d(params["bn"], out, train)
+    out = batchnorm1d(params["bn"], out, train, group=group)
     return activation(out) if activation is not None else out

@@ -76,10 +76,13 @@ def _flat(p: Params):
             p["b_ih"], p["b_hh"]]
 
 
-def _fused_lstm(x, weights, num_layers, hidden, bidirectional=False):
+def _fused_lstm(x, weights, num_layers, hidden, bidirectional=False,
+                state=None):
     B = x.shape[0]
     nd = 2 if bidirectional else 1
-    h0 = x.new_zeros(num_layers * nd, B, hidden)
+    h0 = c0 = x.new_zeros(num_layers * nd, B, hidden)
+    if state is not None:
+        h0, c0 = (s.reshape(num_layers * nd, B, hidden) for s in state)
     with warnings.catch_warnings():
         # cuDNN notes that the per-call weight list is not one flat buffer
         # (it compacts it per call); the plain recurrences accept that
@@ -87,16 +90,19 @@ def _fused_lstm(x, weights, num_layers, hidden, bidirectional=False):
         # cuDNN differentiates only its training-mode call: take it when
         # autograd records a gradient (no dropout, so the same outputs)
         grad = torch.is_grad_enabled() and (
-            x.requires_grad or any(w.requires_grad for w in weights))
-        out, h, c = torch.lstm(x.contiguous(), (h0, h0), weights, True,
+            x.requires_grad or any(w.requires_grad for w in weights)
+            or (state is not None
+                and any(t.requires_grad for t in state)))
+        out, h, c = torch.lstm(x.contiguous(), (h0, c0), weights, True,
                                num_layers, 0.0, grad, bidirectional, True)
     return out, h, c
 
 
-def lstm_layer(params: Params, x: torch.Tensor):
-    """One LSTM layer over (B, T, I) -> outputs (B, T, H), final (h, c)."""
+def lstm_layer(params: Params, x: torch.Tensor, state=None):
+    """One LSTM layer over (B, T, I) -> outputs (B, T, H), final (h, c);
+    ``state``: the initial (h, c), each (B, H) (zeros when None)."""
     H = params["w_hh"].shape[0]
-    out, h, c = _fused_lstm(x, _flat(params), 1, H)
+    out, h, c = _fused_lstm(x, _flat(params), 1, H, state=state)
     return out, (h[0], c[0])
 
 

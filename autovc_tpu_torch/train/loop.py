@@ -20,6 +20,15 @@ reconstruction mel, the speaker encoder's embedding TSNE.  A figure whose
 plotting package (matplotlib, scikit-learn) is missing is skipped, with
 the reason printed when ``verbose``.  A logger with only ``log`` gets the
 scalars alone.
+
+``mesh=`` makes a loop data-parallel over ``torch.distributed``: every
+rank (one process per mesh position, ``parallel.steps.
+initialize_distributed`` then ``parallel.sharding.make_mesh()``) calls
+the loop with the same arguments and draws the same seeded global
+batches, steps on its own rows (``parallel.steps.make_sharded_*_step``:
+sync BatchNorm, one all-reduce of the gradients, the same update on every
+rank), and only rank 0 logs, saves, histograms and runs
+``on_epoch_end``, so a run writes each file once.
 """
 from __future__ import annotations
 
@@ -149,6 +158,16 @@ def _restore(blob, params, opt_state):
     return params, ema, opt_state
 
 
+def _on_mesh(params, mesh, verbose: bool):
+    """A data-parallel loop's parameters on this rank's device, whether
+    this rank is the one that logs and saves (rank 0, or the one position
+    of a local mesh), and its ``verbose``: the other ranks run quiet."""
+    from autovc_tpu_torch.parallel import sharding as shd
+    params = shd.shard_params(params, mesh)[0]
+    main = not mesh.rank
+    return params, main, verbose and main
+
+
 def _log_figure(logger, name: str, draw: Callable, step: int,
                 verbose: bool) -> None:
     """``logger.log_figure(name, draw())`` for a logger that has the
@@ -189,11 +208,10 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
     ``model_name``), the ``params`` and ``grads`` histograms (the last
     step's raw gradients), the reconstruction figure of the last batch's
     first row, then ``on_epoch_end(epoch, params)`` (every epoch).
-    ``mesh`` (the data-parallel loop) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("the data-parallel training loop (mesh=) "
-                                  "is not ported (ROADMAP, Queue 1, item 9: "
-                                  "multi-device)")
+
+    ``mesh``: the data-parallel loop (module docstring;
+    ``parallel.steps.make_sharded_ae_step``: global batch statistics and
+    gradients); ``batch_size`` must divide by the mesh's 'data' axis."""
     lc, oc = cfg.learn, cfg.optimizer
     if opt_overrides:
         oc = oc.with_overrides(**opt_overrides)
@@ -205,6 +223,13 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
     # None -> config default; '' -> saving disabled
     model_name = lc.model_name if model_name is None else model_name
     save_dir = lc.save_dir if save_dir is None else save_dir
+    if mesh is not None:
+        assert batch_size % mesh.shape["data"] == 0, \
+            f"batch_size {batch_size} must divide mesh 'data' axis " \
+            f"{mesh.shape['data']}"
+        params, main, verbose = _on_mesh(params, mesh, verbose)
+        if not main:
+            logger, model_name, on_epoch_end = None, "", None
 
     steps_per_epoch = dataset.epoch_steps(batch_size)
     lr_schedule = schedules.make_schedule(oc, steps_per_epoch, dim_model=80)
@@ -223,8 +248,14 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
 
     # the gradient tree rides in aux only for a logger that histograms it
     hist = getattr(logger, "log_tree_histograms", None)
-    step_fn = make_ae_step(cfg, tx, ema_decay, precision=precision,
-                           with_grads=hist is not None)
+    if mesh is not None:
+        from autovc_tpu_torch.parallel import steps as psteps
+        step_fn = psteps.on_rows(psteps.make_sharded_ae_step(
+            cfg, tx, ema_decay, mesh, precision=precision,
+            with_grads=hist is not None), mesh, 3)
+    else:
+        step_fn = make_ae_step(cfg, tx, ema_decay, precision=precision,
+                               with_grads=hist is not None)
     n_total = n_epochs * steps_per_epoch
     step = start_step
     loss_hist, t_start = [], time.time()
@@ -374,12 +405,14 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
     of the last block's embeddings; the loop waits for its saves before it
     returns.  On CUDA the stack runs kernels 6/7, which carry at most
     ``lstm_train_kernels.MAX_LAYERS`` = 4 layers: a deeper speaker
-    encoder raises here, before any batch is drawn.  ``mesh`` (the
-    data-parallel loop) is not ported."""
+    encoder raises here, before any batch is drawn.
+
+    ``mesh``: the data-parallel loop over the speaker axis of the blocks
+    (module docstring; ``parallel.steps.make_sharded_se_step``: the GE2E
+    loss of the gathered block)."""
+    main = True
     if mesh is not None:
-        raise NotImplementedError("the data-parallel training loop (mesh=) "
-                                  "is not ported (ROADMAP, Queue 1, item 9: "
-                                  "multi-device)")
+        params, main, verbose = _on_mesh(params, mesh, verbose)
     check_se_depth(params)
     from autovc_tpu_torch.models import speaker_encoder as SE
     lc, oc = cfg.learn, cfg.optimizer
@@ -390,6 +423,8 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
     save_freq = save_freq if save_freq is not None else lc.save_freq
     model_name = lc.model_name if model_name is None else model_name
     save_dir = lc.save_dir if save_dir is None else save_dir
+    if not main:
+        logger, model_name = None, ""
 
     tx = schedules.make_optimizer(oc, steps_per_epoch,
                                   dim_model=cfg.embedding_size)
@@ -407,7 +442,12 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
     if tree_leaves(params)[0].device.type == "cuda":
         PREC.exact_f32()
 
-    step_fn = make_se_step(cfg, tx)
+    if mesh is not None:
+        from autovc_tpu_torch.parallel import steps as psteps
+        step_fn = psteps.on_rows(psteps.make_sharded_se_step(cfg, tx, mesh),
+                                 mesh, 2)
+    else:
+        step_fn = make_se_step(cfg, tx)
     n_total = n_epochs * steps_per_epoch
     step = start_step
     for epoch in range(1, n_epochs + 1):
@@ -498,12 +538,15 @@ def train_vocoder(params, dataset, cfg: WaveRNNConfig,
     loop saves ``{step, params, opt_state}`` asynchronously after each
     epoch and waits for the writes before it returns;
     ``resume=True`` restores them from the newest checkpoint in
-    ``save_dir`` (the JAX package's vocoder checkpoints too).  ``mesh``
-    (the data-parallel loop) is not ported."""
+    ``save_dir`` (the JAX package's vocoder checkpoints too).
+
+    ``mesh``: the data-parallel loop (module docstring;
+    ``parallel.steps.make_sharded_vocoder_step``: the MelResNet
+    BatchNorms over the global batch)."""
     if mesh is not None:
-        raise NotImplementedError("the data-parallel training loop (mesh=) "
-                                  "is not ported (ROADMAP, Queue 1, item 9: "
-                                  "multi-device)")
+        params, main, verbose = _on_mesh(params, mesh, verbose)
+        if not main:
+            logger, model_name = None, ""
     oc = OptimizerConfig(lr=lr, lr_scheduler="constant", grad_clip_norm=4.0)
     tx = schedules.make_optimizer(oc, steps_per_epoch)
     opt_state = tx.init(tree_leaves(params))
@@ -519,7 +562,12 @@ def train_vocoder(params, dataset, cfg: WaveRNNConfig,
     if tree_leaves(params)[0].device.type == "cuda":
         PREC.exact_f32()
 
-    step_fn = make_vocoder_step(cfg, tx)
+    if mesh is not None:
+        from autovc_tpu_torch.parallel import steps as psteps
+        step_fn = psteps.on_rows(psteps.make_sharded_vocoder_step(
+            cfg, tx, mesh), mesh, 2)
+    else:
+        step_fn = make_vocoder_step(cfg, tx)
     step = start_step
     n_total = n_epochs * steps_per_epoch
     for epoch in range(1, n_epochs + 1):

@@ -4,9 +4,12 @@
 ``convert_batch``, ``convert_multiple``, ``learn_speakers``, ``train``
 (the AutoVC generator, the GE2E speaker encoder and the vocoder),
 ``setup_logging`` (and its alias ``setup_wandb``), ``save`` and ``close``.
-Not ported yet: ``convert``'s ``parallel=`` / ``mesh=`` and
-``convert_batch(parallel="pipeline")`` (multi-device; both raise
-``NotImplementedError``).
+The multi-device paths run over a local mesh
+(:mod:`autovc_tpu_torch.parallel`): ``convert(parallel="chunks")`` shards
+the mel chunks over the positions, ``convert(parallel="ring")`` runs the
+generator time-sharded over the unchunked mel, and
+``convert_batch(parallel="pipeline")`` streams the utterances through a
+generator stage and a vocoder stage.
 
 ``convert`` runs the JAX package's fused accelerator chain
 (``_fused_convert``): host preprocessing and slice geometry, then on the
@@ -188,9 +191,14 @@ class VoiceConverter:
         return ema
 
     def _fused_convert(self, wav, c_source, c_target, ae_cfg, overlap,
-                       seed, ae_params, lstm2_packed) -> np.ndarray:
+                       seed, ae_params, lstm2_packed,
+                       mesh=None) -> np.ndarray:
         """Slice geometry on the host, then the device chain wav -> mel
-        chunks -> AE -> vocoder -> PCM16 (``voice_converter.py:188-225``)."""
+        chunks -> AE -> vocoder -> PCM16 (``voice_converter.py:188-225``).
+        With ``mesh`` (``parallel="chunks"``) the chunks, zero-padded to a
+        multiple of the mesh size, convert over its positions
+        (``parallel.steps.chunk_sharded_convert``) and the merged mel comes
+        back to the converter's device."""
         from autovc_tpu_torch.models import autoencoder as AEm
         from autovc_tpu_torch.models import wavernn as WRm
         from autovc_tpu_torch.ops import melspec as MEL
@@ -220,9 +228,19 @@ class VoiceConverter:
                                         device=dev)
                 c_trg = torch.as_tensor(np.asarray(c_target, np.float32),
                                         device=dev)
-                post = AEm.batch_forward(ae_params, chunks, c_src, c_trg,
-                                         ae_cfg, overlap, self.ae_precision,
-                                         lstm2_packed)
+                if mesh is None:
+                    post = AEm.batch_forward(ae_params, chunks, c_src, c_trg,
+                                             ae_cfg, overlap,
+                                             self.ae_precision, lstm2_packed)
+                else:
+                    from autovc_tpu_torch.parallel import steps as psteps
+                    M = len(starts)
+                    padded = torch.nn.functional.pad(
+                        chunks, (0, 0, 0, 0, 0, (-M) % mesh.size))
+                    post = psteps.chunk_sharded_convert(
+                        ae_params, padded, c_src, c_trg, M, ae_cfg, overlap,
+                        self.ae_precision, mesh, lstm2_packed)
+                    post = post[:, :total_frames].to(dev)
             with self._stage("vocoder"):
                 gen = torch.Generator(device=dev).manual_seed(seed)
                 out = WRm._generate_program(
@@ -262,6 +280,43 @@ class VoiceConverter:
                     fast_math=self.vocoder_precision == "bf16", device=dev,
                     packed=self._vocoder_packed)
 
+    def _ring_convert(self, wav, c_source, c_target, ae_cfg, seed,
+                      ae_params, mesh) -> np.ndarray:
+        """``parallel="ring"`` (``voice_converter.py:347-363``): the host
+        mel of the whole utterance, trimmed to a multiple of the mesh
+        size, through the time-sharded generator
+        (``parallel.ring.ring_autovc_infer``), then ``wavernn.generate``
+        on the converter's device."""
+        from autovc_tpu_torch.models import wavernn as WRm
+        from autovc_tpu_torch.parallel import ring as pring
+
+        n = int(mesh.shape["data"])
+        dev0 = mesh.devices[0]
+        with torch.inference_mode():
+            with self._stage("mel"):
+                mel = dsp.mel_spec_auto_encoder(wav, ae_cfg.spectrogram)
+                Tn = (mel.shape[-1] // n) * n
+                if Tn == 0:
+                    raise ValueError(f"input too short for ring SP over {n} "
+                                     f"devices ({mel.shape[-1]} mel frames)")
+                x = torch.from_numpy(np.ascontiguousarray(
+                    mel[None, :, :Tn], np.float32)).to(dev0)
+            with self._stage("autoencoder"):
+                post = pring.ring_autovc_infer(
+                    ae_params, x,
+                    torch.as_tensor(np.asarray(c_source, np.float32),
+                                    device=dev0),
+                    torch.as_tensor(np.asarray(c_target, np.float32),
+                                    device=dev0),
+                    ae_cfg, mesh, "data", self.ae_precision)
+            with self._stage("vocoder"):
+                return WRm.generate(
+                    self.vocoder.params, post.to(self.device),
+                    self.vocoder.config,
+                    torch.Generator(device=self.device).manual_seed(seed),
+                    fast_math=self.vocoder_precision == "bf16",
+                    device=self.device, packed=self._vocoder_packed)
+
     def convert(self, source, target, sr: int | None = None,
                 save_name=None, save_dir=None,
                 preprocess=None, preprocess_args=None,
@@ -287,14 +342,32 @@ class VoiceConverter:
         generator and vocoder (the wav uploaded as PCM16) and staged
         programs; the port always runs the chain of the first, issued on
         one stream and synchronised once, when the waveform comes back
-        (``_fused_convert``).  ``parallel`` / ``mesh`` (the
-        multi-device strategies) are not ported and raise
-        ``NotImplementedError`` when given.  Returns the converted
-        :class:`Audio`."""
-        if parallel is not None or mesh is not None:
-            raise NotImplementedError(
-                "convert(parallel=..., mesh=...) is not ported (ROADMAP, "
-                "Queue 1, item 9: multi-device)")
+        (``_fused_convert``).
+
+        ``parallel`` spreads the generator over a local ``mesh``
+        (``parallel.sharding.make_mesh(devices=...)``; None: every local
+        CUDA device): ``"chunks"`` converts the same PCM16 mel chunks as
+        the default path, split over the positions (it needs ``cut``);
+        ``"ring"`` converts the unchunked host mel, trimmed to a multiple
+        of the mesh size, time-sharded (not with ``pad_to_seconds``).  A
+        mesh with a 'model' axis larger than 1 raises
+        ``NotImplementedError``.  Returns the converted :class:`Audio`."""
+        if parallel not in (None, "chunks", "ring"):
+            raise ValueError(f"parallel must be None, 'chunks' or 'ring', "
+                             f"got {parallel!r}")
+        if parallel == "chunks" and not cut:
+            raise ValueError("parallel='chunks' shards the chunk axis; it "
+                             "requires cut=True")
+        if parallel == "ring" and pad_to_seconds:
+            raise ValueError("pad_to_seconds trims by chunk geometry and "
+                             "does not compose with parallel='ring'")
+        from autovc_tpu_torch.parallel import sharding as shd
+        if mesh is not None and not isinstance(mesh, shd.Mesh):
+            raise TypeError(f"mesh must be an autovc_tpu_torch.parallel."
+                            f"sharding.Mesh, got {type(mesh).__name__}")
+        if parallel is not None:
+            mesh = mesh or shd.make_mesh()
+            shd.check_no_tensor_parallel(mesh)
         cc = self.config.convert
         sr = sr or cc.sr
         preprocess = cc.preprocess if preprocess is None else preprocess
@@ -334,10 +407,14 @@ class VoiceConverter:
         mel_cfg = ae_cfg.spectrogram
         ae_params = self._ae_params(use_ema)
         lstm2_packed = None if use_ema else self._lstm2_packed
-        if cut:
+        if parallel == "ring":
+            waveform = self._ring_convert(audio_src.wav, c_source, c_target,
+                                          ae_cfg, seed, ae_params, mesh)
+        elif cut:
             waveform = self._fused_convert(
                 audio_src.wav, c_source, c_target, ae_cfg, overlap, seed,
-                ae_params, lstm2_packed)
+                ae_params, lstm2_packed,
+                mesh if parallel == "chunks" else None)
         else:
             waveform = self._unchunked_convert(
                 audio_src.wav, c_source, c_target, ae_cfg, seed, ae_params,
@@ -403,17 +480,20 @@ class VoiceConverter:
         utterance's folds through one sampling loop; the outprocessing and
         the files (``{name}_to_{trg}.wav`` directly in ``save_dir``, as the
         JAX package writes them) in a thread pool again.  Returns a list of
-        converted :class:`Audio`.  ``parallel="pipeline"`` (with
-        ``devices``), the two-stage multi-device server, is not ported."""
+        converted :class:`Audio`.
+
+        ``parallel="pipeline"`` serves through two stages over the mesh
+        positions ``devices`` (None: every local CUDA device; at least two,
+        and they may repeat a device), ``parallel.pipeline.
+        conversion_pipeline``: each utterance's chunks through the
+        generator on the first group, then its own vocoder pass, seeded
+        ``seed + i`` for utterance i, on the second, utterance i + 1's
+        generator stage queued while utterance i vocodes."""
         from autovc_tpu_torch.models import autoencoder as AEm
         from autovc_tpu_torch.models import wavernn as WRm
         from autovc_tpu_torch.ops import melspec as MEL
 
-        if parallel == "pipeline":
-            raise NotImplementedError(
-                "convert_batch(parallel='pipeline') is not ported (ROADMAP, "
-                "Queue 1, item 9: multi-device)")
-        if parallel is not None:
+        if parallel not in (None, "pipeline"):
             raise ValueError(f"parallel must be None or 'pipeline', "
                              f"got {parallel!r}")
         cc = self.config.convert
@@ -442,16 +522,31 @@ class VoiceConverter:
                 a.wav, ae_cfg.spectrogram, overlap=overlap, pcm16=True,
                 device=self.device)[0] for a in audios]
             c_orgs = self._embed_many(audios)
-            packed, starts, lengths = AEm.batch_forward_packed(
-                self._ae_params(use_ema), all_chunks, c_orgs, c_target,
-                ae_cfg, overlap, self.ae_precision,
-                lstm2_packed=None if use_ema else self._lstm2_packed)
-            post_mels = [packed[:, s:s + L] for s, L in zip(starts, lengths)]
-            wavs = WRm.generate_many(
-                self.vocoder.params, post_mels, self.vocoder.config,
-                torch.Generator(device=self.device).manual_seed(seed),
-                fast_math=self.vocoder_precision == "bf16",
-                device=self.device, packed=self._vocoder_packed)
+            lstm2_packed = None if use_ema else self._lstm2_packed
+            if parallel == "pipeline":
+                from autovc_tpu_torch.parallel import pipeline as ppipe
+                pipe = ppipe.conversion_pipeline(
+                    self._ae_params(use_ema), self.vocoder.params, ae_cfg,
+                    self.vocoder.config, devices, overlap,
+                    self.ae_precision, self.vocoder_precision == "bf16",
+                    lstm2_packed, self._vocoder_packed)
+                c_trg = torch.as_tensor(np.asarray(c_target, np.float32),
+                                        device=self.device)
+                wavs = [w.astype(np.float32) / 32767.0 for w in pipe.run(
+                    [(chunks, c_orgs[i:i + 1], c_trg, seed + i)
+                     for i, chunks in enumerate(all_chunks)])]
+            else:
+                packed, starts, lengths = AEm.batch_forward_packed(
+                    self._ae_params(use_ema), all_chunks, c_orgs, c_target,
+                    ae_cfg, overlap, self.ae_precision,
+                    lstm2_packed=lstm2_packed)
+                post_mels = [packed[:, s:s + L]
+                             for s, L in zip(starts, lengths)]
+                wavs = WRm.generate_many(
+                    self.vocoder.params, post_mels, self.vocoder.config,
+                    torch.Generator(device=self.device).manual_seed(seed),
+                    fast_math=self.vocoder_precision == "bf16",
+                    device=self.device, packed=self._vocoder_packed)
 
         trg = os.path.splitext(os.path.basename(str(target)))[0]
 

@@ -101,7 +101,31 @@ Phases (any failure exits non-zero):
      conversions (their mel, generator and vocoder stages) and phases
      5-7's median steps through ``utils/roofline.py`` at the card's peaks
      (``chip_spec``), printed as JSON; an entry faster than its
-     throughput bound fails the run.
+     throughput bound fails the run;
+ 11. multi-device on the one card (``phase_multi_device``), mesh positions
+     ``[cuda:0, cuda:0]``: ``convert(parallel="chunks")`` of the 24 s wav
+     (9 chunks padded to 10, 5 rows a position: kernel 2), its f32
+     post-mel against the default path's (<= 1e-4), its bf16 wall beside
+     the default path's, kernels 1 and 2 launched; ``convert(parallel=
+     "ring")`` of the 10 s wav in f32, its post-mel against
+     ``autoencoder.infer`` of the same trimmed mel (<= 1e-4), the wav
+     finite and of its length; ``convert_batch(parallel="pipeline")`` of
+     serve-8, the bf16 median of 3 serves and its audio-s/s beside the
+     default ``convert_batch``, kernels 1-3 launched under
+     ``torch.profiler`` and the streams' overlap (the two stages share the
+     card's lane, so it should be nil),
+     and in f32 with pinned noise each utterance against ``convert(seed=
+     seed + i)`` (phase 8's bar); two data-parallel ranks on the card
+     (``gloo``, started by the port's launcher, each running this script
+     with ``--dp-rank``): one f32 step of the generator (16 x 400
+     global), the vocoder (8 x 2475) and the speaker encoder (4 x 3 x
+     160) against the single-process step on the global batch on the
+     card (loss and ``grad_norm`` rel 1e-4, gradients rtol 2e-3 / atol
+     1e-3, beside the largest reference gradient), kernels 6/7
+     and 4/5 launched in each rank (a line per rank), then 6 bf16
+     generator steps through ``train_autoencoder(mesh=)`` (the loss
+     falling, the median s/step beside phase 5's); and one ``nccl`` rank
+     (``python -m autovc_tpu_torch.parallel.multihost_smoke``).
 Every kernel's ``bound_ms`` takes its peaks from ``roofline.chip_spec``.
 It prints one JSON line per comparison, then the per-kernel summary line,
 the card's name and power limit, and as its last line
@@ -143,6 +167,7 @@ from autovc_tpu_torch.ops import lstm_train_kernels as LT  # noqa: E402
 from autovc_tpu_torch.ops import precision as PREC  # noqa: E402
 from autovc_tpu_torch.ops import rnn as R  # noqa: E402
 from autovc_tpu_torch.ops import wavernn_kernels as WK  # noqa: E402
+from autovc_tpu_torch.parallel import sharding as PSHD  # noqa: E402
 from autovc_tpu_torch.train import loop as TRL  # noqa: E402
 from autovc_tpu_torch.train import schedules as TRS  # noqa: E402
 from autovc_tpu_torch.utils import tree_clone, tree_leaves  # noqa: E402
@@ -2314,10 +2339,494 @@ def phase_roofline(card: str, conversions, train, vocoder, se) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: multi-device on one card
+# ---------------------------------------------------------------------------
+
+MULTI_BAR = 1e-4           # the chunk and ring paths' f32 mel holds
+POSITIONS = [torch.device("cuda", 0)] * 2
+
+
+class MelTap:
+    """Keeps the mel every ``wavernn._generate_program`` call receives
+    while it is entered: the post-mel a conversion hands its vocoder."""
+
+    def __enter__(self):
+        self.mels = []
+        self._fn = fn = WR._generate_program
+
+        def tap(params, mel, *args):
+            self.mels.append(mel[0].detach().float().cpu())
+            return fn(params, mel, *args)
+
+        WR._generate_program = tap
+        return self
+
+    def __exit__(self, *exc):
+        WR._generate_program = self._fn
+
+
+def counted(kernels, fn):
+    """``fn()`` with the launches of ``kernels`` set to 0 just before and
+    read just after: (result, launches)."""
+    for name in kernels:
+        KERNELS[name]["kernel"].launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: KERNELS[k]["kernel"].launches for k in kernels}
+
+
+def walls(fns: dict, reps: int = 3) -> dict:
+    """Median wall (host clock to a device synchronise) of each function,
+    the functions taken in turns ``reps`` times."""
+    got = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            got[k].append(time.perf_counter() - t0)
+    return {k: statistics.median(v) for k, v in got.items()}
+
+
+def multi_chunks(vc32, vc, target, card: str) -> dict:
+    """``convert(parallel="chunks")`` of the 24 s wav over two positions on
+    the card (9 chunks padded to 10, 5 rows a position: kernel 2): in f32
+    its post-mel against the default path's, then bf16 walls beside the
+    default path's; kernels 1 and 2 must launch."""
+    sr = 22050
+    wav = synthetic_wav(24.0, sr, 24)
+    mesh = PSHD.make_mesh(devices=POSITIONS)
+
+    def convert(conv, **kw):
+        return conv.convert(Audio(wav.copy(), sr_org=sr),
+                            Audio(target.copy(), sr_org=sr),
+                            save_name=False, **kw)
+
+    with MelTap() as tap:
+        base = convert(vc32)
+        par, counts = counted(CONVERT_KERNELS, lambda: convert(
+            vc32, parallel="chunks", mesh=mesh))
+    diff = (tap.mels[1] - tap.mels[0]).abs()
+    err = float(diff.max())
+    convert(vc)
+    convert(vc, parallel="chunks", mesh=mesh)
+    med = walls({"default": lambda: convert(vc),
+                 "chunks": lambda: convert(vc, parallel="chunks", mesh=mesh)})
+    _, bf16_counts = counted(CONVERT_KERNELS, lambda: convert(
+        vc, parallel="chunks", mesh=mesh))
+    res = {"phase": "multi_device chunks", "positions": [str(d) for d in
+                                                         POSITIONS],
+           "seconds_in": 24.0, "chunks": 9, "rows_a_position": 5,
+           "f32_mel_max_abs_err": err,
+           "f32_mel_mean_abs_err": float(diff.mean()),
+           "f32_mel_max_abs": float(tap.mels[0].abs().max()),
+           "tolerance": f"<= {MULTI_BAR}",
+           "f32_samples": [len(base.wav), len(par.wav)],
+           "f32_launches": counts, "bf16_launches": bf16_counts,
+           "bf16_median_wall_s": med,
+           "bf16_audio_s_per_s": {k: len(par.wav) / sr / v
+                                  for k, v in med.items()},
+           "card": card}
+    log(res)
+    if not err <= MULTI_BAR or len(par.wav) != len(base.wav):
+        raise AssertionError(f"chunk-parallel convert disagrees: {res}")
+    if not np.all(np.isfinite(par.wav)):
+        raise AssertionError("chunk-parallel convert: non-finite output")
+    require_launches("convert(parallel='chunks')", counts,
+                     ("wavernn_sample", "lstm_stack_skewed"))
+    return counts
+
+
+def multi_ring(vc32, target, card: str) -> dict:
+    """``convert(parallel="ring")`` of the 10 s wav over two positions, f32
+    (no preprocessing, so the trimmed mel is the wav's): its post-mel
+    against ``autoencoder.infer`` of the same trimmed mel, the wav finite
+    and (frames - 1) * hop long."""
+    sr = 22050
+    wav = synthetic_wav(10.0, sr, 10)
+    mesh = PSHD.make_mesh(devices=POSITIONS)
+    with MelTap() as tap:
+        t0 = time.perf_counter()
+        (out, counts) = counted(CONVERT_KERNELS, lambda: vc32.convert(
+            Audio(wav.copy(), sr_org=sr), Audio(target.copy(), sr_org=sr),
+            save_name=False, preprocess=(), outprocess=(), parallel="ring",
+            mesh=mesh))
+        wall = time.perf_counter() - t0
+    cfg = vc32.AE.config
+    mel = dsp.mel_spec_auto_encoder(wav, cfg.spectrogram)
+    Tn = mel.shape[-1] // 2 * 2
+    dev = torch.device("cuda")
+    c_src = torch.from_numpy(vc32._embed(Audio(wav.copy(), sr_org=sr))[None])
+    c_trg = torch.from_numpy(vc32._embed(Audio(target.copy(),
+                                               sr_org=sr))[None])
+    with torch.inference_mode():
+        one = AE.infer(vc32.AE.params, torch.from_numpy(np.ascontiguousarray(
+            mel[None, :, :Tn], np.float32)).to(dev), c_src.to(dev),
+            c_trg.to(dev), cfg, "f32", vc32._lstm2_packed)[0].cpu()
+    diff = (tap.mels[0] - one).abs()
+    err = float(diff.max())
+    expected = (Tn - 1) * vc32.vocoder.config.hop_length
+    res = {"phase": "multi_device ring", "seconds_in": 10.0,
+           "frames": Tn, "frames_a_position": Tn // 2,
+           "f32_mel_max_abs_err": err,
+           "f32_mel_mean_abs_err": float(diff.mean()),
+           "f32_mel_max_abs": float(one.abs().max()),
+           "tolerance": f"<= {MULTI_BAR}",
+           "samples_out": len(out.wav), "samples_expected": expected,
+           "f32_wall_s": wall, "launches": counts, "card": card}
+    log(res)
+    if not (err <= MULTI_BAR and len(out.wav) == expected
+            and np.all(np.isfinite(out.wav))):
+        raise AssertionError(f"ring convert disagrees: {res}")
+    return counts
+
+
+def stream_overlap(prof, tags) -> dict:
+    """From a profiled run, the device ms in which kernels of two streams
+    ran at once: two persistent kernels (names holding one of ``tags``),
+    a persistent kernel beside another kernel, and two other kernels."""
+    ks = sorted((e.time_range.start, e.time_range.end, e.device_resource_id,
+                 any(t in e.name for t in tags)) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    us = [0.0, 0.0, 0.0]           # by the number of persistent kernels
+    for i, (a0, a1, sa, ta) in enumerate(ks):
+        for b0, b1, sb, tb in ks[i + 1:]:
+            if b0 >= a1:
+                break
+            if sa != sb:
+                us[int(ta) + int(tb)] += min(a1, b1) - b0
+    return {"streams": len({k[2] for k in ks}),
+            "persistent_pair_overlap_ms": us[2] / 1e3,
+            "persistent_with_other_overlap_ms": us[1] / 1e3,
+            "other_overlap_ms": us[0] / 1e3}
+
+
+def multi_pipeline(vc, target, tmp: str, card: str) -> dict:
+    """``convert_batch(parallel="pipeline", devices=[cuda:0, cuda:0])`` on
+    serve-8: bf16 walls (median of 3) beside the default
+    ``convert_batch``; one serve under ``torch.profiler`` (kernels 1-3
+    must launch; the stages share the card's lane, so the streams'
+    overlap should be nil); in f32 with
+    row-invariant pinned noise each utterance against ``convert(seed=
+    seed + i)`` of its wav (phase 8's bar)."""
+    sr = 22050
+    paths = write_wavs(tmp, "pipe", SERVES["serve-8"], sr)
+
+    def serve(conv, **kw):
+        return conv.convert_batch(paths, Audio(target.copy(), sr_org=sr),
+                                  **kw)
+
+    def pipe(conv, **kw):
+        return serve(conv, parallel="pipeline", devices=POSITIONS, **kw)
+
+    outs = pipe(vc)
+    serve(vc)
+    med = walls({"default": lambda: serve(vc), "pipeline": lambda: pipe(vc)})
+    audio_s = sum(len(o.wav) for o in outs) / sr
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, counts = counted(CONVERT_KERNELS, lambda: pipe(vc))
+    by_tag = kernel_launch_ms(prof, tuple(SERVE_TAGS.values()))
+    prof_launches = {k: len(by_tag.get(tag, []))
+                     for k, tag in SERVE_TAGS.items()}
+    overlap = stream_overlap(prof, tuple(SERVE_TAGS.values()))
+
+    vc32 = VoiceConverter(verbose=False, ae_precision="f32",
+                          vocoder_precision="f32")
+    draw = WK.draw_noise
+
+    def pinned(steps, rows, pick_dim, generator, device):
+        g = torch.Generator().manual_seed(11)
+        gumbel, logistic = draw(steps, 1, pick_dim, g, "cpu")
+        lane = torch.randint(0, pick_dim, (steps, 1, 1), generator=g)
+        gumbel = gumbel.scatter(-1, lane, 1e3)
+        return (gumbel.expand(steps, rows, pick_dim).contiguous().to(device),
+                logistic.expand(steps, rows).contiguous().to(device))
+
+    WK.draw_noise = pinned
+    try:
+        held = pipe(vc32, outprocess=(), seed=5)
+        singles = [vc32.convert(p, Audio(target.copy(), sr_org=sr),
+                                outprocess=(), save_name=False, seed=5 + i)
+                   for i, p in enumerate(paths)]
+    finally:
+        WK.draw_noise = draw
+    errs = [float(np.max(np.abs(a.wav - b.wav))) if a.wav.shape ==
+            b.wav.shape else float("inf") for a, b in zip(held, singles)]
+    lens = [len(audio_io.load_wav(p)[0]) for p in paths]
+    res = {"phase": "multi_device pipeline", "workload": "serve-8",
+           "positions": [str(d) for d in POSITIONS], "audio_s": audio_s,
+           "bf16_median_wall_s": med,
+           "bf16_audio_s_per_s": {k: audio_s / v for k, v in med.items()},
+           "launches": counts, "profiler_launches": prof_launches,
+           "stream_overlap": overlap,
+           "f32_max_abs_err": errs, "tolerance": "max |err| < 1e-3",
+           "card": card}
+    log(res)
+    if max(errs) >= 1e-3:
+        raise AssertionError(f"pipelined convert_batch disagrees: {res}")
+    for o, n in zip(outs, lens):
+        if not (np.all(np.isfinite(o.wav))
+                and len(o.wav) == expected_samples(n, vc.AE.config.
+                                                   spectrogram)):
+            raise AssertionError(f"pipeline output wrong: {res}")
+    require_launches("convert_batch(parallel='pipeline')", counts,
+                     CONVERT_KERNELS)
+    require_launches("convert_batch(parallel='pipeline') profiled",
+                     prof_launches, CONVERT_KERNELS)
+    return counts
+
+
+# The data-parallel ranks' global batches: the generator 16 x 400 frames,
+# the vocoder 8 x 2475 samples (9 frames), the speaker encoder phase 7's
+# f32 block of 4 x 3 x 160; then bf16 generator steps of 16 x 400.
+DP_STEPS = 6
+
+
+def dp_inputs():
+    """Every rank's (and the reference's) parameters and global batches,
+    made from seeds."""
+    ae_cfg, wr_cfg, se_cfg = (AutoEncoderConfig(), WaveRNNConfig(),
+                              SpeakerEncoderConfig())
+    rng = np.random.default_rng(31)
+    x = rng.random((16, 80, 400), dtype=np.float32)
+    c = rng.standard_normal((16, 256)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    frames = 9
+    T = frames * wr_cfg.hop_length
+    x_in = np.clip(0.3 * rng.standard_normal((8, T)), -1, 1).astype(
+        np.float32)
+    mels = rng.random((8, 80, frames + 2 * wr_cfg.pad), dtype=np.float32)
+    block = next(SyntheticSpeakers(4, se_cfg.spectrogram.
+                                   partial_utterance_n_frames,
+                                   se_cfg.input_size, 23).batches(3, 1))
+    return {
+        "ae": (AE.init(torch.Generator().manual_seed(32), ae_cfg), ae_cfg,
+               (x, c)),
+        "vocoder": (WR.init(torch.Generator().manual_seed(33), wr_cfg),
+                    wr_cfg, (x_in, np.roll(x_in, -1, 1), mels)),
+        "se": (SE.init(torch.Generator().manual_seed(34), se_cfg), se_cfg,
+               (block,)),
+    }
+
+
+class ArrayBatches:
+    """A generator dataset of ``DP_STEPS`` seeded batches of 16 x 400."""
+
+    def epoch_steps(self, batch_size):
+        return DP_STEPS
+
+    def batches(self, batch_size, shuffle=True, seed=0):
+        rng = np.random.default_rng(seed)
+        for _ in range(DP_STEPS):
+            c = rng.standard_normal((batch_size, 256)).astype(np.float32)
+            yield (rng.random((batch_size, 80, 400), dtype=np.float32),
+                   c / np.linalg.norm(c, axis=1, keepdims=True))
+
+
+def dp_rank(out_dir: str) -> int:
+    """One rank of phase 11's data-parallel runs (``chip_smoke.py
+    --dp-rank <dir>`` under the port's launcher): one f32 step of the
+    generator, the vocoder and the speaker encoder on its rows
+    (``make_sharded_*_step``), then ``train_autoencoder(mesh=)`` for
+    ``DP_STEPS`` bf16 steps; rank 0 writes the f32 losses and gradients,
+    every rank its kernels' launches."""
+    from autovc_tpu_torch.parallel import steps as PSTEPS
+    PREC.exact_f32()
+    PSTEPS.initialize_distributed()
+    mesh = PSHD.make_mesh()
+    rank = mesh.rank
+    inputs = dp_inputs()
+    lr = 1e-4
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    for name in KERNELS:
+        KERNELS[name]["kernel"].launches = 0
+    for what, (params, cfg, arrays) in inputs.items():
+        params = PSHD.shard_params(params, mesh)[0]
+        tx = TRS.Optimizer(lambda count: lr, 0.9, 0.999, 1e-8, 1.0)
+        state = tx.init(tree_leaves(params))
+        mine = [PSTEPS.shard_batch(a, mesh) for a in arrays]
+        if what == "ae":
+            step = PSTEPS.make_sharded_ae_step(cfg, tx, 0.999, mesh,
+                                               precision="f32",
+                                               with_grads=True)
+            *_, aux = step(params, state, tree_clone(params), *mine)
+        elif what == "vocoder":
+            step = PSTEPS.make_sharded_vocoder_step(cfg, tx, mesh,
+                                                    precision="f32",
+                                                    with_grads=True)
+            *_, aux = step(params, state, *mine)
+        else:
+            step = PSTEPS.make_sharded_se_step(cfg, tx, mesh,
+                                               precision="f32",
+                                               with_grads=True)
+            *_, aux = step(params, state, *mine)
+        out[what] = {"loss": float(aux["loss"]),
+                     "grad_norm": float(aux["grad_norm"])}
+        if rank == 0:
+            out[what]["grads"] = [g.cpu() for g in tree_leaves(aux["grads"])]
+    torch.cuda.synchronize()
+    out["f32_launches"] = {k: KERNELS[k]["kernel"].launches for k in KERNELS}
+    clock = StepClock()
+    params, cfg, _ = inputs["ae"]      # the steps above updated copies
+    for name in KERNELS:
+        KERNELS[name]["kernel"].launches = 0
+    TRL.train_autoencoder(params, ArrayBatches(), cfg, n_epochs=1,
+                          batch_size=16, log_freq=1, model_name="",
+                          logger=clock, verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    out["bf16_launches"] = {k: KERNELS[k]["kernel"].launches
+                            for k in KERNELS}
+    out["losses"] = [m["loss"] for _, m in clock.records]
+    times = [t for t, _ in clock.records]
+    out["step_s"] = [b - a for a, b in zip(times, times[1:])]
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def multi_dp(card: str, phase5_step_s: float) -> dict:
+    """Phase 11's data-parallel runs: two ranks on the card (``gloo``, the
+    port's launcher), each f32 step held against the single-process step
+    on the global batch on the card (loss and ``grad_norm`` rel 1e-4,
+    gradients rtol 2e-3 / atol 1e-3, the JAX bars of
+    tests/test_parallel.py, printed beside the largest reference
+    gradient, which shows the bar could see a dropped all-reduce or a
+    missing 1/N), the bf16 steps'
+    losses falling and their median s/step beside phase 5's; then one
+    rank on ``nccl`` (the multihost smoke).  Returns the ranks' launches,
+    summed."""
+    from autovc_tpu_torch.utils import launcher
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = launcher.launch_local_multiprocess(
+            os.path.abspath(__file__), 2, args=["--dp-rank", tmp],
+            timeout=420)
+        dp_wall = time.perf_counter() - t0
+        for r, (rc, text) in enumerate(ranks):
+            if rc != 0:
+                raise AssertionError(f"rank {r} exited {rc}:\n{text[-4000:]}")
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+    launches = {k: 0 for k in KERNELS}
+    for o in outs:
+        log({"phase": "multi_device dp rank", "rank": o["rank"],
+             "backend": o["backend"], "f32_launches": o["f32_launches"],
+             "bf16_launches": o["bf16_launches"], "card": card})
+        for k in KERNELS:
+            launches[k] += o["f32_launches"][k] + o["bf16_launches"][k]
+        require_launches(f"rank {o['rank']}", o["f32_launches"],
+                         TRAIN_KERNELS + VOCODER_KERNELS)
+        require_launches(f"rank {o['rank']} bf16", o["bf16_launches"],
+                         TRAIN_KERNELS)
+
+    dev = torch.device("cuda")
+    holds, failed = {}, []
+    for what, (params, cfg, arrays) in dp_inputs().items():
+        params = from_jax_params(params, dev)
+        if what == "ae":
+            aux, grads = TRL.loss_and_grads(params, *arrays, cfg, "f32")
+            loss = aux["loss"]
+        elif what == "vocoder":
+            loss, grads = TRL.vocoder_loss_and_grads(params, *arrays, cfg,
+                                                     "f32")
+        else:
+            loss, grads = TRL.se_loss_and_grads(params, *arrays, "f32")
+            scaled = {id(params["similarity_weight"]),
+                      id(params["similarity_bias"])}
+            grads = [g * 0.01 if id(p) in scaled else g
+                     for p, g in zip(tree_leaves(params), grads)]
+        loss = float(loss)
+        loss_rel = max(abs(o[what]["loss"] - loss) / abs(loss) for o in outs)
+        norm = math.sqrt(sum(float(g.double().pow(2).sum()) for g in grads))
+        norm_rel = max(abs(o[what]["grad_norm"] - norm) / norm for o in outs)
+        worst, worst_leaf = 0.0, None
+        for name, a, b in zip(leaf_names(params), outs[0][what]["grads"],
+                              grads):
+            b = b.cpu()
+            excess = float(((a - b).abs() - (1e-3 + 2e-3 * b.abs())).max())
+            if excess > worst or worst_leaf is None:
+                worst, worst_leaf = excess, name
+        holds[what] = {"loss_single": loss, "loss_rel_err": loss_rel,
+                       "grad_norm_single": norm,
+                       "grad_norm_rel_err": norm_rel,
+                       "ref_grad_max_abs": max(float(g.abs().max())
+                                               for g in grads),
+                       "grads_worst_leaf": worst_leaf,
+                       "grads_worst_excess_over_bar": worst}
+        if loss_rel > 1e-4:
+            failed.append(f"{what}: loss rel err {loss_rel:.3g}")
+        if norm_rel > 1e-4:
+            failed.append(f"{what}: grad_norm rel err {norm_rel:.3g}")
+        if worst > 0:
+            failed.append(f"{what}: {worst_leaf} over rtol 2e-3 / atol 1e-3 "
+                          f"by {worst:.3g}")
+    main = outs[0]
+    losses = main["losses"]
+    falling = (len(losses) == DP_STEPS and all(map(math.isfinite, losses))
+               and (losses[-1] + losses[-2]) / 2 < losses[0])
+    if not falling:
+        failed.append(f"bf16 losses did not fall: {losses}")
+    t0 = time.perf_counter()
+    nccl = launcher.launch_local_multiprocess(
+        "autovc_tpu_torch.parallel.multihost_smoke", 1, module=True,
+        timeout=240)
+    nccl_wall = time.perf_counter() - t0
+    (rc, text), = nccl
+    nccl_ok = rc == 0 and "MULTIHOST_OK" in text and "backend=nccl" in text
+    if not nccl_ok:
+        failed.append(f"1-rank nccl run: exit {rc}:\n{text[-3000:]}")
+    res = {"phase": "multi_device dp", "ranks": 2, "backend":
+           outs[0]["backend"], "global_batches": {
+               "ae": [16, 80, 400], "vocoder": [8, 9 * 275],
+               "se": [4, 3, 160]},
+           "f32_holds": holds,
+           "tolerance": "loss and grad_norm rel 1e-4; gradients rtol 2e-3 "
+                        "/ atol 1e-3",
+           "bf16_losses": losses,
+           "bf16_median_step_s": statistics.median(main["step_s"]),
+           "phase5_median_step_s": phase5_step_s,
+           "ranks_wall_s": dp_wall,
+           "nccl_1_rank": [ln for ln in text.splitlines()
+                           if "MULTIHOST_OK" in ln],
+           "nccl_wall_s": nccl_wall, "card": card, "failed": failed}
+    log(res)
+    if failed:
+        raise AssertionError(f"data-parallel runs failed: {res}")
+    return launches
+
+
+def phase_multi_device(card: str, phase5_step_s: float) -> dict:
+    """Phase 11 (see the module docstring); returns its launches."""
+    t0 = time.perf_counter()
+    sr = 22050
+    target = synthetic_wav(3.0, sr, 99)
+    vc = VoiceConverter(verbose=False)
+    vc32 = VoiceConverter(verbose=False, ae_precision="f32",
+                          vocoder_precision="f32")
+    launches = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for counts in (multi_chunks(vc32, vc, target, card),
+                       multi_ring(vc32, target, card),
+                       multi_pipeline(vc, target, tmp, card),
+                       multi_dp(card, phase5_step_s)):
+            for k, n in counts.items():
+                launches[k] += n
+    log({"phase": "multi_device", "seconds": time.perf_counter() - t0,
+         "launches": launches, "card": card})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank(sys.argv[2])
     dev = torch.device("cuda")
     PREC.exact_f32()
     card = phase_environment()
@@ -2400,6 +2909,9 @@ def main() -> int:
     for name, count in phase_cli(card).items():
         launches[name] += count
     for name, count in phase_train_extras(card).items():
+        launches[name] += count
+    for name, count in phase_multi_device(
+            card, train["median_step_s"]).items():
         launches[name] += count
     phase_roofline(card, conversions, train, vocoder, se)
 

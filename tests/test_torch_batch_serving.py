@@ -451,8 +451,9 @@ def test_convert_batch_equals_convert_and_saves_as_jax(serving, jvc,
     through int16 PCM); the files are ``{name}_to_{trg}.wav`` directly in
     ``save_dir``, the relative paths the JAX ``convert_batch`` writes (its
     model stages stubbed: they do not decide the names); ``parallel=
-    "pipeline"`` raises ``NotImplementedError``, another value
-    ``ValueError``."""
+    "pipeline"`` with no ``devices`` on a CPU converter refuses to fall
+    back to the CPU (``RuntimeError``: the positions default to the local
+    CUDA devices), another value raises ``ValueError``."""
     vc, sources, target = serving["vc"], serving["sources"], serving["target"]
     monkeypatch.setattr(WK, "draw_noise", row_invariant_pinned)
     monkeypatch.chdir(tmp_path)
@@ -478,7 +479,7 @@ def test_convert_batch_equals_convert_and_saves_as_jax(serving, jvc,
              for d in ("out", "jax_out")}
     assert names["out"] == names["jax_out"] == [
         f"src{k}_to_trg.wav" for k in range(3)]
-    with pytest.raises(NotImplementedError, match="pipeline"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         vc.convert_batch(sources, target, parallel="pipeline")
     with pytest.raises(ValueError, match="parallel"):
         vc.convert_batch(sources, target, parallel="x")

@@ -171,10 +171,16 @@ def test_convert_accepts_the_jax_keys():
 @pytest.mark.parametrize("key", ["parallel='chunks'", "mesh='data'"])
 def test_multi_device_keys_raise_not_implemented(tmp_path, monkeypatch,
                                                  key):
+    """The multi-device keys reach ``convert`` from the command line:
+    ``parallel`` without a mesh takes the local CUDA devices and refuses
+    to fall back to the CPU; a ``mesh`` that is not a ``Mesh`` (the
+    command line cannot build one) is refused by type."""
     monkeypatch.chdir(tmp_path)
     src = str(tmp_path / "src.wav")
     tio.save_wav(src, _wav(0.3, 0), SR)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    error, match = ((RuntimeError, "no CUDA device") if "parallel" in key
+                    else (TypeError, "Mesh"))
+    with pytest.raises(error, match=match):
         tmain.main(["-mode", "convert", "-quiet", "-auto_encoder_params",
                     *AE_PARAMS, "-vocoder_params", *VOC_PARAMS,
                     "-sources", src, "-targets", src,

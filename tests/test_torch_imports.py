@@ -1,8 +1,9 @@
 """Import hygiene of the port: ``autovc_tpu_torch`` and ``chip_smoke.py``
 import nothing of JAX or of the JAX package (checked in a subprocess where
 both are made unimportable), the port runs a CPU conversion there (through
-``convert``, ``convert_batch`` and the command line), and the
-entry points refuse to fall back to the CPU when no GPU is present."""
+``convert``, ``convert_batch`` and the command line), the ranks the
+port's launcher starts run without them too, and the entry points refuse
+to fall back to the CPU when no GPU is present."""
 import os
 import shutil
 import subprocess
@@ -15,7 +16,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_BLOCKER = textwrap.dedent("""
+_BLOCK_IMPORTS = textwrap.dedent("""
     import importlib.abc, sys
     BLOCKED = ("jax", "jaxlib", "autovc_tpu")
 
@@ -26,8 +27,8 @@ _BLOCKER = textwrap.dedent("""
             return None
 
     sys.meta_path.insert(0, Blocker())
-    sys.path.insert(0, REPO_DIR)
-""").replace("REPO_DIR", repr(REPO))
+""")
+_BLOCKER = _BLOCK_IMPORTS + f"sys.path.insert(0, {REPO!r})\n"
 
 
 def _run(code: str, cwd: str = REPO, timeout: int = 240):
@@ -53,7 +54,15 @@ def test_port_imports_and_converts_without_jax():
                 "autovc_tpu_torch.utils.torch_compat",
                 "autovc_tpu_torch.utils.profiling",
                 "autovc_tpu_torch.utils.roofline",
-                "autovc_tpu_torch.utils.visual"} <= names, names
+                "autovc_tpu_torch.utils.visual",
+                "autovc_tpu_torch.utils.launcher",
+                "autovc_tpu_torch.parallel.collectives",
+                "autovc_tpu_torch.parallel.sharding",
+                "autovc_tpu_torch.parallel.streams",
+                "autovc_tpu_torch.parallel.steps",
+                "autovc_tpu_torch.parallel.ring",
+                "autovc_tpu_torch.parallel.pipeline",
+                "autovc_tpu_torch.parallel.multihost_smoke"} <= names, names
         from autovc_tpu_torch import Audio, ConverterConfig, VoiceConverter
         cfg = ConverterConfig().with_overrides(vocoder={
             "rnn_dims": 32, "fc_dims": 32,
@@ -102,6 +111,32 @@ def test_port_imports_and_converts_without_jax():
     """)
     res = _run(code)
     assert res.returncode == 0 and "PORT_OK" in res.stdout, res.stderr[-3000:]
+
+
+def test_launched_ranks_run_without_jax(tmp_path):
+    """From a process that cannot import JAX or the JAX package, the
+    launcher starts two gloo ranks of ``python -m autovc_tpu_torch.
+    parallel.multihost_smoke``, which cannot import them either (the
+    blocker runs as their ``sitecustomize``): rank 0 prints
+    ``MULTIHOST_OK`` with procs=2."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_BLOCK_IMPORTS)
+    code = textwrap.dedent(f"""
+        import os
+        from autovc_tpu_torch.utils import launcher
+        os.environ["PYTHONPATH"] = {str(site)!r}
+        res = launcher.launch_local_multiprocess(
+            "autovc_tpu_torch.parallel.multihost_smoke", 2, device="cpu",
+            module=True, timeout=200)
+        out = "".join(o for _, o in res)
+        assert [rc for rc, _ in res] == [0, 0], out[-3000:]
+        assert "MULTIHOST_OK" in out and "procs=2 devices=2" in out, out
+        print("LAUNCH_OK")
+    """)
+    res = _run(code, timeout=240)
+    assert res.returncode == 0 and "LAUNCH_OK" in res.stdout, \
+        res.stdout[-3000:] + res.stderr[-3000:]
 
 
 def test_chip_smoke_imports_without_jax():

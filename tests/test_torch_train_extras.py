@@ -408,7 +408,18 @@ def test_examples_are_ignored_by_the_other_models(tmp_path, monkeypatch):
 @pytest.mark.parametrize("loop", ["train_autoencoder",
                                   "train_speaker_encoder", "train_vocoder"])
 def test_mesh_loops_name_their_roadmap_item(loop):
-    """The data-parallel loops are not ported; each refuses ``mesh=`` and
-    names the queue item that ports it, as ``convert`` and the CLI do."""
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
-        getattr(TL, loop)(None, None, None, mesh="data")
+    """The data-parallel loops run over a mesh; a 'model' axis larger
+    than 1 (tensor parallelism, not computed by the port) is refused with
+    the ROADMAP item that ports it, before any parameter or batch is
+    touched."""
+    from autovc_tpu_torch.config import (AutoEncoderConfig,
+                                         SpeakerEncoderConfig, WaveRNNConfig)
+    from autovc_tpu_torch.parallel import sharding as shd
+    cfg = {"train_autoencoder": AutoEncoderConfig(),
+           "train_speaker_encoder": SpeakerEncoderConfig(),
+           "train_vocoder": WaveRNNConfig()}[loop]
+    mesh = shd.make_mesh((1, 2), ("data", "model"),
+                         devices=[torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP, Queue 1, tensor-parallel"):
+        getattr(TL, loop)(None, None, cfg, mesh=mesh)
