@@ -170,10 +170,10 @@ class WaveRNNGenerateConfig:
     """Batched-generation geometry (hparams.py:108-113).
 
     ``target``/``overlap`` reproduce the reference's fixed fold geometry.
-    The JAX package scores fold lengths with a TPU timing table when
-    ``auto_target=True``; this port has no timing table for its GPU yet,
-    so ``auto_target`` takes the fixed ``target``/``overlap`` here (see
-    :func:`autovc_tpu_torch.models.wavernn.auto_fold_target`)."""
+    With ``auto_target=True`` the fold length is picked per input from a
+    fixed ladder by a wall model over kernel 1's time a step measured on an
+    H100 (:func:`autovc_tpu_torch.models.wavernn.auto_fold_target`);
+    ``target`` is then used only with ``auto_target=False``."""
     batched: bool = True
     target: int = 11_000
     overlap: int = 550

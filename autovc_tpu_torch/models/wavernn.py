@@ -27,13 +27,17 @@ utterance, joins all utterances' fold rows, samples them in slabs of at
 most ``_MAX_SLAB_ROWS`` rows (one kernel-1 pass a slab) and finishes each
 utterance into one flat int16 array (:func:`_finish_many`).
 
-Known deviations from the JAX package: ``auto_target`` takes the fixed
-reference geometry (the JAX fold picker scores fold lengths with TPU
-timings), and a fold geometry that is not a multiple of ``total_scale``
-raises (the JAX package falls back to its XLA scan there; the port has no
-second sampling path).  The JAX batch pass also caps its slab at the rows
-that fit the TPU kernel's VMEM budget (``_pallas_max_rows``); the port has
-no such cap, since kernel 1 takes any row count.
+``auto_target`` picks the fold length (:func:`auto_fold_target`) with the
+JAX package's wall model over kernel 1's time a step measured on an H100
+(``_ROWS_US``).
+
+Known deviations from the JAX package: a fold geometry that is not a
+multiple of ``total_scale`` raises (the JAX package falls back to its XLA
+scan there; the port has no second sampling path).  The JAX package caps
+its single-generate pass and its batch slab at the rows that fit the TPU
+kernel's VMEM budget (``_pallas_max_rows``); the port has no such cap,
+since kernel 1 takes any row count, so the picker prices a single
+generate as one pass at its row bucket.
 """
 from __future__ import annotations
 
@@ -223,6 +227,29 @@ def pad_mel(mel: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(mel, (pad, pad))
 
 
+# Fold-length ladder of the auto geometry (the JAX package's): a small
+# discrete set of geometric steps, all near-multiples of the reference's
+# 550-sample crossfade overlap.
+_TARGET_LADDER = (1_375, 2_750, 5_500, 11_000, 22_000)
+
+# Kernel 1's measured time a step (us) against its row count: bf16 (the
+# default fast_math), rd = fc = 512, MOL, 12100-step folds, pinned noise,
+# the mean of two runs; one table for both precisions, as the JAX package
+# keeps.  NVIDIA H100 80GB HBM3, power limit 700.00 W, `python3
+# scripts/wavernn_rows.py --rows 8 16 24 32 48 64 72 80 ... 320 384
+# --frames 44` (every 8 rows from 64), 2026-10-18.  A step stages its rows
+# in ceil(rows / 64) passes, each padded to 16-row tiles, so the time is
+# flat between the points below and jumps at the next one: the table keeps
+# the ends of each such segment (the rows between are within 4% of the
+# line), and 320 -> 384 (one pass more) sets the slope beyond.  Between
+# 2475- and 23100-step folds (`--frames 9` / `84`) the time a step moves
+# by 4.2% at 8 rows and < 2% from 16, so one table serves every ladder
+# entry.
+_ROWS_US = ((8, 15.16), (16, 15.69), (24, 19.59), (32, 21.26), (48, 27.77),
+            (64, 32.57), (72, 48.45), (96, 51.92), (104, 60.16),
+            (128, 62.54), (136, 75.64), (144, 76.69), (152, 87.72),
+            (192, 91.37), (200, 116.38), (256, 123.56), (264, 147.62),
+            (320, 155.25), (384, 193.1))
 _ROW_BUCKETS = (8, 16, 24, 32, 48, 64)
 
 
@@ -237,6 +264,19 @@ def _row_bucket(rows: int) -> int:
     return -(-rows // 8) * 8
 
 
+def _us_per_step(rows: int) -> float:
+    """Piecewise-linear interpolation of the measured time a step, linear
+    extrapolation beyond the table's last row count."""
+    if rows <= _ROWS_US[0][0]:
+        return _ROWS_US[0][1]
+    for (r0, u0), (r1, u1) in zip(_ROWS_US, _ROWS_US[1:]):
+        if rows <= r1:
+            return u0 + (u1 - u0) * (rows - r0) / (r1 - r0)
+    r1, u1 = _ROWS_US[-1]
+    r0, u0 = _ROWS_US[-2]
+    return u1 + (u1 - u0) / (r1 - r0) * (rows - r1)
+
+
 def _fold_count(total_len: int, target: int, overlap: int) -> int:
     num_folds = max(0, (total_len - overlap) // (target + overlap))
     if total_len - (num_folds * (overlap + target) + overlap) != 0:
@@ -244,12 +284,44 @@ def _fold_count(total_len: int, target: int, overlap: int) -> int:
     return max(num_folds, 1)
 
 
+def _sampling_wall_model(total_len: int, target: int, overlap: int,
+                         cfg: WaveRNNConfig | None = None,
+                         cap: int | None = None) -> float:
+    """Predicted kernel-1 time (us) of the geometry the caller runs:
+    ``seq`` steps times the time a step of each pass.  With ``cap``, full
+    ``cap``-row passes plus the row bucket of the remainder (batch
+    serving's slabs: ``cap=_MAX_SLAB_ROWS``).  With ``cfg`` and no ``cap``,
+    one pass at the fold rows' bucket, as :func:`_generate_program` runs
+    it (kernel 1 takes any row count in one launch; the JAX package caps
+    that pass at its TPU kernel's VMEM rows instead, ``_pallas_max_rows``,
+    which has no counterpart here: ROADMAP, Queue 3, deliberate
+    deviations).  With neither, passes of the table's last row count."""
+    seq = target + 2 * overlap
+    folds = _fold_count(total_len, target, overlap)
+    if cap is None:
+        if cfg is not None:
+            return seq * _us_per_step(_row_bucket(folds))
+        cap = _ROWS_US[-1][0]
+    full, rem = divmod(folds, cap)
+    us = full * _us_per_step(cap)
+    if rem:
+        us += _us_per_step(_row_bucket(rem))
+    return seq * us
+
+
 def auto_fold_target(total_len: int, overlap: int = 550,
-                     cfg: WaveRNNConfig | None = None) -> int:
-    """Fold length for ``total_len`` samples.  The JAX package picks it
-    with a TPU timing table; until the GPU has its own table this returns
-    the reference's fixed ``target`` (11000 by default)."""
-    return (cfg or WaveRNNConfig()).generate.target
+                     cfg: WaveRNNConfig | None = None,
+                     cap: int | None = None) -> int:
+    """The ladder's fold length that minimises :func:`_sampling_wall_model`
+    for ``total_len`` samples (the JAX ``auto_fold_target`` on this card's
+    table): short audio folds shorter (more rows, fewer sequential steps),
+    long audio keeps long folds.  ``cfg``: the single-generate caller's
+    one pass; slab callers pass ``cap=_MAX_SLAB_ROWS``."""
+    if total_len <= 0:
+        return _TARGET_LADDER[0]
+    return min(_TARGET_LADDER,
+               key=lambda t: _sampling_wall_model(total_len, t, overlap,
+                                                  cfg, cap))
 
 
 def _fold_rows(x: torch.Tensor, target_f: int, overlap_f: int, margin: int):
@@ -492,7 +564,10 @@ def generate_many(params: Params, mels, cfg: WaveRNNConfig = WaveRNNConfig(),
         for m in mels)
     wave_lens = [(int(m.shape[-1]) - 1) * cfg.hop_length for m in mels]
     if target == "auto" or (target is None and g.auto_target):
-        target = auto_fold_target(sum(wave_lens), overlap, cfg)
+        # pooled: every utterance's folds join one sampling batch in
+        # slabs of _MAX_SLAB_ROWS rows, so price that tiling
+        target = auto_fold_target(sum(wave_lens), overlap,
+                                  cap=_MAX_SLAB_ROWS)
     elif target is None:
         target = g.target
     flat = _generate_many_program(params, mels, generator, cfg, target,

@@ -31,19 +31,30 @@ Phases (any failure exits non-zero):
      4 row groups), kernel 1 at its 64-row slab (f32 pinned, and bf16 over
      a whole fold), kernel 2 at one row over the 24 s wav's unchunked mel
      (f32 and bf16), and the ``ae_slab_ms`` line: ``convert_slab``'s wall
-     at each slab size, the source of ``autoencoder._SLAB_MS``;
+     at each slab size, the source of ``autoencoder._SLAB_MS``; and
+     kernel 1 in bf16 over a whole fold at every (rows, frames a fold)
+     that the fold picker gives phases 4 and 8 (``kernel1_geometries``:
+     short folds, and buckets above 64 rows that stage a step's rows in
+     passes), with the ``wavernn_sample picked`` line of their times, and
+     in f32 at the smallest of those buckets above 64 rows; phases 4 and 8
+     then fail if they run kernel 1 in bf16 at a geometry not held here;
   4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
      seeded weights) converts a ~4 s wav (decoder lstm2 through kernel 2
      at 1 row), a ~10 s wav (3 mel chunks: kernel 2 at 3 rows, for lstm1
      and lstm2) and a ~24 s wav (9 mel chunks: kernel 3), with every
      kernel's launch count read around each conversion; then converts each
      again under ``torch.profiler`` (the device's idle share) and with its
-     stages timed (where the wall time goes);
+     stages timed (where the wall time goes); each line logs the
+     vocoder's picked geometry (target, folds, row bucket, steps, the wall
+     model's kernel-1 ms), and for each wav the conversion's and the
+     vocoder stage's walls at the pick and with each ladder entry pinned
+     (the fixed 11000 among them), logged, not asserted;
   8. end to end, batch serving (run after 4): ``convert_batch`` of
      serve-8 (8 wavs of 2-24 s) and serve-24 (24 wavs of 10 s), bf16, each
      the median wall of 3 serves after a warm-up and its audio-s/s beside
-     the summed wall of ``convert`` on the same wavs one by one, the slab
-     plans, the kernels' launches under ``torch.profiler`` (kernels 1 and
+     the summed wall of ``convert`` on the same wavs one by one and the
+     median of 3 serves at the fixed fold length 11000, the picked fold
+     length and the slab plans, the kernels' launches under ``torch.profiler`` (kernels 1 and
      3 must launch) and the device idle share; every output finite and as
      long as ``convert``'s; in f32 with row-invariant pinned noise each
      utterance of ``convert_batch`` equal to ``convert`` of its wav
@@ -81,6 +92,14 @@ Phases (any failure exits non-zero):
      network), then converted from by path; a 2-step generator training
      run (kernels 6 and 7 must launch) and a convert with the checkpoint
      it wrote, resolved by name;
+ 12. the reference-checkpoint scripts (``phase_reference_scripts``, after
+     9): the three reference formats written from the mirrors converted by
+     ``scripts/convert_reference_checkpoints_torch.py`` and each ``.ckpt``
+     loaded onto the card equal to its source file's conversion; the
+     parity harness ``scripts/eval_reference_parity_torch.py`` on the card
+     over a 1 s and a 3 s synthetic wav (allclose at rtol 1e-3 / atol 1e-4
+     must hold, kernel 2 must launch), then its command line with one
+     weight of the mirror moved, which must exit 1;
  10. the training extras, from a scratch directory (``phase_train_extras``):
      ``VoiceConverter().train`` of the generator, bf16, 2 epochs of 2
      steps of 16 x 400 frames, each epoch a save epoch, with a JSONL
@@ -126,7 +145,8 @@ Phases (any failure exits non-zero):
      generator steps through ``train_autoencoder(mesh=)`` (the loss
      falling, the median s/step beside phase 5's); and one ``nccl`` rank
      (``python -m autovc_tpu_torch.parallel.multihost_smoke``).
-Every kernel's ``bound_ms`` takes its peaks from ``roofline.chip_spec``.
+Every kernel's ``bound_ms`` takes its peaks from ``roofline.chip_spec``;
+the summary's kernel 1 is held at the 4 s wav's picked geometry.
 It prints one JSON line per comparison, then the per-kernel summary line,
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
@@ -136,6 +156,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib.util
+import io
 import json
 import math
 import os
@@ -688,17 +710,59 @@ def compare_wavernn_f32(cfg, params, rows: int, pinned: bool, gen,
                 noise="pinned" if pinned else "drawn")
 
 
+# The largest nudge of one Gumbel lane that may explain a drawn-noise pick
+# flip (:func:`near_tie_flips`): kernel and plain loop sum their bf16
+# products in another order, and an operand that rounds the other way
+# moves the later ones, so their pick scores differ by up to a few 1e-3
+# where no bug moves them (a misplaced term moves them by O(0.1-1)).
+PICK_TIE = 1e-2
+
+
+def near_tie_flips(inp, gumbel, logistic, out, ref, steps: int,
+                   bar: float = 1e-2) -> dict:
+    """{row: (step, lane, nudge)} for each row whose first sample at or
+    above ``bar`` from the plain loop's ``ref`` (in the first ``steps``)
+    is a near-tie pick: raising one Gumbel lane of the plain loop at that
+    step and row by ``nudge`` (the smallest of 1e-4, 3e-4, 1e-3, 3e-3
+    and ``PICK_TIE`` that does) makes it give the kernel's sample there.  A row whose first
+    difference no such nudge explains is left out, and fails its hold."""
+    S = inp.ktab.shape[1]
+    diff = (out[:, :steps] - ref[:, :steps]).abs() >= bar
+    flips = {}
+    for r in diff.any(dim=1).nonzero().flatten().tolist():
+        t = int(diff[r].nonzero()[0])
+        cut, gum, lgs = first_frames(inp, gumbel, logistic, t // S + 1)
+        for nudge in (1e-4, 3e-4, 1e-3, 3e-3, PICK_TIE):
+            for lane in range(inp.pick_dim):
+                g = gum.clone()
+                g[t, r, lane] += nudge
+                s = WK.sample_rows_plain(cut, g, lgs)
+                if abs(float(s[r, t] - out[r, t])) < bar:
+                    flips[r] = (t, lane, nudge)
+                    break
+            if r in flips:
+                break
+    return flips
+
+
 def compare_wavernn_bf16(cfg, params, rows: int, fpf: int, gen,
-                         dev) -> dict:
+                         dev, **tags) -> dict:
     """Kernel 1 in bf16 against the plain loop over ``fpf`` frames (the
     holds of :func:`compare_wavernn`); returns the full-fold comparison
-    with the kernel's time and the plan the timed launches ran on."""
-    bf16 = dict(dtype="torch.bfloat16", rows=rows)
+    with the kernel's time and the plan the timed launches ran on.
+    ``tags`` go into every line it logs."""
+    bf16 = dict(dtype="torch.bfloat16", rows=rows, frames=fpf, **tags)
     inp, gum, lgs = wavernn_inputs(cfg, params, rows, fpf, True, gen, dev)
     out = WK.launch(inp, gum, lgs)
     ref = WK.sample_rows_plain(*first_frames(inp, gum, lgs, 1))
-    hold(out[:, :8], ref[:, :8], 1e-2, steps=inp.steps, noise="drawn",
-         **bf16)
+    # a row whose pick flips on a near-tie is compared up to that step
+    flips = near_tie_flips(inp, gum, lgs, out, ref, 8)
+    head = out[:, :8].clone()
+    for r, (t, _, _) in flips.items():
+        head[r, t:] = ref[r, t:8]
+    hold(head, ref[:, :8], 1e-2, steps=inp.steps, noise="drawn",
+         near_tie_flips={str(r): dict(zip(("step", "lane", "nudge"), f))
+                         for r, f in flips.items()}, **bf16)
     if not bool(torch.isfinite(out).all()) or float(out.abs().max()) > 1:
         raise AssertionError(f"wavernn_sample bf16 at {rows} rows gave "
                              f"samples that are not finite in [-1, 1]")
@@ -715,7 +779,7 @@ def compare_wavernn_bf16(cfg, params, rows: int, fpf: int, gen,
           and abs(stats["std_bf16"] - stats["std_f32"]) < 0.15)
     log({"phase": "compare", "kernel": "wavernn_sample",
          "dtype": "torch.bfloat16 vs its f32 run", "rows": rows,
-         "steps": inp.steps, "noise": "drawn", **stats,
+         "steps": inp.steps, "noise": "drawn", **tags, **stats,
          "tolerance": "|d mean| < 0.1, |d std| < 0.15", "ok": ok})
     if not ok:
         raise AssertionError(f"wavernn_sample bf16 statistics out of "
@@ -749,20 +813,131 @@ def compare_wavernn_bf16(cfg, params, rows: int, fpf: int, gen,
                 plan=dataclasses.asdict(WK.device_plan(inp, dev)), **bf16)
 
 
-def compare_wavernn(gen, dev) -> dict:
+def fold_rows(frames: int, target: int, wr_cfg) -> int:
+    """Fold rows of a ``frames``-frame mel at ``target`` (the sampling
+    path folds at frame rate, ``wavernn._fold_rows``)."""
+    S, g = wr_cfg.total_scale, wr_cfg.generate
+    return WR._fold_count(frames, target // S, g.overlap // S)
+
+
+def single_pick(frames: int, wr_cfg) -> dict:
+    """The fold geometry that one sampling pass over a ``frames``-frame
+    mel runs at (``generate``, ``convert``): the picker's target
+    (``wavernn.auto_fold_target`` with ``cfg``, on the (frames - 1) x hop
+    output samples), the folds, their row bucket, frames a fold and
+    steps, and the wall model's kernel-1 ms."""
+    g = wr_cfg.generate
+    samples = (frames - 1) * wr_cfg.hop_length
+    t = WR.auto_fold_target(samples, g.overlap, wr_cfg)
+    folds = fold_rows(frames, t, wr_cfg)
+    return {"target": t, "folds": folds, "rows": WR._row_bucket(folds),
+            "frames": (t + 2 * g.overlap) // wr_cfg.total_scale,
+            "steps": t + 2 * g.overlap,
+            "predicted_kernel1_ms": WR._sampling_wall_model(
+                samples, t, g.overlap, wr_cfg) / 1e3}
+
+
+def serve_pick(frames, wr_cfg) -> dict:
+    """Batch serving's geometry for mels of ``frames`` frames
+    (``generate_many``): the picker's target over the pooled output
+    samples at ``cap=_MAX_SLAB_ROWS``, the union's folds and the slab
+    rows."""
+    g = wr_cfg.generate
+    t = WR.auto_fold_target(sum((f - 1) * wr_cfg.hop_length for f in frames),
+                            g.overlap, cap=WR._MAX_SLAB_ROWS)
+    folds = sum(fold_rows(f, t, wr_cfg) for f in frames)
+    return {"target": t, "folds": folds,
+            "rows": min(WR._MAX_SLAB_ROWS, WR._row_bucket(folds)),
+            "frames": (t + 2 * g.overlap) // wr_cfg.total_scale}
+
+
+def kernel1_geometries() -> dict:
+    """{(rows, frames a fold): [the runs that pick it]} of every bf16
+    kernel-1 launch of phases 4 and 8, from the picker: ``convert`` of
+    each wav of ``CONVERSIONS`` and ``SERVES``, of the 2 s warm-ups and of
+    the 10 s wav padded to 5 and 3 s multiples (cut=True: the merged
+    chunks' frames); ``cut=False`` of the 2 s, 10 s and 24 s wavs (the
+    whole mel); each ``SERVES`` workload's slabs."""
+    sr = 22050
+    wr_cfg, mel_cfg = WaveRNNConfig(), AutoEncoderConfig().spectrogram
+    geos = {}
+
+    def add(pick, what):
+        geos.setdefault((pick["rows"], pick["frames"]), []).append(what)
+
+    ten = int(10.0 * sr)
+    cut = {f"{sec:g} s": int(sec * sr) for sec in sorted(
+        {2.0} | {c[0] for c in CONVERSIONS}
+        | {x for v in SERVES.values() for x in v})}
+    for pad in (5.0, 3.0):
+        bucket = int(round(pad * sr))
+        cut[f"10 s padded to {pad:g} s"] = ten + (-ten) % bucket
+    for what, n in cut.items():
+        add(single_pick(expected_frames(n, mel_cfg), wr_cfg), what)
+    for sec in (2.0, 10.0, 24.0):
+        frames = dsp.mel_spec_auto_encoder(
+            synthetic_wav(sec, sr, int(sec)), mel_cfg).shape[-1]
+        add(single_pick(frames, wr_cfg), f"{sec:g} s cut=False")
+    for name, seconds in SERVES.items():
+        add(serve_pick([expected_frames(int(x * sr), mel_cfg)
+                        for x in seconds], wr_cfg), f"{name} slabs")
+    return geos
+
+
+class Kernel1Geometries:
+    """While entered, counts the bf16 ``wavernn_kernels.generate_rows``
+    calls by (rows, frames a fold) (``ran``); ``paused()`` stops the
+    count for a block."""
+
+    def __enter__(self):
+        self.ran, self.active = {}, True
+        self._fn = fn = WK.generate_rows
+
+        @functools.wraps(fn)
+        def recorded(params, mel_rows, aux_rows, cfg, fast_math=True,
+                     *args, **kwargs):
+            if self.active and fast_math:
+                geo = (int(aux_rows.shape[0]), int(aux_rows.shape[1]))
+                self.ran[geo] = self.ran.get(geo, 0) + 1
+            return fn(params, mel_rows, aux_rows, cfg, fast_math, *args,
+                      **kwargs)
+
+        WK.generate_rows = recorded
+        return self
+
+    def __exit__(self, *exc):
+        WK.generate_rows = self._fn
+
+    @contextlib.contextmanager
+    def paused(self):
+        self.active = False
+        try:
+            yield
+        finally:
+            self.active = True
+
+
+def compare_wavernn(gen, dev, geos: dict) -> dict:
     """Kernel 1 against the plain loop, at rd = fc = 512, MOL:
       * f32, 8 rows x 4 frames, drawn noise: atol 1e-3;
-      * f32, 48 and 64 rows x 4 frames, pinned noise: atol 1e-3;
-      * bf16 (the main path's tensor-core products) at the main path's
-        row buckets, 16 (the 4 s wav's 10 folds) and 48 (the 24 s wav's
-        48), and at batch serving's 64-row slab, on a full 11000 + 2 *
-        550 fold (44 frames, 12100 steps):
+      * f32, 48 and 64 rows x 4 frames, and at the smallest picked row
+        bucket above 64 (several row passes a step), pinned noise: atol
+        1e-3;
+      * bf16 (the main path's tensor-core products) at 16 and 48 rows and
+        at batch serving's 64-row slab, on a full 11000 + 2 * 550 fold
+        (44 frames, 12100 steps), and at every (rows, frames) of
+        ``geos`` (:func:`kernel1_geometries`: the geometries that the
+        picker gives phases 4 and 8, short folds and more than 64 rows
+        among them), each over its whole fold:
         - drawn noise, the first 8 steps: atol 1e-2 (later, a pick that
-          one side flips decorrelates the streams); all steps finite, in
-          [-1, 1], mean and std within 0.1 and 0.15 of the f32 kernel's
-          on the same inputs;
+          one side flips decorrelates the streams), a row whose first
+          differing sample is a near-tie pick (:func:`near_tie_flips`: a
+          nudge of at most ``PICK_TIE`` to one Gumbel lane of the plain
+          loop gives the kernel's sample) compared up to that step, each
+          such flip logged; all steps finite, in [-1, 1], mean and std
+          within 0.1 and 0.15 of the f32 kernel's on the same inputs;
         - pinned noise, the first 30 steps: atol 1e-2;
-        - pinned noise, all 12100 steps: max |err| below twice, mean |err|
+        - pinned noise, all steps: max |err| below twice, mean |err|
           below 1.15 times the plain loop's own spread when its mel
           projection is scaled by 1 + 1e-6 N(0, 1).  In bf16 any
           perturbation, however small, flips some operand roundings and
@@ -772,11 +947,15 @@ def compare_wavernn(gen, dev) -> dict:
           the GRU state rounded to bf16 gives ~1.25, a misplaced bias far
           more.
     Logs kernel 1's plan (``WK.device_plan`` of the timed launches) and
-    its us a step at 16, 48 and 64 rows.  Returns the 16-row bf16
-    full-fold comparison, with its kernel time."""
+    its us a step at 16, 48 and 64 rows, and a ``wavernn_sample picked``
+    line of each picked geometry's ms, bound and plain ms.  Returns the
+    full-fold comparison at the 4 s wav's pick (the summary's), with its
+    kernel time."""
     cfg = WaveRNNConfig()
     params = from_jax_params(WR.init(gen, cfg), dev)
-    for rows, pinned in ((8, False), (48, True), (WR._MAX_SLAB_ROWS, True)):
+    above = min(r for r, _ in geos if r > WR._MAX_SLAB_ROWS)
+    for rows, pinned in ((8, False), (48, True), (WR._MAX_SLAB_ROWS, True),
+                         (above, True)):
         compare_wavernn_f32(cfg, params, rows, pinned, gen, dev)
     fpf = (11000 + 2 * 550) // cfg.total_scale
     bf16_rows = (16, 48, WR._MAX_SLAB_ROWS)
@@ -789,7 +968,22 @@ def compare_wavernn(gen, dev) -> dict:
                              ms=res[rows]["ms"],
                              us_per_row_step=res[rows]["us_per_step"] / rows)
         for rows in bf16_rows}})
-    return res[16]
+    # a pick at a full fold of 16, 48 or 64 rows is the hold above
+    picked = {geo: (res[geo[0]] if geo[1] == fpf and geo[0] in res
+                    else compare_wavernn_bf16(cfg, params, *geo, gen, dev,
+                                              picked_by=what))
+              for geo, what in sorted(geos.items())}
+    log({"phase": "wavernn_sample picked", "sms": sms, **{
+        f"{r}x{f}": {"picked_by": geos[(r, f)], "steps": c["steps"],
+                     "ms": c["ms"], "us_per_step": c["us_per_step"],
+                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                     "plain_ms": c["plain_ms"],
+                     "max_abs_err": c["max_abs_err"],
+                     "passes": c["plan"]["passes"]}
+        for (r, f), c in picked.items()}})
+    four = single_pick(expected_frames(int(CONVERSIONS[0][0] * 22050),
+                                       AutoEncoderConfig().spectrogram), cfg)
+    return picked[(four["rows"], four["frames"])]
 
 
 def synthetic_wav(seconds: float, sr: int, seed: int) -> np.ndarray:
@@ -867,14 +1061,60 @@ class CallTimer:
         return [a.elapsed_time(b) for a, b in self._events]
 
 
-def phase_end_to_end(card: str) -> tuple[dict, list]:
+@contextlib.contextmanager
+def pinned_target(target: int):
+    """``wavernn.auto_fold_target`` returns ``target`` while entered."""
+    real = WR.auto_fold_target
+    WR.auto_fold_target = lambda *args, **kwargs: target
+    try:
+        yield
+    finally:
+        WR.auto_fold_target = real
+
+
+def ladder_walls(vc, convert, wav, reps: int = 3) -> dict:
+    """The conversion's wall (host clock to a device synchronise), its
+    vocoder stage's wall (``stage_times``) and the sampling loop's device
+    ms (CUDA events around ``generate_rows``) of ``convert(wav)`` at the
+    picker's target and with each ladder entry pinned: the median of
+    ``reps`` runs each, after one run at that geometry."""
+    out = {}
+    for t in (None,) + WR._TARGET_LADDER:
+        with (contextlib.nullcontext() if t is None else pinned_target(t)):
+            convert(wav)
+            convs, walls, loops = [], [], []
+            for _ in range(reps):
+                vc.stage_times = {}
+                with CallTimer(WK, "generate_rows") as loop:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    convert(wav)
+                    torch.cuda.synchronize()
+                    convs.append(time.perf_counter() - t0)
+                walls.append(vc.stage_times["vocoder"])
+                loops.append(sum(loop.device_ms))
+            vc.stage_times = None
+        out["pick" if t is None else str(t)] = {
+            "convert_wall_s": statistics.median(convs),
+            "vocoder_wall_s": statistics.median(walls),
+            "sampling_loop_ms": statistics.median(loops)}
+    fastest = min(v["vocoder_wall_s"] for k, v in out.items() if k != "pick")
+    out["pick_over_fastest"] = out["pick"]["vocoder_wall_s"] / fastest
+    return out
+
+
+def phase_end_to_end(card: str, recorder=None) -> tuple[dict, list]:
     """Each wav converts three times after a warm-up: once timed with the
     launch counts read around it (the main path), once under
     ``torch.profiler`` (device busy share, device time by kernel), once with
     ``VoiceConverter.stage_times`` set (each stage's wall to a device
     synchronise; the sampling loop's device ms, ``wavernn_kernels.
-    generate_rows`` between CUDA events, in the same run).  Returns the
-    launches and each conversion's line."""
+    generate_rows`` between CUDA events, in the same run).  Each line
+    carries the vocoder's picked geometry (``vocoder_pick``: target,
+    folds, row bucket, steps, the wall model's kernel-1 ms) and its
+    walls at the pick and at every ladder entry (:func:`ladder_walls`,
+    with ``recorder`` paused: those geometries are not picks).  Returns the launches and each
+    conversion's line."""
     sr = 22050
     vc = VoiceConverter(verbose=False)
     target = Audio(synthetic_wav(3.0, sr, 99), sr_org=sr)
@@ -901,6 +1141,7 @@ def phase_end_to_end(card: str) -> tuple[dict, list]:
         N = mel_cfg.partial_utterance_n_frames
         frames = N + (len(mel_slices) - 1) * (N // 2)
         expected = (frames - 1) * mel_cfg.hop_length
+        pick = single_pick(frames, vc.vocoder.config)
         for spec in KERNELS.values():
             spec["kernel"].launches = 0
         torch.cuda.synchronize()
@@ -933,8 +1174,11 @@ def phase_end_to_end(card: str) -> tuple[dict, list]:
                "device_busy_ms": busy_ms,
                "device_idle_share": 1.0 - busy_ms / prof_wall_ms,
                "device_ms_by_kernel": top, "stage_s": stage_s,
-               "sampling_loop_ms": loop.device_ms,
+               "sampling_loop_ms": loop.device_ms, "vocoder_pick": pick,
                "card": card}
+        with (recorder.paused() if recorder is not None
+              else contextlib.nullcontext()):
+            res["vocoder_ladder"] = ladder_walls(vc, convert, wav)
         log(res)
         results.append(res)
         if not np.all(np.isfinite(out.wav)):
@@ -1026,11 +1270,14 @@ def write_wavs(tmp: str, name: str, seconds, sr: int) -> list[str]:
     return paths
 
 
-def serve_workload(vc, name: str, paths, target, card: str) -> dict:
+def serve_workload(vc, name: str, paths, target, card: str,
+                   recorder=None) -> dict:
     """One workload through ``convert_batch`` (bf16): a profiled warm-up,
     three timed serves (the first with the launch counts read around it), one
     under ``torch.profiler`` (device idle share, launches by kernel name),
-    then ``convert`` of each wav one by one.  Fails unless kernels 1 and 3
+    then ``convert`` of each wav one by one, then a warm-up and three timed
+    serves at the config's fixed fold length (11000, the geometry before
+    the picker; ``recorder`` paused).  Fails unless kernels 1 and 3
     launched, every output is finite and as long as ``convert``'s."""
     sr = 22050
     mel_cfg = vc.AE.config.spectrogram
@@ -1075,15 +1322,23 @@ def serve_workload(vc, name: str, paths, target, card: str) -> dict:
                                   save_name=False))
         torch.cuda.synchronize()
         one_walls.append(time.perf_counter() - t0)
+    fixed_walls = []
+    with (recorder.paused() if recorder is not None
+          else contextlib.nullcontext()), \
+            pinned_target(wr_cfg.generate.target):
+        serve()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve()
+            torch.cuda.synchronize()
+            fixed_walls.append(time.perf_counter() - t0)
 
     lens = [len(audio_io.load_wav(p)[0]) for p in paths]
     expected = [expected_samples(n, mel_cfg) for n in lens]
     chunks = [chunk_count(n, mel_cfg) for n in lens]
-    S = wr_cfg.total_scale
-    folds = sum(WR._fold_count(expected_frames(n, mel_cfg),
-                               wr_cfg.generate.target // S,
-                               wr_cfg.generate.overlap // S) for n in lens)
-    slab = min(WR._MAX_SLAB_ROWS, WR._row_bucket(folds))
+    pick = serve_pick([expected_frames(n, mel_cfg) for n in lens], wr_cfg)
+    folds, slab = pick["folds"], pick["rows"]
     audio_s = sum(len(o.wav) for o in outs) / sr
     wall = statistics.median(walls)
     res = {"phase": "batch_serving", "workload": name,
@@ -1092,9 +1347,14 @@ def serve_workload(vc, name: str, paths, target, card: str) -> dict:
            "audio_s_per_s": audio_s / wall,
            "one_by_one_wall_s": sum(one_walls),
            "one_by_one_audio_s_per_s": audio_s / sum(one_walls),
+           "fixed_target": wr_cfg.generate.target,
+           "fixed_target_wall_s": fixed_walls,
+           "fixed_target_audio_s_per_s": audio_s / statistics.median(
+               fixed_walls),
            "ae_rows": sum(chunks), "ae_slab_plan": AE._slab_plan(sum(chunks)),
-           "vocoder_folds": folds, "vocoder_slab_rows": slab,
-           "vocoder_slabs": -(-folds // slab),
+           "vocoder_target": pick["target"], "vocoder_folds": folds,
+           "vocoder_slab_rows": slab, "vocoder_slabs": -(-folds // slab),
+           "vocoder_frames_per_fold": pick["frames"],
            "launches": counts, "profiler_launches": prof_launches,
            "profiled_wall_ms": prof_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / prof_ms,
@@ -1117,11 +1377,16 @@ def batch_f32_hold(tmp: str, target, card: str, bar: float = 1e-3) -> dict:
     utterance of ``convert_batch`` over three wavs of 1-3 s equals
     ``convert`` of the same wav, max |err| < ``bar`` (both through int16
     PCM; no outprocess).  A fold at a wrong slab offset or an utterance cut
-    at a wrong fold changes whole folds."""
+    at a wrong fold changes whole folds.  The fold picker prices the
+    batch's pooled folds in 64-row slabs and each ``convert`` as one pass,
+    so their picks may differ: both run here at the batch's pick."""
     sr = 22050
     vc = VoiceConverter(verbose=False, ae_precision="f32",
                         vocoder_precision="f32")
     paths = write_wavs(tmp, "hold", (1.0, 2.0, 3.0), sr)
+    mel_cfg = vc.AE.config.spectrogram
+    pick = serve_pick([expected_frames(len(audio_io.load_wav(p)[0]), mel_cfg)
+                       for p in paths], vc.vocoder.config)
     draw = WK.draw_noise
 
     def pinned(steps, rows, pick_dim, generator, device):
@@ -1138,10 +1403,12 @@ def batch_f32_hold(tmp: str, target, card: str, bar: float = 1e-3) -> dict:
 
     WK.draw_noise = pinned
     try:
-        outs = vc.convert_batch(paths, Audio(target.copy(), sr_org=sr),
-                                outprocess=())
-        singles = [vc.convert(p, Audio(target.copy(), sr_org=sr),
-                              outprocess=(), save_name=False) for p in paths]
+        with pinned_target(pick["target"]):
+            outs = vc.convert_batch(paths, Audio(target.copy(), sr_org=sr),
+                                    outprocess=())
+            singles = [vc.convert(p, Audio(target.copy(), sr_org=sr),
+                                  outprocess=(), save_name=False)
+                       for p in paths]
     finally:
         WK.draw_noise = draw
     errs = []
@@ -1151,6 +1418,7 @@ def batch_f32_hold(tmp: str, target, card: str, bar: float = 1e-3) -> dict:
                                  f"{one.wav.shape}")
         errs.append(float(np.max(np.abs(o.wav - one.wav))))
     res = {"phase": "batch_serving f32 hold", "seconds_in": [1, 2, 3],
+           "vocoder_target": pick["target"],
            "max_abs_err": errs, "rms": [float(np.sqrt(np.mean(
                o.wav.astype(np.float64) ** 2))) for o in outs],
            "tolerance": f"max |err| < {bar}", "ok": max(errs) < bar,
@@ -1214,7 +1482,7 @@ def unchunked_and_padded(vc, target, card: str) -> dict:
     return counts
 
 
-def phase_batch_serving(card: str) -> dict:
+def phase_batch_serving(card: str, recorder=None) -> dict:
     """Batch serving on ``VoiceConverter()`` (default config, fresh seeded
     weights, bf16): serve-8 and serve-24 (:func:`serve_workload`), the f32
     hold of ``convert_batch`` against ``convert``
@@ -1227,7 +1495,8 @@ def phase_batch_serving(card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for name, seconds in SERVES.items():
             counts = serve_workload(vc, name, write_wavs(tmp, name, seconds,
-                                                         sr), target, card)
+                                                         sr), target, card,
+                                    recorder)
             for k in CONVERT_KERNELS:
                 launches[k] += counts[k]
         batch_f32_hold(tmp, target, card)
@@ -2005,6 +2274,117 @@ def phase_cli(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the reference-checkpoint scripts
+# ---------------------------------------------------------------------------
+
+SCRIPTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+# the weight the harness's failing run perturbs: every post-net mel frame
+# moves by about it, ~100x the harness's atol
+PERTURBED = ("decoder.linear_projection.linear_layer.bias", 1e-2)
+
+
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(SCRIPTS, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_reference_scripts(card: str, dev) -> dict:
+    """Phase 12: the reference's three checkpoint formats, written from
+    ``tests/torch_mirrors.py`` at full width (:func:`reference_files`),
+    converted by ``scripts/convert_reference_checkpoints_torch.py`` to
+    ``.ckpt`` files, each loaded onto the card and equal, leaf for leaf
+    and in ``step``, to the ``.pt`` / ``.pyt`` file's own conversion;
+    then ``scripts/eval_reference_parity_torch.py`` on the card over a
+    1 s and a 3 s synthetic wav (the converted generator against the
+    mirror, f32, TF32 off): ``allclose_rtol1e3`` must be true and kernel
+    2 (lstm2, f32, 1 row) must launch; then the script's ``main`` (its
+    command line) with a mirror file whose ``PERTURBED`` weight is moved:
+    it must exit 1.  Returns the harness's launches."""
+    from autovc_tpu_torch.models import load_model
+    sr = 22050
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = reference_files(tmp, dev)
+        out_dir = os.path.join(tmp, "native")
+        t0 = time.perf_counter()
+        written = load_script("convert_reference_checkpoints_torch").main(
+            [f"--{k}={p}" for k, (_, p) in refs.items()]
+            + [f"--out_dir={out_dir}"])
+        convert_s = time.perf_counter() - t0
+        ckpts = dict(zip(refs, written))
+        same = {}
+        for k, (_, path) in refs.items():
+            a = load_model(k, ckpts[k], verbose=False, device=dev)
+            b = load_model(k, path, verbose=False, device=dev)
+            la, lb = tree_leaves(a.params), tree_leaves(b.params)
+            same[k] = (a.step == b.step and len(la) == len(lb) > 0
+                       and all(x.dtype == y.dtype and torch.equal(x, y)
+                               for x, y in zip(la, lb)))
+        samples = os.path.join(tmp, "samples")
+        os.makedirs(samples)
+        for sec in (1.0, 3.0):
+            audio_io.save_wav(os.path.join(samples, f"syn_{sec:g}s.wav"),
+                              synthetic_wav(sec, sr, 300 + int(sec)), sr)
+        harness = load_script("eval_reference_parity_torch")
+        for spec in KERNELS.values():
+            spec["kernel"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = harness.evaluate(ckpts["auto_encoder"], samples,
+                                  mirror_pt=refs["auto_encoder"][1],
+                                  device=dev)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        counts = {k: KERNELS[k]["kernel"].launches for k in CONVERT_KERNELS}
+
+        bad_pt = os.path.join(tmp, "AutoVC_perturbed.pt")
+        blob = torch.load(refs["auto_encoder"][1], map_location="cpu",
+                          weights_only=False)
+        name, delta = PERTURBED
+        blob["model_state"][name] = blob["model_state"][name] + delta
+        torch.save(blob, bad_pt)
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            try:
+                harness.main(["--auto_encoder", ckpts["auto_encoder"],
+                              "--samples", samples, "--mirror_pt", bad_pt],
+                             device=dev)
+                exit_code = 0
+            except SystemExit as e:
+                exit_code = e.code
+        bad_s = time.perf_counter() - t0
+    try:
+        bad_report = json.loads(printed.getvalue())
+    except json.JSONDecodeError:
+        bad_report = None
+    res = {"phase": "reference scripts", "precision": "f32",
+           "converted": {k: os.path.basename(p) for k, p in ckpts.items()},
+           "ckpt_equals_reference_file": same, "convert_s": convert_s,
+           "harness": report, "harness_s": eval_s, "launches": counts,
+           "perturbed": {"weight": name, "delta": delta,
+                         "exit_code": exit_code,
+                         "mel_mse": (bad_report or {}).get("mel_mse"),
+                         "allclose_rtol1e3": (bad_report or {}).get(
+                             "allclose_rtol1e3"),
+                         "wall_s": bad_s},
+           "card": card}
+    res["ok"] = (all(same.values()) and report["allclose_rtol1e3"]
+                 and len(report["files"]) == 2
+                 and report["device"].startswith("cuda")
+                 and counts["lstm_stack_skewed"] >= 1
+                 and exit_code == 1 and bad_report is not None
+                 and bad_report["allclose_rtol1e3"] is False)
+    log(res)
+    if not res["ok"]:
+        raise AssertionError(f"reference scripts phase failed: {res}")
+    return counts
+
+
 EXTRAS_KERNELS = CONVERT_KERNELS + TRAIN_KERNELS
 
 
@@ -2287,17 +2667,19 @@ def phase_roofline(card: str, conversions, train, vocoder, se) -> list:
     ``STREAM_STEP_FLOOR_US`` a frame.
     An entry whose time is below its throughput bound fails the run."""
     spec = RL.chip_spec()
-    ae_cfg, wr_cfg = AutoEncoderConfig(), WaveRNNConfig()
-    mel_cfg, g = ae_cfg.spectrogram, wr_cfg.generate
+    ae_cfg = AutoEncoderConfig()
+    mel_cfg = ae_cfg.spectrogram
     N = mel_cfg.partial_utterance_n_frames
-    steps = g.target + 2 * g.overlap
     entries = []
     for conv in conversions:
         sec, chunks, stage = conv["seconds_in"], conv["chunks"], \
             conv["stage_s"]
         frames = N + (chunks - 1) * (N // 2)
-        rows = WR._row_bucket(WR._fold_count(
-            (frames - 1) * wr_cfg.hop_length, g.target, g.overlap))
+        # the vocoder at the geometry the picker gave this conversion
+        pick = conv["vocoder_pick"]
+        rows, steps = pick["rows"], pick["steps"]
+        wr_cfg = WaveRNNConfig().with_overrides(
+            generate={"target": pick["target"]})
         fl, by = RL.melspec_cost(frames, mel_cfg.n_fft, mel_cfg.n_mels,
                                  mel_cfg.window_length)
         entries.append(RL.account(f"mel {sec:g}s", fl, by, stage["mel"],
@@ -2321,7 +2703,8 @@ def phase_roofline(card: str, conversions, train, vocoder, se) -> list:
     for name, (fl, by), res in (
             ("ae_train_step 16x400", RL.ae_train_cost(ae_cfg, 16, N), train),
             ("vocoder_train_step 8x2475",
-             RL.vocoder_train_cost(wr_cfg, 8, 9 * wr_cfg.hop_length),
+             RL.vocoder_train_cost(WaveRNNConfig(), 8,
+                                   9 * WaveRNNConfig().hop_length),
              vocoder),
             ("se_train_step 64x8x160", RL.se_train_cost(
                 SpeakerEncoderConfig(), 64, 8, 160), se)):
@@ -2892,10 +3275,21 @@ def main() -> int:
     compare_gru_train(8, 9 * 275, torch.float32, gen, dev)
     k45 = compare_gru_train(8, 9 * 275, torch.bfloat16, gen, dev)
     compare_gru_train(32, 5 * 275, torch.bfloat16, gen, dev)
-    k1 = compare_wavernn(gen, dev)
-    launches, conversions = phase_end_to_end(card)
-    for name, count in phase_batch_serving(card).items():
-        launches[name] += count
+    # kernel 1 at every geometry the fold picker gives phases 4 and 8;
+    # those phases then must run no other bf16 geometry
+    geos = kernel1_geometries()
+    k1 = compare_wavernn(gen, dev, geos)
+    with Kernel1Geometries() as recorder:
+        launches, conversions = phase_end_to_end(card, recorder)
+        for name, count in phase_batch_serving(card, recorder).items():
+            launches[name] += count
+    unheld = sorted(set(recorder.ran) - set(geos))
+    log({"phase": "wavernn_sample geometries", "held": sorted(geos),
+         "launches_by_geometry": {f"{r}x{f}": n for (r, f), n in sorted(
+             recorder.ran.items())}, "ran_unheld": unheld})
+    if unheld or not recorder.ran:
+        raise AssertionError(f"phases 4 and 8 ran kernel 1 in bf16 at "
+                             f"{unheld}, which phase 3 did not hold")
     train = phase_train(card)
     launches.update(train["launches"])
     phase_train_f32_vs_cpu(card)
@@ -2907,6 +3301,8 @@ def main() -> int:
         launches[name] += count
     phase_se_f32_vs_cpu(card)
     for name, count in phase_cli(card).items():
+        launches[name] += count
+    for name, count in phase_reference_scripts(card, dev).items():
         launches[name] += count
     for name, count in phase_train_extras(card).items():
         launches[name] += count

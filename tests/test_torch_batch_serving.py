@@ -45,7 +45,10 @@ SR = 22050
 N = 32
 SMALL = dict(rnn_dims=64, fc_dims=64, compute_dims=16, res_out_dims=16,
              res_blocks=2, upsample_factors=(2, 2), hop_length=4)
-VOC = dict(SMALL, generate={"target": 16, "overlap": 8})
+# the JAX side pins target=16 at each call; the port reads it from the
+# config with the fold picker off
+VOC = dict(SMALL, generate={"target": 16, "overlap": 8,
+                            "auto_target": False})
 AE_OVR = {"spectrogram": {"partial_utterance_n_frames": N}}
 SEED = 5
 

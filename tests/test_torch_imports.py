@@ -1,5 +1,6 @@
-"""Import hygiene of the port: ``autovc_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX or of the JAX package (checked in a subprocess where
+"""Import hygiene of the port: ``autovc_tpu_torch``, ``chip_smoke.py`` and
+the port's reference-checkpoint scripts import nothing of JAX or of the
+JAX package (checked in a subprocess where
 both are made unimportable), the port runs a CPU conversion there (through
 ``convert``, ``convert_batch`` and the command line), the ranks the
 port's launcher starts run without them too, and the entry points refuse
@@ -136,6 +137,51 @@ def test_launched_ranks_run_without_jax(tmp_path):
     """)
     res = _run(code, timeout=240)
     assert res.returncode == 0 and "LAUNCH_OK" in res.stdout, \
+        res.stdout[-3000:] + res.stderr[-3000:]
+
+
+def test_reference_scripts_run_without_jax(tmp_path):
+    """``scripts/convert_reference_checkpoints_torch.py`` and
+    ``scripts/eval_reference_parity_torch.py`` run on the CPU (a mirror
+    AutoVC file converted, then the harness over a 0.5 s wav) in a process
+    that cannot import JAX or the JAX package, and import neither."""
+    code = textwrap.dedent(f"""
+        import importlib.util, os
+        import numpy as np, torch
+        sys.path.insert(0, os.path.join({REPO!r}, "tests"))
+        from torch_mirrors import MirrorAutoVC
+
+        def script(name):
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join({REPO!r}, "scripts", name + ".py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+
+        d = {str(tmp_path)!r}
+        torch.manual_seed(0)
+        pt = os.path.join(d, "AutoVC.pt")
+        torch.save({{"step": 7, "model_state": MirrorAutoVC().state_dict()}},
+                   pt)
+        out, = script("convert_reference_checkpoints_torch").main(
+            ["--auto_encoder", pt, "--out_dir", os.path.join(d, "native")])
+        from autovc_tpu_torch.audio import io
+        os.mkdir(os.path.join(d, "wavs"))
+        t = np.arange(11025) / 22050
+        io.save_wav(os.path.join(d, "wavs", "a.wav"),
+                    (0.3 * np.sin(2 * np.pi * 180 * t)).astype(np.float32),
+                    22050)
+        rep = script("eval_reference_parity_torch").evaluate(
+            out, os.path.join(d, "wavs"), mirror_pt=pt, device="cpu")
+        assert rep["allclose_rtol1e3"] and list(rep["files"]) == ["a.wav"]
+        bad = [m for m in sys.modules
+               if m in ("jax", "jaxlib", "autovc_tpu")
+               or m.startswith(("jax.", "jaxlib.", "autovc_tpu."))]
+        assert not bad, bad
+        print("SCRIPTS_OK")
+    """)
+    res = _run(code)
+    assert res.returncode == 0 and "SCRIPTS_OK" in res.stdout, \
         res.stdout[-3000:] + res.stderr[-3000:]
 
 

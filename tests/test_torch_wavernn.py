@@ -177,7 +177,25 @@ def test_unaligned_geometry_raises():
 
 
 def test_auto_target_is_reference_geometry():
-    assert TW.auto_fold_target(10 ** 6, 550, TCfg()) == 11_000
+    """The H100 picks at the reference conversions' lengths (the 4 s, 10 s
+    and 24 s wavs' 399, 799 and 1999 mel frames of 275 samples, one
+    sampling pass each) and at a pooled length of batch serving (64-row
+    slabs): the 4 s and 10 s wavs fold at 1375 (64 / 120 rows x 2475
+    steps), where the table prices the reference's fixed 11000 above 1.5x
+    the pick; the 24 s wav keeps 11000 (48 rows x 12100 steps), with 2750
+    and 5500 within 3% of it."""
+    cfg = TCfg()
+    picks = [TW.auto_fold_target(f * 275, 550, cfg) for f in (399, 799, 1999)]
+    assert picks == [1375, 1375, 11_000]
+    for f in (399, 799):
+        walls = {t: TW._sampling_wall_model(f * 275, t, 550, cfg)
+                 for t in TW._TARGET_LADDER}
+        assert walls[11_000] > 1.5 * walls[1375]
+    walls = {t: TW._sampling_wall_model(1999 * 275, t, 550, cfg)
+             for t in TW._TARGET_LADDER}
+    assert max(walls[2750], walls[5500]) < 1.03 * walls[11_000]
+    assert TW.auto_fold_target(10 ** 6, 550, cfg) == 5500
+    assert TW.auto_fold_target(10 ** 6, 550, cap=TW._MAX_SLAB_ROWS) == 2750
 
 
 def test_packed_weights_match_per_call_packing(rows):
