@@ -11,9 +11,11 @@ The reference computes two mel front-ends with librosa
   25 ms window / 10 ms hop at 16 kHz, fmin 0), float32, transposed to
   (frames, mels), no dB / no normalisation.
 
-A copy of ``autovc_tpu/audio/dsp.py`` without its native C++ hook: the
-numpy golden reference and the host-side slice index math.  The device
-front-end lives in :mod:`autovc_tpu_torch.ops.melspec`.
+A copy of ``autovc_tpu/audio/dsp.py``: the numpy golden reference, the
+host-side slice index math and the hook that sends both host mels through
+the threaded C++ core (:mod:`autovc_tpu_torch.native`) when ``USE_NATIVE``
+is set and the wav covers one STFT window.  The device front-end lives in
+:mod:`autovc_tpu_torch.ops.melspec`.
 """
 from __future__ import annotations
 
@@ -159,6 +161,18 @@ def denormalize_spec(spec: np.ndarray, min_level_db: float = -100.0) -> np.ndarr
 # ---------------------------------------------------------------------------
 
 
+USE_NATIVE = True   # the threaded C++ core (the same numerics at rtol 1e-3:
+                    # tests/test_torch_native.py); its build raises on failure
+
+
+def _native():
+    if not USE_NATIVE:
+        return None
+    from autovc_tpu_torch import native  # native imports this module
+    native.get_lib()
+    return native
+
+
 def mel_spec_auto_encoder(wav: np.ndarray,
                           cfg: MelConfig = MelConfig()) -> np.ndarray:
     """Auto-encoder mel: amplitude mel -> dB -> [0,1].  (n_mels, n_frames).
@@ -167,6 +181,9 @@ def mel_spec_auto_encoder(wav: np.ndarray,
     slicing concern — use :func:`compute_partial_slices` + the ``_sliced``
     variants for the ``cut=True`` behaviour.
     """
+    nat = _native()
+    if nat is not None and len(wav) >= cfg.n_fft:
+        return nat.mel_spec_auto_encoder(np.asarray(wav), cfg)
     mag = stft_magnitude(wav, cfg.n_fft, cfg.hop_length, cfg.window_length)
     fb = mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels, fmin=cfg.fmin)
     mel = fb @ mag            # amplitude mel: S=|stft| passed to melspectrogram
@@ -182,6 +199,9 @@ def mel_spec_speaker_encoder(wav: np.ndarray,
     ``melspectrogram(wav, sr, n_fft, hop)`` squares the magnitude
     (power=2.0 default) and uses fmin=0, win_length=n_fft.
     """
+    nat = _native()
+    if nat is not None and len(wav) >= cfg.n_fft:
+        return nat.mel_spec_speaker_encoder(np.asarray(wav), cfg)
     mag = stft_magnitude(wav, cfg.n_fft, cfg.hop_length, cfg.n_fft)
     fb = mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels)
     mel = fb @ (mag ** 2)
@@ -253,16 +273,18 @@ def mel_spec_speaker_encoder_sliced(wav: np.ndarray,
     """``cut=True`` speaker-encoder path: (n_partials, frames, mels) float32
     partials, the wav slices and the mel slices.  ``slice_kwargs`` go to
     :func:`compute_partial_slices` (the frame count and window step default
-    to ``cfg``'s).  ``use_native=True`` (the JAX package's threaded C++ mel
-    core) is not ported and raises."""
-    if use_native:
-        raise NotImplementedError("the native C++ mel core is not ported "
-                                  "(ROADMAP, Queue 1 item 12)")
+    to ``cfg``'s).  ``use_native=True`` computes the mel through the
+    threaded C++ core whatever ``USE_NATIVE`` says, as the JAX function
+    does."""
     slice_kwargs.setdefault("partial_utterance_n_frames",
                             cfg.partial_utterance_n_frames)
     slice_kwargs.setdefault("mel_window_step", cfg.mel_window_step)
     wav_slices, mel_slices = compute_partial_slices(len(wav), cfg.sr,
                                                     **slice_kwargs)
     wav = pad_for_slices(wav, wav_slices)
-    mel = mel_spec_speaker_encoder(wav, cfg)
+    if use_native:
+        from autovc_tpu_torch import native
+        mel = native.mel_spec_speaker_encoder(wav, cfg)
+    else:
+        mel = mel_spec_speaker_encoder(wav, cfg)
     return np.stack([mel[s] for s in mel_slices]), wav_slices, mel_slices

@@ -14,7 +14,12 @@ running statistics move in place (:func:`autovc_tpu_torch.ops.conv.
 batchnorm1d`), and both decoder stacks go through the training kernels 6
 and 7 (:func:`autovc_tpu_torch.ops.lstm_train_kernels.lstm_stack_train`).
 The encoder BLSTM is a plain recurrence in both.  ``mode`` is the
-matmul/conv precision policy ("f32" or "bf16").
+matmul/conv precision policy ("f32" or "bf16").  ``model`` (a
+``parallel.tensor.ModelAxis``, training on a mesh with a model axis)
+makes every product whose weight is one of this rank's shards
+tensor-parallel: the convs and the projection column-parallel
+(``ops.conv``), the three recurrences the per-step loops of
+``ops.rnn`` instead of torch.lstm and kernels 6/7.
 
 Batch serving (:func:`batch_forward_packed`) cuts every utterance's chunks
 into slabs of the ladder ``_SLAB_LADDER`` on the plan of least measured
@@ -78,16 +83,17 @@ def init(gen: torch.Generator,
 
 def encoder(params: Params, x: torch.Tensor, c_org: torch.Tensor,
             freq: int, dim_neck: int, mode: str = "f32",
-            train: bool = False, group=None):
+            train: bool = False, group=None, model=None):
     """(B, n_mels, T), (B, emb) -> (codes_fwd (B, n_fwd, neck),
     codes_bwd (B, n_bwd, neck)).  ``group``: sync BatchNorm over a
-    process group's ranks in training (``conv.batchnorm1d``)."""
+    process group's ranks in training (``conv.batchnorm1d``); ``model``:
+    tensor parallelism (module docstring)."""
     T = x.shape[-1]
     h = torch.cat([x, c_org[:, :, None].expand(*c_org.shape, T)], dim=1)
     for p in params["convs"]:
         h = C.conv_bn(p, h, 5, activation=torch.relu, mode=mode, train=train,
-                      group=group)
-    out = R.bilstm_stack(params["blstm"], h.transpose(1, 2), mode)
+                      group=group, model=model)
+    out = R.bilstm_stack(params["blstm"], h.transpose(1, 2), mode, model)
     out_f, out_b = out[..., :dim_neck], out[..., dim_neck:]
     return out_f[:, freq - 1::freq, :], out_b[:, ::freq, :]
 
@@ -106,37 +112,38 @@ def upsample_codes(codes_fwd: torch.Tensor, codes_bwd: torch.Tensor,
 
 
 def decoder(params: Params, x: torch.Tensor, mode: str = "f32",
-            lstm2_packed=None, train: bool = False, group=None):
+            lstm2_packed=None, train: bool = False, group=None, model=None):
     """(B, T, 2*neck+emb) -> (B, T, n_mels).  ``lstm2_packed``: lstm2's
     inference kernel weights, ``lstm_kernels.pack(params["lstm2"], mode)``
-    (built per call when None); ``group`` as for :func:`encoder`."""
+    (built per call when None); ``group``, ``model`` as for
+    :func:`encoder` (``model`` in training)."""
     if train:
-        h, _ = LT.lstm_stack_train(params["lstm1"], x, mode)
+        h, _ = LT.lstm_stack_train(params["lstm1"], x, mode, model)
     else:
         h = LK.lstm_stack_rec(params["lstm1"], x, mode)
     h = h.transpose(1, 2)
     for p in params["convs"]:
         h = C.conv_bn(p, h, 5, activation=torch.relu, mode=mode, train=train,
-                      group=group)
+                      group=group, model=model)
     h = h.transpose(1, 2)
     if train:
-        h, _ = LT.lstm_stack_train(params["lstm2"], h, mode)
+        h, _ = LT.lstm_stack_train(params["lstm2"], h, mode, model)
     elif h.shape[0] <= _LATENCY_KERNEL_MAX_ROWS:
         h = LK.lstm_stack_latency(params["lstm2"], h, mode, lstm2_packed)
     else:
         h = LK.lstm_stack_stream(params["lstm2"], h, mode, lstm2_packed)
-    return C.linear(params["proj"], h, mode)
+    return C.linear(params["proj"], h, mode, model)
 
 
 def postnet(params: Params, x: torch.Tensor, mode: str = "f32",
-            train: bool = False, group=None):
+            train: bool = False, group=None, model=None):
     """(B, n_mels, T) -> residual (B, n_mels, T); tanh on all but the last
-    conv; ``group`` as for :func:`encoder`."""
+    conv; ``group``, ``model`` as for :func:`encoder`."""
     h = x
     n = len(params["convs"])
     for i, p in enumerate(params["convs"]):
         h = C.conv_bn(p, h, 5, activation=torch.tanh if i < n - 1 else None,
-                      mode=mode, train=train, group=group)
+                      mode=mode, train=train, group=group, model=model)
     return h
 
 
@@ -148,47 +155,49 @@ def _flatten_codes(codes_fwd, codes_bwd) -> torch.Tensor:
 
 def content_codes(params: Params, x: torch.Tensor, c_org: torch.Tensor,
                   cfg: AutoEncoderConfig, mode: str = "f32",
-                  train: bool = False, group=None) -> torch.Tensor:
+                  train: bool = False, group=None,
+                  model=None) -> torch.Tensor:
     """Encoder-only pass (the reference's ``forward(..., c_trg=None)``):
     the flattened content codes (B, (n_fwd + n_bwd) * neck)."""
     return _flatten_codes(*encoder(params["encoder"], x, c_org, cfg.freq,
-                                   cfg.dim_neck, mode, train, group))
+                                   cfg.dim_neck, mode, train, group, model))
 
 
 def forward(params: Params, x: torch.Tensor, c_org: torch.Tensor,
             c_trg: torch.Tensor, cfg: AutoEncoderConfig, mode: str = "f32",
-            lstm2_packed=None, train: bool = False, group=None):
+            lstm2_packed=None, train: bool = False, group=None, model=None):
     """Full generator pass: (mel_decoder, mel_postnet, content_codes) with
     mels (B, n_mels, T); ``lstm2_packed`` as for :func:`decoder`,
-    ``group`` as for :func:`encoder`."""
+    ``group`` and ``model`` as for :func:`encoder`."""
     T = x.shape[-1]
     codes_fwd, codes_bwd = encoder(params["encoder"], x, c_org, cfg.freq,
-                                   cfg.dim_neck, mode, train, group)
+                                   cfg.dim_neck, mode, train, group, model)
     up = upsample_codes(codes_fwd, codes_bwd, cfg.freq, T)
     dec_in = torch.cat([up, c_trg[:, None, :].expand(x.shape[0], T, -1)],
                        dim=-1)
     mel_dec = decoder(params["decoder"], dec_in, mode, lstm2_packed,
-                      train, group).transpose(1, 2)
+                      train, group, model).transpose(1, 2)
     mel_post = mel_dec + postnet(params["postnet"], mel_dec, mode, train,
-                                 group)
+                                 group, model)
     return mel_dec, mel_post, _flatten_codes(codes_fwd, codes_bwd)
 
 
 def loss(params: Params, x: torch.Tensor, c_org: torch.Tensor,
          cfg: AutoEncoderConfig, mu: float = 1.0, lambd: float = 1.0,
-         mode: str = "f32", train: bool = True, group=None):
+         mode: str = "f32", train: bool = True, group=None, model=None):
     """Three-term AutoVC loss (``autoencoder.py:274-294``):
     MSE(postnet, x) + mu * MSE(decoder, x) + lambd * L1(codes(recon),
     codes), the reconstruction's codes from the encoder re-run on the
     postnet output.  In training the BatchNorm statistics move twice, in
     the JAX package's order: the forward's, then the encoder's again on
     the re-run.  ``group``: sync BatchNorm over a process group (the
-    terms stay means over this rank's rows).  Returns (loss, aux dict of
-    device scalars)."""
+    terms stay means over this rank's rows); ``model``: tensor
+    parallelism (module docstring).  Returns (loss, aux dict of device
+    scalars)."""
     mel_dec, mel_post, codes = forward(params, x, c_org, c_org, cfg, mode,
-                                       train=train, group=group)
+                                       train=train, group=group, model=model)
     recon_codes = content_codes(params, mel_post, c_org, cfg, mode, train,
-                                group)
+                                group, model)
     l_post = torch.mean((mel_post - x) ** 2)
     l_dec = torch.mean((mel_dec - x) ** 2)
     l_content = torch.mean(torch.abs(recon_codes - codes))

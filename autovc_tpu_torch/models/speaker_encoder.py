@@ -158,13 +158,16 @@ def ge2e_loss(params: Params, embeds: torch.Tensor) -> torch.Tensor:
 
 
 def _forward_train(params: Params, utterances: torch.Tensor,
-                   mode: str = "f32") -> torch.Tensor:
+                   mode: str = "f32", model=None) -> torch.Tensor:
     """Training forward, the same function as :func:`forward`: the stack
     through ``lstm_stack_train`` (kernels 6/7 on CUDA; the compute dtype is
     ``PREC.lstm_kernel_dtype(mode, H)``), the last layer's final h, then
-    ``relu(linear)`` and L2-normalise."""
-    _, (h, _) = LT.lstm_stack_train(params["lstm"], utterances, mode)
-    raw = torch.relu(C.linear(params["linear"], h, mode))
+    ``relu(linear)`` and L2-normalise.  ``model`` (a
+    ``parallel.tensor.ModelAxis``): the stack's per-step tensor-parallel
+    loop and a column-parallel projection where their weights are this
+    rank's shards; the similarity weight and bias stay whole."""
+    _, (h, _) = LT.lstm_stack_train(params["lstm"], utterances, mode, model)
+    raw = torch.relu(C.linear(params["linear"], h, mode, model))
     return raw / torch.linalg.norm(raw, dim=-1, keepdim=True)
 
 

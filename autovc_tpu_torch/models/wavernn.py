@@ -55,6 +55,7 @@ from autovc_tpu_torch.ops import mol as MOL
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops import rnn as R
 from autovc_tpu_torch.ops import wavernn_kernels as WK
+from autovc_tpu_torch.parallel import tensor as TP
 from autovc_tpu_torch.utils import resolve_device
 
 Params = Dict[str, Any]
@@ -164,34 +165,52 @@ def upsample(params: Params, m: torch.Tensor, cfg: WaveRNNConfig,
     return mels.transpose(1, 2), aux.transpose(1, 2)
 
 
+def _split_fc(params: Params, x: torch.Tensor, a: torch.Tensor, n: int,
+              mode: str, model) -> torch.Tensor:
+    """``relu([x, a] @ w.T + b)`` as two products over the split input
+    (x: its first ``n`` features); column-parallel when ``w`` is a shard,
+    the ReLU on this rank's columns before the gather."""
+    w = params["w"]
+    model = TP.of(model, w)
+    x, a = TP.copy_to_model(x, model), TP.copy_to_model(a, model)
+    out = torch.relu(PREC.dot(x, w[:, :n].T, mode)
+                     + PREC.dot(a, w[:, n:].T, mode) + params["b"])
+    return TP.gather_from_model(out, -1, model)
+
+
 def forward(params: Params, x: torch.Tensor, mels: torch.Tensor,
             cfg: WaveRNNConfig, train: bool = False,
-            mode: str = "f32", group=None) -> torch.Tensor:
+            mode: str = "f32", group=None, model=None) -> torch.Tensor:
     """Teacher-forced pass: previous samples x (B, T) and mels (B, feat, F)
     with T = (F - 2*pad) * total_scale -> logits (B, T, n_classes).
-    ``group`` as for :func:`_mel_resnet`."""
+    ``group`` as for :func:`_mel_resnet`.  ``model`` (a
+    ``parallel.tensor.ModelAxis``): tensor parallelism where a weight is
+    one of this rank's shards (``I``, both GRUs' gate columns, ``fc1``,
+    ``fc2``, and ``fc3`` when its width divides the axis): the
+    projections column-parallel, the GRU pair the per-step loop
+    ``rnn.gru_pair_tp`` on this rank's columns of the hoisted ``xp1`` and
+    ``base2``; the MelResNet and the upsampler stay whole."""
     cond, aux = upsample(params["upsample"], mels, cfg, train, mode, group)
     d, rd, fcd = cfg.aux_dims, cfg.rnn_dims, cfg.fc_dims
     inp = torch.cat([x[..., None], cond, aux[..., :d]], dim=-1)
     # time-major from here to the logits
     a2, a3, a4 = (aux[..., i * d:(i + 1) * d].transpose(0, 1)
                   for i in (1, 2, 3))
-    xI = C.linear(params["I"], inp.transpose(0, 1), mode)    # (T, B, rd)
+    xI = C.linear(params["I"], inp.transpose(0, 1), mode, model)  # (T, B, rd)
     w2 = params["rnn2"]["w_ih"]
-    xp1 = R.gru_project_inputs(params["rnn1"], xI, mode)
-    base2 = (PREC.dot(xI, w2[:rd], mode) + PREC.dot(a2, w2[rd:], mode)
+    rec = TP.of(model, params["rnn1"]["w_hh"])
+    xIc, a2c = TP.copy_to_model(xI, rec), TP.copy_to_model(a2, rec)
+    xp1 = R.gru_project_inputs(params["rnn1"], xIc, mode)
+    base2 = (PREC.dot(xIc, w2[:rd], mode) + PREC.dot(a2c, w2[rd:], mode)
              + params["rnn2"]["b_ih"])
     h1, h2 = GT.gru_pair(xp1, base2, w2[:rd], params["rnn1"]["w_hh"],
                          params["rnn1"]["b_hh"], params["rnn2"]["w_hh"],
-                         params["rnn2"]["b_hh"], mode)
+                         params["rnn2"]["b_hh"], mode, rec)
     x1 = h1 + xI
     x2 = h2 + x1
-    wf1, wf2 = params["fc1"]["w"], params["fc2"]["w"]
-    x3 = torch.relu(PREC.dot(x2, wf1[:, :rd].T, mode)
-                    + PREC.dot(a3, wf1[:, rd:].T, mode) + params["fc1"]["b"])
-    x4 = torch.relu(PREC.dot(x3, wf2[:, :fcd].T, mode)
-                    + PREC.dot(a4, wf2[:, fcd:].T, mode) + params["fc2"]["b"])
-    return C.linear(params["fc3"], x4, mode).transpose(0, 1)
+    x3 = _split_fc(params["fc1"], x2, a3, rd, mode, model)
+    x4 = _split_fc(params["fc2"], x3, a4, fcd, mode, model)
+    return C.linear(params["fc3"], x4, mode, model).transpose(0, 1)
 
 
 def encode_mu_law(x: torch.Tensor, mu: int) -> torch.Tensor:
@@ -203,16 +222,17 @@ def encode_mu_law(x: torch.Tensor, mu: int) -> torch.Tensor:
 
 def loss(params: Params, x_in: torch.Tensor, y_target: torch.Tensor,
          mels: torch.Tensor, cfg: WaveRNNConfig, train: bool = True,
-         mode: str = "f32", group=None) -> torch.Tensor:
+         mode: str = "f32", group=None, model=None) -> torch.Tensor:
     """Vocoder training loss (``wavernn.py:279-304``): the MOL negative
     log-likelihood (mode 'MOL') or the cross-entropy over quantised classes
     (mode 'RAW', in the mu-law companded domain when
     ``cfg.generate.mu_law``).  ``group``: sync BatchNorm over a process
-    group (the loss stays a mean over this rank's rows)."""
+    group (the loss stays a mean over this rank's rows); ``model`` as for
+    :func:`forward`."""
     if cfg.mode == "RAW" and cfg.generate.mu_law:
         x_in = encode_mu_law(x_in, cfg.n_classes)
         y_target = encode_mu_law(y_target, cfg.n_classes)
-    logits = forward(params, x_in, mels, cfg, train, mode, group)
+    logits = forward(params, x_in, mels, cfg, train, mode, group, model)
     if cfg.mode == "MOL":
         return MOL.discretized_mix_logistic_loss(logits, y_target[..., None])
     n = cfg.n_classes

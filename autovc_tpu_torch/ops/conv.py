@@ -10,6 +10,15 @@ Train-mode batch-norm normalises with the batch statistics and updates the
 running statistics IN PLACE (under ``no_grad``), where the JAX function
 returns them in a new tree: callers thread nothing, and a sequence of
 train-mode calls updates them in the JAX package's order.
+
+Tensor parallelism: with ``model=`` (a ``parallel.tensor.ModelAxis``)
+:func:`conv1d` and :func:`linear` are column-parallel where their weight
+is one of this rank's shards (the rule table's block of the output
+channels or features, bias likewise): the input goes through
+``copy_to_model`` and the output is all-gathered over the model group, so
+every rank returns the whole output.  A weight the rule table leaves
+whole takes the plain product.  :func:`conv_bn` gathers the channels
+before its BatchNorm, whose scale and shift stay whole.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from autovc_tpu_torch.ops import precision as PREC
+from autovc_tpu_torch.parallel import tensor as TP
 
 Params = Dict[str, Any]
 
@@ -83,24 +93,29 @@ def init_conv_bn(gen, in_channels: int, out_channels: int, kernel_size: int,
 
 
 def conv1d(params: Params, x: torch.Tensor, padding: int = 0,
-           mode: str = "f32") -> torch.Tensor:
+           mode: str = "f32", model=None) -> torch.Tensor:
     """(B, C_in, T) -> (B, C_out, T').  Under bf16 the output is rounded to
     bf16 before the bias, as the JAX bf16 conv's bf16 output is
-    (``precision.conv_output``)."""
-    x, w = PREC.operands(mode, x, params["w"])
+    (``precision.conv_output``).  ``model``: column-parallel over the
+    output channels (module docstring)."""
+    model = TP.of(model, params["w"])
+    x, w = PREC.operands(mode, TP.copy_to_model(x, model), params["w"])
     out = F.conv1d(x, w, padding=padding)
     if mode == "bf16":
         out = PREC.round_bf16(out)
     if "b" in params:
         out = out + params["b"][None, :, None]
-    return out
+    return TP.gather_from_model(out, 1, model)
 
 
-def linear(params: Params, x: torch.Tensor, mode: str = "f32"):
-    out = PREC.dot(x, params["w"].T, mode)
+def linear(params: Params, x: torch.Tensor, mode: str = "f32", model=None):
+    """``x @ w.T + b``; ``model``: column-parallel over the output
+    features (module docstring)."""
+    model = TP.of(model, params["w"])
+    out = PREC.dot(TP.copy_to_model(x, model), params["w"].T, mode)
     if "b" in params:
         out = out + params["b"]
-    return out
+    return TP.gather_from_model(out, -1, model)
 
 
 def batchnorm1d(params: Params, x: torch.Tensor, train: bool = False,
@@ -146,11 +161,11 @@ def batchnorm1d(params: Params, x: torch.Tensor, train: bool = False,
 
 def conv_bn(params: Params, x: torch.Tensor, kernel_size: int,
             activation=None, mode: str = "f32",
-            train: bool = False, group=None) -> torch.Tensor:
+            train: bool = False, group=None, model=None) -> torch.Tensor:
     """conv(k, same-pad) -> BN (``train``: batch statistics, running
     statistics updated in place; ``group``: over the group's global batch)
-    -> optional activation."""
+    -> optional activation.  ``model``: as for :func:`conv1d`."""
     out = conv1d(params["conv"], x, padding=(kernel_size - 1) // 2,
-                 mode=mode)
+                 mode=mode, model=model)
     out = batchnorm1d(params["bn"], out, train, group=group)
     return activation(out) if activation is not None else out

@@ -45,6 +45,8 @@ import torch
 
 from autovc_tpu_torch.ops import _build
 from autovc_tpu_torch.ops import precision as PREC
+from autovc_tpu_torch.ops import rnn as R
+from autovc_tpu_torch.parallel import tensor as TP
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FWD = _build.Kernel("gru_train.cu", "gru_train_fwd_launch",
@@ -539,12 +541,17 @@ class GruPair(torch.autograd.Function):
 
 def gru_pair(xp1: torch.Tensor, base2: torch.Tensor, wih2x: torch.Tensor,
              whh1: torch.Tensor, bhh1: torch.Tensor, whh2: torch.Tensor,
-             bhh2: torch.Tensor, mode: str = "f32"):
+             bhh2: torch.Tensor, mode: str = "f32", model=None):
     """Fused teacher-forced GRU pair, time-major: ``xp1``/``base2`` (T, B,
     3H) f32 hoisted projections (input biases folded in), weights (H, 3H),
     ``bhh`` (3H,) -> ``(h1s, h2s)``, each (T, B, H) f32.  ``mode`` is the
     precision policy ("f32" or "bf16"); the JAX function reads it from its
-    context."""
+    context.  ``model`` (a ``parallel.tensor.ModelAxis``) whose shards
+    hold the weights: the tensor-parallel per-step loop
+    ``rnn.gru_pair_tp``, on this rank's gate columns, not kernels 4/5."""
     B, H = xp1.shape[1], whh1.shape[0]
+    if TP.of(model, whh1) is not None:
+        return R.gru_pair_tp(xp1, base2, wih2x, whh1, bhh1, whh2, bhh2,
+                             PREC.rec_dtype(mode, B, H), model)
     return GruPair.apply(xp1, base2, wih2x, whh1, bhh1, whh2, bhh2,
                          PREC.rec_dtype(mode, B, H))

@@ -46,6 +46,8 @@ import torch
 from autovc_tpu_torch.ops import _build
 from autovc_tpu_torch.ops import lstm_kernels as LK
 from autovc_tpu_torch.ops import precision as PREC
+from autovc_tpu_torch.ops import rnn as R
+from autovc_tpu_torch.parallel import tensor as TP
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 FWD = _build.Kernel("lstm_train.cu", "lstm_train_fwd_launch",
@@ -360,12 +362,19 @@ class StackTrain(torch.autograd.Function):
         return dxp0, dwhh, dwih, db[1:], None
 
 
-def lstm_stack_train(params: Sequence, x: torch.Tensor, mode: str = "f32"):
+def lstm_stack_train(params: Sequence, x: torch.Tensor, mode: str = "f32",
+                     model=None):
     """Training LSTM stack (uniform H; layers >= 1 take H-dim inputs):
     x (B, T, I) -> (ys (B, T, H), (h_fin, c_fin)) with zero initial
     states, as ``lstm_train_pallas.lstm_stack_train``.  ``mode`` is the
-    precision policy ("f32" or "bf16")."""
+    precision policy ("f32" or "bf16").  ``model`` (a
+    ``parallel.tensor.ModelAxis``) whose shards hold the weights: the same
+    function as ``rnn.lstm_stack_tp``'s per-step tensor-parallel loop,
+    not kernels 6/7."""
     H = params[0]["w_hh"].shape[0]
+    if TP.of(model, params[0]["w_hh"]) is not None:
+        return R.lstm_stack_tp(params, x, mode,
+                               PREC.lstm_kernel_dtype(mode, H), model)
     for p in params[1:]:
         if tuple(p["w_ih"].shape) != (H, 4 * H) or p["w_hh"].shape[0] != H:
             raise ValueError("lstm_stack_train needs a uniform hidden size")

@@ -173,16 +173,20 @@ def draw_noise(steps: int, rows: int, pick_dim: int,
     return gumbel, logistic
 
 
-def sample_rows_plain(inp: RowsInputs, gumbel: torch.Tensor,
-                      logistic: torch.Tensor) -> torch.Tensor:
-    """The kernel's loop in PyTorch (the CPU path and the kernel's
-    oracle): (B, steps) samples."""
-    B, S = inp.rows, inp.ktab.shape[1]
-    W = inp.ktab.shape[0]
-    rd = inp.w_x.shape[0]
+def plain_weights(inp: RowsInputs) -> Dict[str, torch.Tensor]:
+    """The loop's weights as f32 (in, out) matrices for :func:`plain_step`."""
+    return {k: getattr(inp, k).float().T for k in
+            ("w_ih1", "w_hh1", "w_ih2", "w_hh2", "w_fc1", "w_fc2", "w_fc3")}
+
+
+def plain_step(inp: RowsInputs, w: Dict[str, torch.Tensor], x, h1, h2,
+               base, mfw, kcol, pre_r2, pre_f1, pre_f2, gumbel_t,
+               logistic_t):
+    """One step of the kernel's loop in PyTorch: the previous sample ``x``
+    (B, 1), the GRU states, the step's frame inputs (``base``, ``pre_*``:
+    (B, .) rows of frame q; ``mfw[k]`` the mel projection of frame q + k;
+    ``kcol[k]`` = ``ktab[k, p]``) and noise -> (sample (B,), h1, h2)."""
     bf16 = inp.w_ih1.dtype == torch.bfloat16
-    w = {k: getattr(inp, k).float().T for k in
-         ("w_ih1", "w_hh1", "w_ih2", "w_hh2", "w_fc1", "w_fc2", "w_fc3")}
 
     def dot(a, name):
         return torch.matmul(PREC.round_bf16(a) if bf16 else a, w[name])
@@ -197,38 +201,51 @@ def sample_rows_plain(inp: RowsInputs, gumbel: torch.Tensor,
         return (1.0 - z) * n + z * h
 
     nr_mix = inp.nr_mix
-    rows = torch.arange(B, device=inp.mf.device)
+    pre_I = base
+    for k in range(len(mfw)):
+        pre_I = pre_I + mfw[k] * kcol[k]
+    xI = x * inp.w_x[None, :] + pre_I
+    h1 = gru(h1, dot(xI, "w_ih1") + inp.b_ih1, "w_hh1", inp.b_hh1)
+    x1 = xI + h1
+    h2 = gru(h2, dot(x1, "w_ih2") + pre_r2, "w_hh2", inp.b_hh2)
+    x2 = x1 + h2
+    x3 = torch.relu(dot(x2, "w_fc1") + pre_f1)
+    x4 = torch.relu(dot(x3, "w_fc2") + pre_f2)
+    logits = dot(x4, "w_fc3") + inp.b_fc3
+    # torch.argmax returns the first maximal index, as jnp.argmax
+    pick = torch.argmax(logits[:, :inp.pick_dim] + gumbel_t, dim=-1)
+    if inp.raw_mode:
+        sample = 2.0 * pick.float() / (inp.n_classes - 1.0) - 1.0
+    else:
+        rows = torch.arange(x.shape[0], device=x.device)
+        means = logits[rows, nr_mix + pick]
+        log_scales = torch.clamp(logits[rows, 2 * nr_mix + pick],
+                                 min=LOG_SCALE_MIN)
+        sample = torch.clamp(means + torch.exp(log_scales) * logistic_t,
+                             -1.0, 1.0)
+    return sample, h1, h2
+
+
+def sample_rows_plain(inp: RowsInputs, gumbel: torch.Tensor,
+                      logistic: torch.Tensor) -> torch.Tensor:
+    """The kernel's loop in PyTorch (the CPU path and the kernel's
+    oracle): (B, steps) samples, one :func:`plain_step` a step."""
+    B, S = inp.rows, inp.ktab.shape[1]
+    W = inp.ktab.shape[0]
+    rd = inp.w_x.shape[0]
+    w = plain_weights(inp)
     x = inp.mf.new_zeros(B, 1)
     h1 = inp.mf.new_zeros(B, rd)
     h2 = inp.mf.new_zeros(B, rd)
     out = []
     for q in range(inp.fpf):
-        base = inp.base[:, q]
         mfw = [inp.mf[:, q + k] for k in range(W)]
         for p in range(S):
             t = q * S + p
-            pre_I = base
-            for k in range(W):
-                pre_I = pre_I + mfw[k] * inp.ktab[k, p]
-            xI = x * inp.w_x[None, :] + pre_I
-            h1 = gru(h1, dot(xI, "w_ih1") + inp.b_ih1, "w_hh1", inp.b_hh1)
-            x1 = xI + h1
-            h2 = gru(h2, dot(x1, "w_ih2") + inp.pre_r2[:, q], "w_hh2",
-                     inp.b_hh2)
-            x2 = x1 + h2
-            x3 = torch.relu(dot(x2, "w_fc1") + inp.pre_f1[:, q])
-            x4 = torch.relu(dot(x3, "w_fc2") + inp.pre_f2[:, q])
-            logits = dot(x4, "w_fc3") + inp.b_fc3
-            # torch.argmax returns the first maximal index, as jnp.argmax
-            pick = torch.argmax(logits[:, :inp.pick_dim] + gumbel[t], dim=-1)
-            if inp.raw_mode:
-                sample = 2.0 * pick.float() / (inp.n_classes - 1.0) - 1.0
-            else:
-                means = logits[rows, nr_mix + pick]
-                log_scales = torch.clamp(logits[rows, 2 * nr_mix + pick],
-                                         min=LOG_SCALE_MIN)
-                sample = torch.clamp(
-                    means + torch.exp(log_scales) * logistic[t], -1.0, 1.0)
+            sample, h1, h2 = plain_step(
+                inp, w, x, h1, h2, inp.base[:, q], mfw, inp.ktab[:, p],
+                inp.pre_r2[:, q], inp.pre_f1[:, q], inp.pre_f2[:, q],
+                gumbel[t], logistic[t])
             out.append(sample)
             x = sample[:, None]
     return torch.stack(out, dim=1)

@@ -37,14 +37,16 @@ Params = Dict[str, Any]
 
 
 def _devices(mesh: shd.Mesh, axis_name: str) -> tuple:
-    shd.check_no_tensor_parallel(mesh)
+    """The ring's positions: one per index of ``axis_name``, the first
+    position of each model row on a mesh with a model axis (the JAX ring
+    uses ``mesh.shape["data"]`` and leaves the parameters whole)."""
     if mesh.distributed:
         raise ValueError("the ring runs over a local mesh "
                          "(make_mesh(devices=...)), not over ranks")
-    if mesh.shape.get(axis_name, 0) != mesh.size:
-        raise ValueError(f"the ring needs a mesh of the one axis "
-                         f"{axis_name!r}, got {mesh.shape}")
-    return mesh.devices
+    if mesh.shape.get(axis_name, 0) != mesh.data_size:
+        raise ValueError(f"the ring needs a mesh of the axis {axis_name!r} "
+                         f"(and a model axis), got {mesh.shape}")
+    return mesh.row_devices
 
 
 def shard_time(x: torch.Tensor, devices, dim: int = 1) -> List[torch.Tensor]:

@@ -9,27 +9,38 @@ device (``[cuda:0] * 2``, ``[cpu] * 4``), which stands in for the JAX
 tests' forced host device count.  After
 :func:`autovc_tpu_torch.parallel.steps.initialize_distributed`,
 ``make_mesh()`` has one position per rank of the process group, each on
-that rank's device; such a mesh drives the data-parallel steps.
+that rank's device; such a mesh drives the sharded training steps.
 
-``TP_RULES`` is the JAX package's rule table, copied: ``param_shardings``
-gives every leaf of a parameter tree the same partition spec tuple as the
-JAX ``_spec_for`` (replication, ``()``, on a mesh without a ``"model"``
-axis).  The port computes nothing tensor-parallel: a ``"model"`` axis
-larger than 1 raises ``NotImplementedError`` wherever a mesh is used
-(ROADMAP, Queue 1).
+Positions are row-major over the axes, as ``np.asarray(devices).reshape(
+shape)`` lays out the JAX mesh: on a ``("data", "model")`` mesh of shape
+(D, M) position ``d * M + m`` has data index d and model index m.  A
+distributed mesh carries this rank's process groups: the **model group**
+(the M ranks of its data index; none when M is 1) and the **data group**
+(the D ranks of its model index; the whole group when M is 1).  Every
+rank creates every group, in one order, since ``new_group`` is
+collective.
+
+``TP_RULES`` is the JAX package's rule table: ``param_shardings`` gives
+every leaf of a parameter tree the partition spec tuple of the JAX
+``_spec_for`` (replication, ``()``, on a mesh without a ``"model"``
+axis), and :func:`shard_leaf` cuts a leaf to the block that the JAX
+``NamedSharding`` puts on the device at a model index: contiguous equal
+blocks of each dimension named ``"model"``.  :func:`shard_params` gives
+each position its shards; :func:`gather_params` rebuilds the full tree on
+every rank of a model group.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import re
-from typing import Sequence, Tuple
+from typing import Any, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from autovc_tpu_torch.parallel import collectives as COL
-from autovc_tpu_torch.utils import resolve_device
+from autovc_tpu_torch.utils import resolve_device, tree_leaves, tree_unflatten
 
 # This process's device in the process group, set by
 # ``steps.initialize_distributed``: like the process group itself, one a
@@ -42,11 +53,14 @@ class Mesh:
     """Positions (``devices``, one ``torch.device`` each, row-major over
     ``sizes``) with axis names.  ``distributed``: the positions are the
     ranks of the default process group, this process being position
-    ``rank``; else one process drives every position."""
+    ``rank``; else one process drives every position.  ``data_group`` /
+    ``model_group``: this rank's process groups (distributed meshes)."""
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     distributed: bool = False
+    data_group: Any = None
+    model_group: Any = None
 
     @property
     def shape(self) -> dict:
@@ -57,14 +71,35 @@ class Mesh:
         return len(self.devices)
 
     @property
+    def model_size(self) -> int:
+        """Positions along the model axis (1 without one)."""
+        return self.shape.get("model", 1)
+
+    @property
+    def data_size(self) -> int:
+        """Positions along the other axes: the number of model rows."""
+        return self.size // self.model_size
+
+    @property
     def rank(self) -> int | None:
         return COL.rank() if self.distributed else None
 
     @property
+    def local_positions(self) -> Tuple[int, ...]:
+        """The positions this process drives."""
+        return ((self.rank,) if self.distributed
+                else tuple(range(self.size)))
+
+    @property
     def local_devices(self) -> Tuple[torch.device, ...]:
         """The devices of the positions this process drives."""
-        return ((self.devices[self.rank],) if self.distributed
-                else self.devices)
+        return tuple(self.devices[p] for p in self.local_positions)
+
+    @property
+    def row_devices(self) -> Tuple[torch.device, ...]:
+        """The device of the first position of each model row, one per
+        data index: where a path split over the data axis alone runs."""
+        return self.devices[::self.model_size]
 
 
 def _rank_devices() -> list:
@@ -92,6 +127,21 @@ def _rank_devices() -> list:
             else torch.device("cpu") for c in codes.tolist()]
 
 
+def _axis_groups(rows: int, model: int) -> tuple:
+    """This rank's (data group, model group) on a (rows, model) grid of
+    the default group's ranks.  Every rank creates every group, the model
+    rows first, in one order."""
+    me, mine = COL.rank(), {}
+    grid = [[d * model + m for m in range(model)] for d in range(rows)]
+    for kind, groups in (("model", grid),
+                         ("data", [list(c) for c in zip(*grid)])):
+        for ranks in groups:
+            group = dist.new_group(ranks)
+            if me in ranks:
+                mine[kind] = group
+    return mine["data"], mine["model"]
+
+
 def make_mesh(shape: Sequence[int] | None = None,
               axis_names: Tuple[str, ...] = ("data",),
               devices=None) -> Mesh:
@@ -100,8 +150,9 @@ def make_mesh(shape: Sequence[int] | None = None,
     else over every local CUDA device (none: ``RuntimeError``).
 
     ``make_mesh()`` is a 1-D data mesh; ``make_mesh((4, 2), ("data",
-    "model"))`` a DP x TP grid (whose TP half the port does not compute).
-    """
+    "model"))`` a DP x TP grid.  A ``"model"`` axis comes last.  Over a
+    process group this creates the data and model groups, so every rank
+    calls ``make_mesh`` alike."""
     distributed = False
     if devices is None:
         if dist.is_available() and dist.is_initialized():
@@ -120,19 +171,17 @@ def make_mesh(shape: Sequence[int] | None = None,
     if len(shape) != len(axis_names):
         raise ValueError(f"mesh shape {shape} does not match axis names "
                          f"{axis_names}")
+    if "model" in axis_names[:-1]:
+        raise ValueError(f"the 'model' axis must be the last mesh axis, "
+                         f"got {axis_names}")
     assert math.prod(shape) == len(devices), \
         f"mesh shape {shape} != {len(devices)} devices"
-    return Mesh(devices, tuple(axis_names), shape, distributed)
-
-
-def check_no_tensor_parallel(mesh: Mesh) -> None:
-    """Raise where a mesh asks for tensor parallelism, which the port does
-    not compute."""
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "a 'model' mesh axis larger than 1 (tensor parallelism) is not "
-            "ported: only its rule table is (ROADMAP, Queue 1, "
-            "tensor-parallel computation)")
+    groups = (None, None)
+    if distributed:
+        model = dict(zip(axis_names, shape)).get("model", 1)
+        groups = (_axis_groups(len(devices) // model, model) if model > 1
+                  else (dist.group.WORLD, None))
+    return Mesh(devices, tuple(axis_names), shape, distributed, *groups)
 
 
 # Parameter-path regex -> partition spec.  Paths look like
@@ -184,19 +233,26 @@ def param_shardings(params, mesh: Mesh, rules=TP_RULES):
         lambda path, leaf: _spec_for(path, leaf, mesh, rules), params)
 
 
-# ``replicated``, ``batch_sharding`` and ``tree_shardings_like`` keep the
-# JAX API's names and give its specs; nothing in the port computes with
-# them: they are placeholders until tensor-parallel computation is ported
-# (ROADMAP, Queue 1).
+def spec_leaves(specs, tree) -> list:
+    """The partition specs of ``specs`` (a :func:`param_shardings` tree
+    of ``tree``'s structure) in ``tree_leaves(tree)`` order."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree)
+                for s in spec_leaves(specs[k], tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for sp, v in zip(specs, tree) for s in spec_leaves(sp, v)]
+    return [specs] if isinstance(tree, torch.Tensor) else []
+
+
 def replicated(mesh: Mesh) -> tuple:
-    """The spec of a leaf every position holds whole (a constant)."""
+    """The spec of a leaf that every position holds whole."""
     return ()
 
 
 def batch_sharding(mesh: Mesh, ndim: int | None = None) -> tuple:
-    """The spec of a batch whose leading axis is split over 'data' (a
-    constant: the data-parallel steps split rows with
-    ``steps.shard_batch``)."""
+    """The spec of a batch whose leading axis is split over 'data': data
+    index d's rows go to every position of model row d
+    (``steps.shard_batch``)."""
     return ("data",)
 
 
@@ -215,11 +271,81 @@ def tree_to(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
-def shard_params(params, mesh: Mesh) -> list:
-    """A replica of ``params`` for each position this process drives
-    (``mesh.local_devices``), one copy a device: positions on one device
-    share it.  A 'model' axis larger than 1 raises."""
-    check_no_tensor_parallel(mesh)
-    copies = {}
-    return [copies.setdefault(d, tree_to(params, d))
-            for d in mesh.local_devices]
+def shard_leaf(leaf: torch.Tensor, spec: tuple, index: int,
+               size: int) -> torch.Tensor:
+    """The block of ``leaf`` at model index ``index`` of ``size``: each
+    dimension that ``spec`` names ``"model"`` cut into ``size`` contiguous
+    equal blocks, as a tensor of its own; ``leaf`` itself when ``spec``
+    names no model axis."""
+    if "model" not in spec:
+        return leaf
+    for dim, axis in enumerate(spec):
+        if axis == "model":
+            n = leaf.shape[dim] // size
+            leaf = leaf.narrow(dim, index * n, n)
+    return leaf.clone(memory_format=torch.contiguous_format)
+
+
+def _map_pairs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map_pairs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_pairs(fn, v, s) for v, s in zip(tree, specs)]
+    return fn(tree, specs) if isinstance(tree, torch.Tensor) else tree
+
+
+def shard_tree(tree, specs, index: int, size: int):
+    """``tree`` with each leaf cut to its block at model index ``index``
+    (:func:`shard_leaf` under its spec in ``specs``, a
+    :func:`param_shardings` tree of ``tree``'s structure)."""
+    return _map_pairs(lambda leaf, spec: shard_leaf(leaf, spec, index, size),
+                      tree, specs)
+
+
+def shard_params(params, mesh: Mesh, rules=TP_RULES) -> list:
+    """``params`` as each position this process drives
+    (``mesh.local_positions``) holds them, on its device: every leaf that
+    the rule table shards over 'model' cut to the position's block, the
+    others whole.  Positions on one device with one model index share a
+    tree; without a model axis larger than 1 it is ``params`` itself
+    wherever that already lies on the device."""
+    M = mesh.model_size
+    specs = param_shardings(params, mesh, rules)
+    trees, out = {}, []
+    for pos in mesh.local_positions:
+        key = (mesh.devices[pos], pos % M)
+        if key not in trees:
+            tree = params if M == 1 else shard_tree(params, specs, key[1], M)
+            trees[key] = tree_to(tree, key[0])
+        out.append(trees[key])
+    return out
+
+
+def gather_params(tree, specs, mesh: Mesh):
+    """The full tree from this rank's shards ``tree``, collective over the
+    model group (every rank of the mesh calls it): each sharded leaf
+    rebuilt by one all-reduce of zero-padded blocks, which is exact; the
+    replicated leaves as they are.  ``specs``: :func:`param_shardings` of
+    the full tree.  A mesh without a model axis larger than 1 returns
+    ``tree``."""
+    M = mesh.model_size
+    if M == 1:
+        return tree
+    if not mesh.distributed:
+        raise ValueError("gather_params runs in the ranks of a distributed "
+                         "mesh")
+    m = mesh.rank % M
+    full, blocks = [], []
+    for leaf, spec in zip(tree_leaves(tree), spec_leaves(specs, tree)):
+        if "model" in spec:
+            dim = spec.index("model")
+            n = leaf.shape[dim]
+            shape = list(leaf.shape)
+            shape[dim] = n * M
+            buf = leaf.new_zeros(shape)
+            buf.narrow(dim, m * n, n).copy_(leaf)
+            blocks.append(buf)
+            leaf = buf
+        full.append(leaf)
+    COL.all_reduce_flat(blocks, mesh.model_group)
+    return tree_unflatten(tree, full)

@@ -1,11 +1,16 @@
-"""Data-parallel training steps and the chunk-sharded conversion
-(counterpart of ``autovc_tpu/parallel/steps.py``).
+"""Sharded training steps and the chunk-sharded conversion (counterpart
+of ``autovc_tpu/parallel/steps.py``).
 
 JAX writes its sharded steps as the single-device functions jitted over
 sharded arrays, GSPMD inserting the collectives.  Here each mesh position
 is a process (rank) of a ``torch.distributed`` group, and the steps say
 what GSPMD does, with one rule for gradients: each rank's loss is its
-share of the global loss, and the shares sum to the global loss.
+share of the global loss, and the shares of the data axis sum to the
+global loss.  On a ``("data", "model")`` mesh the M ranks of a model row
+compute the same loss (their activations are replicated), so the shares,
+the sync BatchNorm statistics, the GE2E gather and the gradient
+all-reduce all go over the **data group**, never the whole world, which
+would count each term M times.
 
 * The generator and the vocoder: a rank's share is the mean loss of its
   rows over the number of ranks; BatchNorm is sync BatchNorm (the
@@ -16,12 +21,26 @@ share of the global loss, and the shares sum to the global loss.
   bias's gradients are scaled by 0.01, as ``make_sharded_se_step`` does:
   the global GE2E, not the per-replica loss of ``make_se_step(axis_name=)``.
 * Every parameter gradient (and the loss terms) then goes through one
-  all-reduce SUM of one flattened buffer before the optimizer, so the
-  update, the EMA and ``grad_norm`` are the same on every rank.
+  all-reduce SUM of one flattened buffer over the data group before the
+  optimizer, so the update, the EMA and ``grad_norm`` are the same on
+  every rank of a data group.
 
-On CUDA each rank runs the port's kernels on its rows (kernels 6/7 for
-the LSTM stacks, 4/5 for the vocoder's GRU pair).  The step takes this
-rank's rows (:func:`shard_batch` of the global batch every rank draws).
+Tensor parallelism (a model axis M > 1): each rank holds, for every leaf
+that the rule table shards, the JAX shard at its model index
+(``sharding.shard_params``), and so does its Adam state and EMA, which
+are elementwise.  The losses run with a ``parallel.tensor.ModelAxis``:
+the sharded convs and linears column-parallel, the recurrences the
+per-step loops of ``ops.rnn`` (gates all-gathered every step), as the
+JAX sharded steps run their scans and not their Pallas kernels.  The
+global norm sums the sharded leaves' squares over the model group
+(``schedules.Optimizer.global_norm``).  JAX replicates the optimizer
+state over the mesh (``opt_shard``); its values are the same, sharded
+here like the parameters.  ``with_grads`` gathers the gradients whole.
+
+On CUDA each rank of a data-only mesh runs the port's kernels on its
+rows (kernels 6/7 for the LSTM stacks, 4/5 for the vocoder's GRU pair).
+The step takes this rank's rows (:func:`shard_batch` of the global batch
+every rank draws).
 
 :func:`chunk_sharded_convert` runs one process over a local mesh: each
 position converts its share of the mel chunks on its own device and lane,
@@ -39,6 +58,7 @@ import torch.distributed as dist
 from autovc_tpu_torch.parallel import collectives as COL
 from autovc_tpu_torch.parallel import sharding as shd
 from autovc_tpu_torch.parallel import streams as ST
+from autovc_tpu_torch.parallel import tensor as TP
 from autovc_tpu_torch.train import loop as L
 from autovc_tpu_torch.utils import resolve_device, tree_leaves, tree_unflatten
 
@@ -81,19 +101,41 @@ def initialize_distributed(coordinator_address: str | None = None,
 
 
 def _data_parallel(mesh: shd.Mesh):
-    """The process group and rank count of a data-parallel mesh."""
-    shd.check_no_tensor_parallel(mesh)
+    """The data group and its rank count of a distributed mesh (a local
+    mesh of one position: no group)."""
     if not mesh.distributed and mesh.size > 1:
         raise ValueError(
             "the data-parallel steps run one process per mesh position: "
             "launch the ranks (utils.launcher.launch_local_multiprocess), "
             "call initialize_distributed, then make_mesh()")
-    return (dist.group.WORLD if mesh.distributed else None), mesh.size
+    return mesh.data_group, mesh.data_size
+
+
+def full_specs(mesh: shd.Mesh, init: Callable, cfg):
+    """The rule table's specs of the full parameter tree ``init(gen,
+    cfg)`` (built on the meta device: shapes only), or None on a mesh
+    without a model axis larger than 1."""
+    if mesh.model_size == 1:
+        return None
+    with torch.device("meta"):
+        return shd.param_shardings(init(torch.Generator(), cfg), mesh)
+
+
+def _tensor_parallel(mesh: shd.Mesh, specs, params):
+    """This rank's model axis for ``params`` (None on a data-only mesh)."""
+    return None if specs is None else TP.model_axis(mesh, params, specs)
+
+
+def _grads_tree(params, grads, specs, mesh: shd.Mesh):
+    """The gradient tree, gathered whole on a model axis."""
+    tree = tree_unflatten(params, grads)
+    return tree if specs is None else shd.gather_params(tree, specs, mesh)
 
 
 def _sum_over_ranks(grads, shares: dict, group) -> dict:
-    """One all-reduce SUM of every gradient (in place) and of the loss
-    shares; returns the summed shares (the global loss terms)."""
+    """One all-reduce SUM over ``group`` (the data group) of every
+    gradient (in place) and of the loss shares; returns the summed shares
+    (the global loss terms)."""
     keys = list(shares)
     vals = [shares[k].detach().reshape(1).float().clone() for k in keys]
     COL.all_reduce_flat(list(grads) + vals, group)
@@ -103,22 +145,25 @@ def _sum_over_ranks(grads, shares: dict, group) -> dict:
 def make_sharded_ae_step(cfg, tx, ema_decay: float, mesh: shd.Mesh,
                          precision: str | None = None,
                          with_grads: bool = False) -> Callable:
-    """The data-parallel AutoVC train step, ``step(params, opt_state, ema,
-    x, c_org) -> (params, opt_state, ema, aux)`` with this rank's rows of
-    the global batch; aux as ``loop.make_ae_step``'s, every term the
-    global batch's (``with_grads``: the summed gradients as ``grads``)."""
+    """The sharded AutoVC train step, ``step(params, opt_state, ema, x,
+    c_org) -> (params, opt_state, ema, aux)`` with this rank's rows of the
+    global batch and this rank's shards of the state; aux as
+    ``loop.make_ae_step``'s, every term the global batch's
+    (``with_grads``: the summed gradients, whole, as ``grads``)."""
     from autovc_tpu_torch.models import autoencoder as AE
 
     precision = precision or cfg.learn.precision
     group, n = _data_parallel(mesh)
+    specs = full_specs(mesh, AE.init, cfg)
 
     def step(params, opt_state, ema, x, c_org):
         x, c_org = L._on_device(params, x, c_org)
+        model = _tensor_parallel(mesh, specs, params)
         terms = {}
 
         def share(p):
             value, out = AE.loss(p, x, c_org, cfg, mode=precision,
-                                 group=group)
+                                 group=group, model=model)
             terms.update(out)
             return value / n
 
@@ -126,8 +171,9 @@ def make_sharded_ae_step(cfg, tx, ema_decay: float, mesh: shd.Mesh,
         aux = _sum_over_ranks(grads, {k: v / n for k, v in terms.items()},
                               group)
         if with_grads:
-            aux["grads"] = tree_unflatten(params, grads)
-        aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state)
+            aux["grads"] = _grads_tree(params, grads, specs, mesh)
+        aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state,
+                                   model)
         L.ema_update(ema, params, ema_decay)
         return params, opt_state, ema, aux
 
@@ -137,23 +183,27 @@ def make_sharded_ae_step(cfg, tx, ema_decay: float, mesh: shd.Mesh,
 def make_sharded_se_step(cfg, tx, mesh: shd.Mesh,
                          precision: str | None = None,
                          with_grads: bool = False) -> Callable:
-    """The data-parallel GE2E step over the speaker axis, ``step(params,
+    """The sharded GE2E step over the speaker axis, ``step(params,
     opt_state, block) -> (params, opt_state, aux)`` with this rank's
-    speakers (S / N, U, frames, mels); aux carries the global ``loss``
-    and ``grad_norm`` (after the 0.01 scaling, before clipping)."""
+    speakers (S / N, U, frames, mels, N the data axis); aux carries the
+    global ``loss`` and ``grad_norm`` (after the 0.01 scaling, before
+    clipping)."""
     from autovc_tpu_torch.models import speaker_encoder as SE
 
     precision = precision or cfg.learn.precision
     group, n = _data_parallel(mesh)
+    specs = full_specs(mesh, SE.init, cfg)
 
     def step(params, opt_state, block):
-        L.check_se_depth(params)
+        model = _tensor_parallel(mesh, specs, params)
+        if model is None:
+            L.check_se_depth(params)
         block, = L._on_device(params, block)
         S, U, T, M = block.shape
 
         def share(p):
             emb = SE._forward_train(p, block.reshape(S * U, T, M),
-                                    precision).reshape(S, U, -1)
+                                    precision, model).reshape(S, U, -1)
             return SE.ge2e_loss(p, COL.all_gather(emb, group)) / n
 
         value, grads = L._value_and_grads(params, share)
@@ -164,8 +214,8 @@ def make_sharded_se_step(cfg, tx, mesh: shd.Mesh,
         grads = [g * 0.01 if id(p) in scaled else g
                  for p, g in zip(leaves, grads)]
         if with_grads:
-            aux["grads"] = tree_unflatten(params, grads)
-        aux["grad_norm"] = tx.step(leaves, grads, opt_state)
+            aux["grads"] = _grads_tree(params, grads, specs, mesh)
+        aux["grad_norm"] = tx.step(leaves, grads, opt_state, model)
         return params, opt_state, aux
 
     return step
@@ -174,42 +224,47 @@ def make_sharded_se_step(cfg, tx, mesh: shd.Mesh,
 def make_sharded_vocoder_step(cfg, tx, mesh: shd.Mesh,
                               precision: str = "bf16",
                               with_grads: bool = False) -> Callable:
-    """The data-parallel WaveRNN train step, ``step(params, opt_state,
-    x_in, y, mels) -> (params, opt_state, aux)`` with this rank's rows;
-    the MelResNet BatchNorms take the global batch's statistics."""
+    """The sharded WaveRNN train step, ``step(params, opt_state, x_in, y,
+    mels) -> (params, opt_state, aux)`` with this rank's rows; the
+    MelResNet BatchNorms take the global batch's statistics."""
     from autovc_tpu_torch.models import wavernn as WR
 
     group, n = _data_parallel(mesh)
+    specs = full_specs(mesh, WR.init, cfg)
 
     def step(params, opt_state, x_in, y, mels):
         x_in, y, mels = L._on_device(params, x_in, y, mels)
+        model = _tensor_parallel(mesh, specs, params)
         value, grads = L._value_and_grads(params, lambda p: WR.loss(
             p, x_in, y, mels, cfg, train=True, mode=precision,
-            group=group) / n)
+            group=group, model=model) / n)
         aux = _sum_over_ranks(grads, {"loss": value}, group)
         if with_grads:
-            aux["grads"] = tree_unflatten(params, grads)
-        aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state)
+            aux["grads"] = _grads_tree(params, grads, specs, mesh)
+        aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state,
+                                   model)
         return params, opt_state, aux
 
     return step
 
 
 def shard_batch(batch, mesh: shd.Mesh):
-    """This rank's rows ``[rank * B / N, (rank + 1) * B / N)`` of a global
-    batch (numpy array or tensor) on a data-parallel mesh; on a local
-    mesh, every position's rows, each on its position's device."""
-    n = mesh.size
+    """This rank's rows ``[d * B / N, (d + 1) * B / N)`` of a global batch
+    (numpy array or tensor), d being the rank's data index and N the data
+    axis (``sharding.batch_sharding``: every rank of a model row takes
+    the same rows); on a local mesh, every position's rows, each on its
+    position's device."""
+    n, M = mesh.data_size, mesh.model_size
     if batch.shape[0] % n:
         raise ValueError(f"batch of {batch.shape[0]} rows does not split "
                          f"over {n} mesh positions")
     b = batch.shape[0] // n
     if mesh.distributed:
-        r = mesh.rank
-        return batch[r * b:(r + 1) * b]
+        d = mesh.rank // M
+        return batch[d * b:(d + 1) * b]
     rows = torch.as_tensor(batch)
-    return [ST.hop(rows[i * b:(i + 1) * b], d, None, None)
-            for i, d in enumerate(mesh.devices)]
+    return [ST.hop(rows[(i // M) * b:(i // M + 1) * b], dev, None, None)
+            for i, dev in enumerate(mesh.devices)]
 
 
 def on_rows(step: Callable, mesh: shd.Mesh, n_state: int) -> Callable:
@@ -241,33 +296,37 @@ def chunk_sharded_convert(params, chunks: torch.Tensor, c_org, c_trg,
     ``chunk_sharded_convert`` and the ``convert(parallel="chunks")``
     backend.
 
-    ``chunks`` (M_padded, n_mels, N), M_padded divisible by the mesh size;
+    The chunk rows split over the mesh's data axis, as the JAX path's
+    ``mesh.shape["data"]``, and the generator's parameters stay whole, as
+    there: on a mesh with a model axis, data slice i runs once, on the
+    first position of model row i (``Mesh.row_devices``).  ``chunks``
+    (M_padded, n_mels, N), M_padded divisible by the data axis size n;
     rows from ``valid_rows`` (an int or a 0-d tensor: data, not shape) on
-    are padding.  Position i converts rows [i * M / n, (i + 1) * M / n) on
+    are padding.  Slice i converts rows [i * M / n, (i + 1) * M / n) on
     its device and lane (decoder lstm2 on kernel 2 at <= 8 rows, kernel 3
     above, on CUDA); the rows gather on the first position, where the mean
     overlap-add merge takes the valid rows and sends the pad rows to its
-    trash window.  ``params``: a tree, or ``shard_params``' replicas;
-    ``lstm2_packed``: lstm2's packed kernel weights at ``precision`` (None:
-    packed per call), copied to each device.  ``c_org`` / ``c_trg``: (1,
-    emb).  Returns the merged (n_mels, N + (M_padded - 1) * step) mel on
-    the padded timeline: keep its first N + (valid_rows - 1) * step
-    frames."""
+    trash window.  ``params``: a tree (copied to each device), or one
+    replica a data slice; ``lstm2_packed``: lstm2's packed kernel weights
+    at ``precision`` (None: packed per call), copied to each device.
+    ``c_org`` / ``c_trg``: (1, emb).  Returns the merged (n_mels, N +
+    (M_padded - 1) * step) mel on the padded timeline: keep its first N +
+    (valid_rows - 1) * step frames."""
     from autovc_tpu_torch.models import autoencoder as AE
     from autovc_tpu_torch.ops import precision as PREC
 
     mesh = mesh or shd.make_mesh()
-    shd.check_no_tensor_parallel(mesh)
     if mesh.distributed:
         raise ValueError("chunk_sharded_convert runs over a local mesh")
-    devices = mesh.devices
+    devices = mesh.row_devices
     n = len(devices)
     M, n_mels, N = chunks.shape
     if M % n:
         raise ValueError(f"{M} chunk rows do not split over {n} positions; "
                          f"pad them to a multiple of {n}")
-    reps = params if isinstance(params, list) else shd.shard_params(params,
-                                                                    mesh)
+    if not isinstance(params, list):
+        on = {d: shd.tree_to(params, d) for d in set(devices)}
+        params = [on[d] for d in devices]
     packed = {d: shd.tree_to(lstm2_packed, d) for d in set(devices)}
     out_dev = devices[0]
     lanes = ST.lanes(devices, {chunks.device, out_dev})
@@ -279,7 +338,7 @@ def chunk_sharded_convert(params, chunks: torch.Tensor, c_org, c_trg,
         ct = ST.hop(c_trg.reshape(1, -1), dev, None, lane)
         with ST.on(lane):
             mode = PREC.resolve(precision, dev)
-            _, post, _ = AE.forward(reps[i], x, co.expand(b, -1),
+            _, post, _ = AE.forward(params[i], x, co.expand(b, -1),
                                     ct.expand(b, -1), cfg, mode, packed[dev])
         rows_out.append(ST.hop(post, out_dev, lane, None))
     ST.join(lanes, out_dev, rows_out)

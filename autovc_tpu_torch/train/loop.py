@@ -21,14 +21,21 @@ plotting package (matplotlib, scikit-learn) is missing is skipped, with
 the reason printed when ``verbose``.  A logger with only ``log`` gets the
 scalars alone.
 
-``mesh=`` makes a loop data-parallel over ``torch.distributed``: every
-rank (one process per mesh position, ``parallel.steps.
-initialize_distributed`` then ``parallel.sharding.make_mesh()``) calls
-the loop with the same arguments and draws the same seeded global
-batches, steps on its own rows (``parallel.steps.make_sharded_*_step``:
-sync BatchNorm, one all-reduce of the gradients, the same update on every
-rank), and only rank 0 logs, saves, histograms and runs
-``on_epoch_end``, so a run writes each file once.
+``mesh=`` makes a loop sharded over ``torch.distributed``: every rank
+(one process per mesh position, ``parallel.steps.initialize_distributed``
+then ``parallel.sharding.make_mesh()``) calls the loop with the same
+arguments and draws the same seeded global batches, steps on its data
+index's rows (``parallel.steps.make_sharded_*_step``: sync BatchNorm, one
+all-reduce of the gradients over the data group, the same update on
+every rank of it), and only rank 0 logs, saves, histograms and runs
+``on_epoch_end``, so a run writes each file once.  On a mesh with a
+``"model"`` axis each rank holds its shards of the parameters, the EMA
+and the Adam state (``parallel.sharding.shard_params``); every save
+epoch, and every epoch when ``on_epoch_end`` is given, each rank first
+takes part in ``parallel.sharding.gather_params``, so that rank 0 writes
+and logs the full tree: the checkpoint has the one-process layout, and a
+resume loads the full tree and shards it.  The loops return the full
+trees.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from autovc_tpu_torch.config import (AutoEncoderConfig, OptimizerConfig,
                                      SpeakerEncoderConfig, WaveRNNConfig)
 from autovc_tpu_torch.ops import lstm_train_kernels as LT
 from autovc_tpu_torch.ops import precision as PREC
+from autovc_tpu_torch.parallel import sharding as shd
 from autovc_tpu_torch.train import schedules
 from autovc_tpu_torch.utils import (close_progbar, progbar, tree_clone,
                                     tree_leaves, tree_unflatten)
@@ -158,14 +166,46 @@ def _restore(blob, params, opt_state):
     return params, ema, opt_state
 
 
-def _on_mesh(params, mesh, verbose: bool):
-    """A data-parallel loop's parameters on this rank's device, whether
-    this rank is the one that logs and saves (rank 0, or the one position
-    of a local mesh), and its ``verbose``: the other ranks run quiet."""
-    from autovc_tpu_torch.parallel import sharding as shd
-    params = shd.shard_params(params, mesh)[0]
-    main = not mesh.rank
-    return params, main, verbose and main
+class _OnMesh:
+    """What a loop does on its ``mesh`` (None: nothing).  ``params``: the
+    parameters, whole, on this rank's device; ``main``: whether this rank
+    logs and saves (rank 0, or the one position of a local mesh);
+    ``verbose``: the other ranks run quiet.  On a model axis, ``shard``
+    cuts a parameter tree (or an Adam state of one) to this rank's blocks
+    and ``gather`` rebuilds it whole, a collective that every rank
+    calls; elsewhere both return what they are given."""
+
+    def __init__(self, mesh, params, verbose: bool):
+        self.mesh, self.specs = mesh, None
+        self.main, self.verbose, self.params = True, verbose, params
+        if mesh is None:
+            return
+        self.params = shd.tree_to(params, mesh.local_devices[0])
+        self.main = not mesh.rank
+        self.verbose = verbose and self.main
+        if mesh.model_size > 1:
+            self.specs = shd.param_shardings(self.params, mesh)
+
+    def shard(self, tree, like=None):
+        """``tree`` (or, with ``like`` its parameter tree, an Adam state
+        ``{count, mu, nu}`` of it) cut to this rank's blocks."""
+        if self.specs is None:
+            return tree
+        M = self.mesh.model_size
+        m = (self.mesh.rank or 0) % M
+        if like is not None:
+            return {**tree, **{k: tree_leaves(self.shard(tree_unflatten(
+                like, tree[k]))) for k in ("mu", "nu")}}
+        return shd.shard_tree(tree, self.specs, m, M)
+
+    def gather(self, tree, like=None):
+        """The whole ``tree`` (or Adam state, as for :meth:`shard`)."""
+        if self.specs is None:
+            return tree
+        if like is not None:
+            return {**tree, **{k: tree_leaves(self.gather(tree_unflatten(
+                like, tree[k]))) for k in ("mu", "nu")}}
+        return shd.gather_params(tree, self.specs, self.mesh)
 
 
 def _log_figure(logger, name: str, draw: Callable, step: int,
@@ -209,7 +249,7 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
     step's raw gradients), the reconstruction figure of the last batch's
     first row, then ``on_epoch_end(epoch, params)`` (every epoch).
 
-    ``mesh``: the data-parallel loop (module docstring;
+    ``mesh``: the sharded loop (module docstring;
     ``parallel.steps.make_sharded_ae_step``: global batch statistics and
     gradients); ``batch_size`` must divide by the mesh's 'data' axis."""
     lc, oc = cfg.learn, cfg.optimizer
@@ -223,13 +263,20 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
     # None -> config default; '' -> saving disabled
     model_name = lc.model_name if model_name is None else model_name
     save_dir = lc.save_dir if save_dir is None else save_dir
+    # the gradient tree rides in aux only for a logger that histograms it
+    # (decided before the other ranks drop the logger: a mesh's ranks
+    # gather the gradients together)
+    hist = getattr(logger, "log_tree_histograms", None)
+    with_grads, each_epoch = hist is not None, on_epoch_end is not None
+    saving = bool(model_name)
     if mesh is not None:
         assert batch_size % mesh.shape["data"] == 0, \
             f"batch_size {batch_size} must divide mesh 'data' axis " \
             f"{mesh.shape['data']}"
-        params, main, verbose = _on_mesh(params, mesh, verbose)
-        if not main:
-            logger, model_name, on_epoch_end = None, "", None
+    run = _OnMesh(mesh, params, verbose)
+    params, verbose = run.params, run.verbose
+    if not run.main:
+        logger, model_name, on_epoch_end, hist = None, "", None, None
 
     steps_per_epoch = dataset.epoch_steps(batch_size)
     lr_schedule = schedules.make_schedule(oc, steps_per_epoch, dim_model=80)
@@ -245,14 +292,15 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
             start_step = int(blob.get("step", start_step) or 0)
             if verbose:
                 print(f"Resumed from '{latest}' at step {start_step}")
+    full = params
+    params, ema = run.shard(params), run.shard(ema)
+    opt_state = run.shard(opt_state, full)
 
-    # the gradient tree rides in aux only for a logger that histograms it
-    hist = getattr(logger, "log_tree_histograms", None)
     if mesh is not None:
         from autovc_tpu_torch.parallel import steps as psteps
         step_fn = psteps.on_rows(psteps.make_sharded_ae_step(
             cfg, tx, ema_decay, mesh, precision=precision,
-            with_grads=hist is not None), mesh, 3)
+            with_grads=with_grads), mesh, 3)
     else:
         step_fn = make_ae_step(cfg, tx, ema_decay, precision=precision,
                                with_grads=hist is not None)
@@ -284,23 +332,28 @@ def train_autoencoder(params, dataset, cfg: AutoEncoderConfig,
                             "epoch": epoch, "step": step}, step=step)
                 loss_hist = []
         save_epoch = epoch % save_freq == 0 or epoch == n_epochs
-        if save_epoch and model_name:
-            save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
-                            {"step": step, "params": params,
-                             "ema_params": ema, "opt_state": opt_state},
-                            block=False)
+        if save_epoch or each_epoch:
+            full = run.gather(params)
+        if save_epoch and saving:
+            payload = {"step": step, "params": full,
+                       "ema_params": run.gather(ema),
+                       "opt_state": run.gather(opt_state, params)}
+            if model_name:
+                save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
+                                payload, block=False)
         if logger is not None and x is not None and save_epoch:
             if hist is not None:
-                hist("params", params, step=step)
+                hist("params", full, step=step)
                 hist("grads", aux["grads"], step=step)
             _log_figure(logger, "mel_reconstruction", functools.partial(
-                _reconstruction_figure, params, x, c, cfg), step, verbose)
+                _reconstruction_figure, full, x, c, cfg), step, verbose)
         if on_epoch_end is not None:
-            on_epoch_end(epoch, params)
+            on_epoch_end(epoch, full)
     wait_for_saves()
     if verbose:
         close_progbar()
-    return params, ema, {"step": step, "opt_state": opt_state}
+    return run.gather(params), run.gather(ema), {
+        "step": step, "opt_state": run.gather(opt_state, params)}
 
 
 def _reconstruction_figure(params, x, c, cfg: AutoEncoderConfig):
@@ -407,13 +460,14 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
     ``lstm_train_kernels.MAX_LAYERS`` = 4 layers: a deeper speaker
     encoder raises here, before any batch is drawn.
 
-    ``mesh``: the data-parallel loop over the speaker axis of the blocks
+    ``mesh``: the sharded loop over the speaker axis of the blocks
     (module docstring; ``parallel.steps.make_sharded_se_step``: the GE2E
-    loss of the gathered block)."""
-    main = True
-    if mesh is not None:
-        params, main, verbose = _on_mesh(params, mesh, verbose)
-    check_se_depth(params)
+    loss of the gathered block).  On a model axis the stack runs the
+    per-step tensor-parallel loop, which has no depth limit."""
+    run = _OnMesh(mesh, params, verbose)
+    params, verbose = run.params, run.verbose
+    if run.specs is None:
+        check_se_depth(params)
     from autovc_tpu_torch.models import speaker_encoder as SE
     lc, oc = cfg.learn, cfg.optimizer
     if opt_overrides:
@@ -423,7 +477,9 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
     save_freq = save_freq if save_freq is not None else lc.save_freq
     model_name = lc.model_name if model_name is None else model_name
     save_dir = lc.save_dir if save_dir is None else save_dir
-    if not main:
+    # what rank 0 does at a save epoch, which every rank's gathers match
+    gathering = logger is not None or bool(model_name)
+    if not run.main:
         logger, model_name = None, ""
 
     tx = schedules.make_optimizer(oc, steps_per_epoch,
@@ -441,6 +497,8 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
                 print(f"Resumed from '{latest}' at step {start_step}")
     if tree_leaves(params)[0].device.type == "cuda":
         PREC.exact_f32()
+    full = params
+    params, opt_state = run.shard(params), run.shard(opt_state, full)
 
     if mesh is not None:
         from autovc_tpu_torch.parallel import steps as psteps
@@ -465,22 +523,25 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
                             "grad_norm": float(aux["grad_norm"]),
                             "epoch": epoch, "step": step}, step=step)
         save_epoch = epoch % save_freq == 0 or epoch == n_epochs
+        if save_epoch and gathering:
+            full = run.gather(params)
+            full_opt = run.gather(opt_state, params)
         if logger is not None and save_epoch:
             S, U = batch.shape[:2]
-            rows, = _on_device(params, batch.reshape(S * U, *batch.shape[2:]))
+            rows, = _on_device(full, batch.reshape(S * U, *batch.shape[2:]))
             with torch.no_grad():
-                emb = SE.forward(params, rows).reshape(S, U, -1)
-                sim = SE.similarity_matrix(params, emb)
+                emb = SE.forward(full, rows).reshape(S, U, -1)
+                sim = SE.similarity_matrix(full, emb)
             logger.log({"eer": SE.equal_error_rate(sim.cpu().numpy()),
                         "epoch": epoch, "step": step}, step=step)
             hist = getattr(logger, "log_tree_histograms", None)
             if hist is not None:
-                hist("params", params, step=step)
+                hist("params", full, step=step)
         if save_epoch and model_name:
             save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
-                            {"step": step, "params": params,
+                            {"step": step, "params": full,
                              "speakers": speakers or {},
-                             "opt_state": optax_layout(opt_state, params,
+                             "opt_state": optax_layout(full_opt, full,
                                                        oc)}, block=False)
         if logger is not None and save_epoch:
             from autovc_tpu_torch.utils import visual
@@ -490,7 +551,8 @@ def train_speaker_encoder(params, dataset, cfg: SpeakerEncoderConfig,
     wait_for_saves()
     if verbose:
         close_progbar()
-    return params, {"step": step, "opt_state": opt_state}
+    return run.gather(params), {"step": step,
+                                "opt_state": run.gather(opt_state, params)}
 
 
 def vocoder_loss_and_grads(params, x_in, y, mels, cfg: WaveRNNConfig,
@@ -540,13 +602,14 @@ def train_vocoder(params, dataset, cfg: WaveRNNConfig,
     ``resume=True`` restores them from the newest checkpoint in
     ``save_dir`` (the JAX package's vocoder checkpoints too).
 
-    ``mesh``: the data-parallel loop (module docstring;
+    ``mesh``: the sharded loop (module docstring;
     ``parallel.steps.make_sharded_vocoder_step``: the MelResNet
     BatchNorms over the global batch)."""
-    if mesh is not None:
-        params, main, verbose = _on_mesh(params, mesh, verbose)
-        if not main:
-            logger, model_name = None, ""
+    run = _OnMesh(mesh, params, verbose)
+    params, verbose = run.params, run.verbose
+    saving = bool(model_name)
+    if not run.main:
+        logger, model_name = None, ""
     oc = OptimizerConfig(lr=lr, lr_scheduler="constant", grad_clip_norm=4.0)
     tx = schedules.make_optimizer(oc, steps_per_epoch)
     opt_state = tx.init(tree_leaves(params))
@@ -561,6 +624,8 @@ def train_vocoder(params, dataset, cfg: WaveRNNConfig,
                 print(f"Resumed from '{latest}' at step {start_step}")
     if tree_leaves(params)[0].device.type == "cuda":
         PREC.exact_f32()
+    full = params
+    params, opt_state = run.shard(params), run.shard(opt_state, full)
 
     if mesh is not None:
         from autovc_tpu_torch.parallel import steps as psteps
@@ -586,11 +651,14 @@ def train_vocoder(params, dataset, cfg: WaveRNNConfig,
                 logger.log({"loss": float(aux["loss"]),
                             "grad_norm": float(aux["grad_norm"]),
                             "epoch": epoch, "step": step}, step=step)
-        if model_name:
-            save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
-                            {"step": step, "params": params,
-                             "opt_state": opt_state}, block=False)
+        if saving:
+            payload = {"step": step, "params": run.gather(params),
+                       "opt_state": run.gather(opt_state, params)}
+            if model_name:
+                save_checkpoint(f"{save_dir.rstrip('/')}/{model_name}",
+                                payload, block=False)
     wait_for_saves()
     if verbose:
         close_progbar()
-    return params, {"step": step, "opt_state": opt_state}
+    return run.gather(params), {"step": step,
+                                "opt_state": run.gather(opt_state, params)}

@@ -18,6 +18,12 @@ is the JAX package's optax chain written out in PyTorch, update for update:
 
 The state is ``{"count", "mu", "nu"}`` with ``mu``/``nu`` lists in the
 order of the leaves given to :meth:`Optimizer.init`.
+
+Under tensor parallelism (``model=``, a ``parallel.tensor.ModelAxis``)
+the leaves are this rank's shards: the global norm sums the squares of
+the sharded leaves over the model group and counts the replicated ones
+once, so the clip and ``grad_norm`` are those of the full tree; Adam and
+the weight decay are elementwise and run on the shards as they are.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Callable, List, Sequence
 import torch
 
 from autovc_tpu_torch.config import OptimizerConfig
+from autovc_tpu_torch.parallel import collectives as COL
 
 
 def noam_schedule(base_lr: float, dim_model: int, n_warmup_steps: int):
@@ -87,12 +94,31 @@ class Optimizer:
         return [torch.where(keep, g, g / grad_norm * self.grad_clip_norm)
                 for g in grads]
 
+    @staticmethod
+    @torch.no_grad()
+    def global_norm(params: Sequence[torch.Tensor],
+                    grads: List[torch.Tensor], model=None) -> torch.Tensor:
+        """The global norm of ``grads``; with ``model``, of the full tree
+        whose shards are the leaves of ``params`` it holds (module
+        docstring)."""
+        if model is None:
+            return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        split = [torch.sum(g * g) for p, g in zip(params, grads)
+                 if model.of(p) is not None]
+        whole = [torch.sum(g * g) for p, g in zip(params, grads)
+                 if model.of(p) is None]
+        sq = grads[0].new_zeros(1) + sum(split)
+        COL.all_reduce_flat([sq], model.group)
+        return torch.sqrt(sq[0] + sum(whole))
+
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor],
-             grads: List[torch.Tensor], state: dict) -> torch.Tensor:
+             grads: List[torch.Tensor], state: dict,
+             model=None) -> torch.Tensor:
         """One update of ``params`` (in place) and ``state``; returns the
-        global norm of ``grads`` before clipping."""
-        grad_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        global norm of ``grads`` before clipping (``model``: module
+        docstring)."""
+        grad_norm = self.global_norm(params, grads, model)
         grads = self.clip(grads, grad_norm)
         count = state["count"] + 1
         lr = self.schedule(state["count"])

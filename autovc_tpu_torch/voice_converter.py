@@ -196,7 +196,7 @@ class VoiceConverter:
         """Slice geometry on the host, then the device chain wav -> mel
         chunks -> AE -> vocoder -> PCM16 (``voice_converter.py:188-225``).
         With ``mesh`` (``parallel="chunks"``) the chunks, zero-padded to a
-        multiple of the mesh size, convert over its positions
+        multiple of the mesh's data axis, convert over its data slices
         (``parallel.steps.chunk_sharded_convert``) and the merged mel comes
         back to the converter's device."""
         from autovc_tpu_torch.models import autoencoder as AEm
@@ -236,7 +236,7 @@ class VoiceConverter:
                     from autovc_tpu_torch.parallel import steps as psteps
                     M = len(starts)
                     padded = torch.nn.functional.pad(
-                        chunks, (0, 0, 0, 0, 0, (-M) % mesh.size))
+                        chunks, (0, 0, 0, 0, 0, (-M) % mesh.data_size))
                     post = psteps.chunk_sharded_convert(
                         ae_params, padded, c_src, c_trg, M, ae_cfg, overlap,
                         self.ae_precision, mesh, lstm2_packed)
@@ -349,9 +349,11 @@ class VoiceConverter:
         CUDA device): ``"chunks"`` converts the same PCM16 mel chunks as
         the default path, split over the positions (it needs ``cut``);
         ``"ring"`` converts the unchunked host mel, trimmed to a multiple
-        of the mesh size, time-sharded (not with ``pad_to_seconds``).  A
-        mesh with a 'model' axis larger than 1 raises
-        ``NotImplementedError``.  Returns the converted :class:`Audio`."""
+        of the mesh size, time-sharded (not with ``pad_to_seconds``).  On
+        a mesh with a 'model' axis both split over the 'data' axis alone,
+        as the JAX paths do, each data slice on the first position of its
+        model row with the generator's parameters whole.  Returns the
+        converted :class:`Audio`."""
         if parallel not in (None, "chunks", "ring"):
             raise ValueError(f"parallel must be None, 'chunks' or 'ring', "
                              f"got {parallel!r}")
@@ -367,7 +369,6 @@ class VoiceConverter:
                             f"sharding.Mesh, got {type(mesh).__name__}")
         if parallel is not None:
             mesh = mesh or shd.make_mesh()
-            shd.check_no_tensor_parallel(mesh)
         cc = self.config.convert
         sr = sr or cc.sr
         preprocess = cc.preprocess if preprocess is None else preprocess

@@ -37,7 +37,13 @@ Phases (any failure exits non-zero):
      short folds, and buckets above 64 rows that stage a step's rows in
      passes), with the ``wavernn_sample picked`` line of their times, and
      in f32 at the smallest of those buckets above 64 rows; phases 4 and 8
-     then fail if they run kernel 1 in bf16 at a geometry not held here;
+     then fail if they run kernel 1 in bf16 at a geometry not held here.
+     Kernel 1's plain version runs each step as one CUDA graph replay of
+     ``wavernn_kernels.plain_step`` (``plain_graphed``: the step index,
+     the previous sample and the GRU states in static buffers), first
+     held bitwise against the eager loop over one frame at 8 rows, f32
+     and bf16 (the eager loop makes a step's ~50 launches one by one
+     from the host, which bounds its pace);
   4. end to end, conversion: ``VoiceConverter()`` (default config, fresh
      seeded weights) converts a ~4 s wav (decoder lstm2 through kernel 2
      at 1 row), a ~10 s wav (3 mel chunks: kernel 2 at 3 rows, for lstm1
@@ -143,12 +149,28 @@ Phases (any failure exits non-zero):
      1e-3, beside the largest reference gradient), kernels 6/7
      and 4/5 launched in each rank (a line per rank), then 6 bf16
      generator steps through ``train_autoencoder(mesh=)`` (the loss
-     falling, the median s/step beside phase 5's); and one ``nccl`` rank
-     (``python -m autovc_tpu_torch.parallel.multihost_smoke``).
+     falling, the median s/step beside phase 5's); one ``nccl`` rank
+     (``python -m autovc_tpu_torch.parallel.multihost_smoke``); and two
+     tensor-parallel ranks on the card as a (1, 2) ("data", "model")
+     mesh (``gloo``, ``--tp-rank``), full widths on short sequences: one
+     f32 step of the generator (4 x 80 x 64), the vocoder (4 x 550
+     samples) and the speaker encoder (4 x 3 x 160) from each rank's
+     shards against the single-process step on the card (the data-parallel
+     bars), kernels 4-7 launched in neither rank (the per-step TP
+     recurrences run instead), 3 timed bf16 steps of each (median s/step
+     beside phases 5-7's, and the model group's gathers and reduces a
+     step), and a 2-step ``train_autoencoder(mesh=)`` whose checkpoint
+     rank 0 reads back equal to the full tree it returned;
+ 13. the native host mel core (``phase_native_mel``, last): built with
+     g++, the AE and SE host mels of the 24 s synthetic wav against the
+     port's numpy mels (rtol 1e-3 / atol 1e-4 and rtol 2e-3), with their
+     host ms at 1 thread and at all threads beside numpy's.
 Every kernel's ``bound_ms`` takes its peaks from ``roofline.chip_spec``;
 the summary's kernel 1 is held at the 4 s wav's picked geometry.
-It prints one JSON line per comparison, then the per-kernel summary line,
-the card's name and power limit, and as its last line
+It prints one JSON line per comparison, each phase's wall seconds
+(``{"phase": "seconds", ...}`` and a ``phase seconds`` line with the
+total), then the per-kernel summary line, the card's name and power
+limit, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1.
 """
 from __future__ import annotations
@@ -295,6 +317,22 @@ def recurrence_and_dw_ms(fn, tag: str):
     split = kernel_launch_ms(prof, (tag, "dw_"))
     rec, dw = (split.get(k, [float("nan")]) for k in (tag, "dw_"))
     return statistics.fmean(rec), statistics.fmean(dw), [len(rec), len(dw)]
+
+
+# Wall seconds of each phase of this run, in the order they ran.
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def phase_clock(name: str):
+    """Log and keep the wall seconds of the block, as phase ``name``."""
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = round(time.time() - t0, 2)
+        log({"phase": "seconds", "of": name,
+             "seconds": PHASE_SECONDS[name]})
 
 
 def phase_environment() -> str:
@@ -621,6 +659,77 @@ def compare_gru_train(rows: int, T: int, dtype, gen, dev) -> dict:
     return res
 
 
+def compare_inference_kernels(gen, dev, card: str) -> tuple:
+    """Phase 3's holds of kernels 2 and 3 and the ``ae_slab_ms`` line;
+    returns the summary's comparisons of kernel 2 and of kernel 3."""
+    # kernels 2 and 3 at 2 and 24 rows in both dtypes; in bf16, each at
+    # the chunks of the conversions it runs, lstm2 (the summary's: kernel
+    # 2 at the 4 s wav's one chunk, kernel 3 at the 24 s wav's nine) and
+    # lstm1 from 2 chunks; kernel 2 at 8 rows of lstm2, the speaker
+    # encoder's stack and lstm1
+    for dt in (torch.float32, torch.bfloat16):
+        compare_lstm("lstm_stack_skewed", 2, dt, gen, dev)
+        compare_lstm("lstm_stack_stream", 24, dt, gen, dev)
+    by_wav = []
+    for _, name, chunks in CONVERSIONS:
+        by_wav.append(compare_lstm(name, chunks, torch.bfloat16, gen, dev))
+        if chunks > 1:
+            compare_lstm(name, chunks, torch.bfloat16, gen, dev, LSTM1)
+    compare_lstm("lstm_stack_skewed", 8, torch.bfloat16, gen, dev)
+    for geom in (SE_STACK, LSTM1):
+        compare_lstm("lstm_stack_skewed", 8, torch.bfloat16, gen, dev, geom)
+    # batch serving: kernel 3 at every slab of the ladder above 8 rows
+    # (128 and 256 rows: several row groups), lstm2 and lstm1; kernel 2
+    # at one row over the 24 s wav's unchunked mel (cut=False); then the
+    # generator's wall at each slab size (the planner's cost table)
+    for rows in AE._SLAB_LADDER[1:]:
+        for geom in (LSTM2, LSTM1):
+            compare_lstm("lstm_stack_stream", rows, torch.bfloat16, gen, dev,
+                         geom)
+    long_T = dsp.mel_spec_auto_encoder(
+        synthetic_wav(24.0, 22050, 24),
+        AutoEncoderConfig().spectrogram).shape[-1]
+    for dt in (torch.float32, torch.bfloat16):
+        compare_lstm("lstm_stack_skewed", 1, dt, gen, dev,
+                     (2, 1024, 512, long_T))
+    ae_slab_ms(gen, dev, card)
+    return by_wav[0], by_wav[-1]
+
+
+def compare_training_kernels(gen, dev) -> tuple:
+    """Phase 3's holds of kernels 6 and 7 and of kernels 4 and 5; returns
+    the summary's comparisons of each pair."""
+    # kernels 6 and 7 at the training path's geometries: decoder lstm2 in
+    # f32 and bf16, lstm1 (input 2 * 32 + 256), the speaker encoder's stack
+    # (cotangent on h_fin only) and lstm2 at a ragged 33 rows (kernel 7's
+    # last M-tile part-filled); the bf16 lstm2 run is the summary's
+    compare_lstm_train("lstm2", 2, 1024, 512, 16, 400, torch.float32, gen,
+                       dev)
+    k67 = compare_lstm_train("lstm2", 2, 1024, 512, 16, 400, torch.bfloat16,
+                             gen, dev)
+    compare_lstm_train("lstm1", 1, 512, 320, 16, 400, torch.bfloat16, gen,
+                       dev)
+    compare_lstm_train("ragged", 2, 1024, 512, 33, 400, torch.bfloat16, gen,
+                       dev)
+    se48 = compare_lstm_train("speaker_encoder", 3, 256, 40, 48, 160,
+                              torch.bfloat16, gen, dev, cotangents="h_fin")
+    # the speaker encoder's GE2E batch, 64 speakers x 8 utterances: both
+    # kernels over several row groups
+    se512 = compare_lstm_train("speaker_encoder_ge2e", 3, 256, 40, 512, 160,
+                               torch.bfloat16, gen, dev, cotangents="h_fin")
+    log({"phase": "compare", "kernel": "lstm_train se rows", **{
+        f"{r['rows']}_rows": {k: {m: r[k][m] for m in ("ms", "library_ms",
+                                                       "bound_ms")}
+                              for k in ("fwd", "bwd")}
+        for r in (se48, se512)}})
+    # kernels 4 and 5 at the vocoder's training geometry, f32 and bf16
+    # (the summary's), and the JAX bench's
+    compare_gru_train(8, 9 * 275, torch.float32, gen, dev)
+    k45 = compare_gru_train(8, 9 * 275, torch.bfloat16, gen, dev)
+    compare_gru_train(32, 5 * 275, torch.bfloat16, gen, dev)
+    return k67, k45
+
+
 def wavernn_inputs(cfg, params, rows: int, frames: int, fast_math: bool,
                    gen, dev, pinned: bool = False):
     """Kernel 1's inputs for ``rows`` fold rows of ``frames`` frames:
@@ -699,13 +808,84 @@ def hold(out, ref, max_bar: float, mean_bar: float | None = None,
     return res
 
 
+def plain_graphed(inp, gumbel, logistic) -> torch.Tensor:
+    """``WK.sample_rows_plain`` with each step one CUDA graph replay: the
+    same :func:`WK.plain_step` on the same inputs, captured once with the
+    step index, the previous sample and the GRU states in static device
+    buffers (the graph reads its frame inputs, taps and noise at that
+    index, writes its sample and advances the index), so a step costs one
+    ``replay()`` of host time where the eager loop makes its ~50 launches
+    one by one."""
+    B, S = inp.rows, inp.ktab.shape[1]
+    W, rd, dev = inp.ktab.shape[0], inp.w_x.shape[0], inp.mf.device
+    w = WK.plain_weights(inp)
+    x, h1, h2 = (inp.mf.new_zeros(B, n) for n in (1, rd, rd))
+    t = torch.zeros(1, dtype=torch.long, device=dev)
+    taps = torch.arange(W, device=dev)
+    out = inp.mf.new_zeros(B, inp.steps)
+
+    def at(a, i):
+        return a.index_select(1, i)[:, 0]
+
+    def step():
+        q = torch.div(t, S, rounding_mode="floor")
+        mfw = inp.mf.index_select(1, q + taps)
+        sample, n1, n2 = WK.plain_step(
+            inp, w, x, h1, h2, at(inp.base, q),
+            [mfw[:, k] for k in range(W)], at(inp.ktab, t - q * S),
+            at(inp.pre_r2, q), at(inp.pre_f1, q), at(inp.pre_f2, q),
+            gumbel.index_select(0, t)[0], logistic.index_select(0, t)[0])
+        out.index_copy_(1, t, sample[:, None])
+        x.copy_(sample[:, None])
+        h1.copy_(n1)
+        h2.copy_(n2)
+        t.add_(1)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()                                  # warm-up before capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    for buf in (x, h1, h2, t, out):
+        buf.zero_()
+    for _ in range(inp.steps):
+        graph.replay()
+    torch.cuda.synchronize(dev)
+    return out
+
+
+def check_plain_graphed(cfg, params, gen, dev) -> None:
+    """The graphed plain loop against the eager one over one fold frame
+    (275 steps) at 8 rows, f32 and bf16: they must agree bitwise."""
+    for fast in (False, True):
+        inp, gum, lgs = wavernn_inputs(cfg, params, 8, 1, fast, gen, dev)
+        t0 = time.time()
+        eager = WK.sample_rows_plain(inp, gum, lgs)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        graphed = plain_graphed(inp, gum, lgs)
+        t2 = time.time()
+        res = {"phase": "compare", "kernel": "wavernn_sample plain graphed",
+               "fast_math": fast, "rows": 8, "steps": inp.steps,
+               "max_abs_err": float((graphed - eager).abs().max()),
+               "eager_s": t1 - t0, "graphed_s": t2 - t1,
+               "tolerance": "bitwise", "ok": torch.equal(graphed, eager)}
+        log(res)
+        if not res["ok"]:
+            raise AssertionError(f"the graphed plain loop is not the eager "
+                                 f"one: {res}")
+
+
 def compare_wavernn_f32(cfg, params, rows: int, pinned: bool, gen,
                         dev) -> dict:
     """Kernel 1 in f32 against the plain loop, ``rows`` x 4 frames:
     atol 1e-3."""
     inp, gum, lgs = wavernn_inputs(cfg, params, rows, 4, False, gen, dev,
                                    pinned)
-    return hold(WK.launch(inp, gum, lgs), WK.sample_rows_plain(inp, gum, lgs),
+    return hold(WK.launch(inp, gum, lgs), plain_graphed(inp, gum, lgs),
                 1e-3, dtype="torch.float32", rows=rows, steps=inp.steps,
                 noise="pinned" if pinned else "drawn")
 
@@ -754,7 +934,7 @@ def compare_wavernn_bf16(cfg, params, rows: int, fpf: int, gen,
     bf16 = dict(dtype="torch.bfloat16", rows=rows, frames=fpf, **tags)
     inp, gum, lgs = wavernn_inputs(cfg, params, rows, fpf, True, gen, dev)
     out = WK.launch(inp, gum, lgs)
-    ref = WK.sample_rows_plain(*first_frames(inp, gum, lgs, 1))
+    ref = plain_graphed(*first_frames(inp, gum, lgs, 1))
     # a row whose pick flips on a near-tie is compared up to that step
     flips = near_tie_flips(inp, gum, lgs, out, ref, 8)
     head = out[:, :8].clone()
@@ -790,13 +970,12 @@ def compare_wavernn_bf16(cfg, params, rows: int, fpf: int, gen,
     out = WK.launch(inp, gum, lgs)
     torch.cuda.synchronize()
     t0 = time.time()
-    ref = WK.sample_rows_plain(inp, gum, lgs)
-    torch.cuda.synchronize()
+    ref = plain_graphed(inp, gum, lgs)
     plain_ms = (time.time() - t0) * 1e3
     shaken = dict(vars(inp))
     shaken["mf"] = inp.mf * (1 + 1e-6 * torch.randn(
         inp.mf.shape, generator=gen).to(dev))
-    spread = (WK.sample_rows_plain(WK.RowsInputs(**shaken), gum, lgs)
+    spread = (plain_graphed(WK.RowsInputs(**shaken), gum, lgs)
               - ref).abs()
     hold(out[:, :30], ref[:, :30], 1e-2, steps=inp.steps, noise="pinned",
          **bf16)
@@ -953,6 +1132,7 @@ def compare_wavernn(gen, dev, geos: dict) -> dict:
     kernel time."""
     cfg = WaveRNNConfig()
     params = from_jax_params(WR.init(gen, cfg), dev)
+    check_plain_graphed(cfg, params, gen, dev)
     above = min(r for r, _ in geos if r > WR._MAX_SLAB_ROWS)
     for rows, pinned in ((8, False), (48, True), (WR._MAX_SLAB_ROWS, True),
                          (above, True)):
@@ -3072,44 +3252,15 @@ def dp_rank(out_dir: str) -> int:
     return 0
 
 
-def multi_dp(card: str, phase5_step_s: float) -> dict:
-    """Phase 11's data-parallel runs: two ranks on the card (``gloo``, the
-    port's launcher), each f32 step held against the single-process step
-    on the global batch on the card (loss and ``grad_norm`` rel 1e-4,
-    gradients rtol 2e-3 / atol 1e-3, the JAX bars of
-    tests/test_parallel.py, printed beside the largest reference
-    gradient, which shows the bar could see a dropped all-reduce or a
-    missing 1/N), the bf16 steps'
-    losses falling and their median s/step beside phase 5's; then one
-    rank on ``nccl`` (the multihost smoke).  Returns the ranks' launches,
-    summed."""
-    from autovc_tpu_torch.utils import launcher
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ranks = launcher.launch_local_multiprocess(
-            os.path.abspath(__file__), 2, args=["--dp-rank", tmp],
-            timeout=420)
-        dp_wall = time.perf_counter() - t0
-        for r, (rc, text) in enumerate(ranks):
-            if rc != 0:
-                raise AssertionError(f"rank {r} exited {rc}:\n{text[-4000:]}")
-        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                           weights_only=False) for r in range(2)]
-    launches = {k: 0 for k in KERNELS}
-    for o in outs:
-        log({"phase": "multi_device dp rank", "rank": o["rank"],
-             "backend": o["backend"], "f32_launches": o["f32_launches"],
-             "bf16_launches": o["bf16_launches"], "card": card})
-        for k in KERNELS:
-            launches[k] += o["f32_launches"][k] + o["bf16_launches"][k]
-        require_launches(f"rank {o['rank']}", o["f32_launches"],
-                         TRAIN_KERNELS + VOCODER_KERNELS)
-        require_launches(f"rank {o['rank']} bf16", o["bf16_launches"],
-                         TRAIN_KERNELS)
-
+def single_process_holds(inputs: dict, outs: list) -> tuple:
+    """Each f32 step of the ranks' results ``outs`` (rank 0's gradients,
+    whole) held against the single-process step on the global batch on
+    the card: loss and ``grad_norm`` rel 1e-4, gradients rtol 2e-3 / atol
+    1e-3 (the JAX bars of tests/test_parallel.py), beside the largest
+    reference gradient.  Returns (holds, failures)."""
     dev = torch.device("cuda")
     holds, failed = {}, []
-    for what, (params, cfg, arrays) in dp_inputs().items():
+    for what, (params, cfg, arrays) in inputs.items():
         params = from_jax_params(params, dev)
         if what == "ae":
             aux, grads = TRL.loss_and_grads(params, *arrays, cfg, "f32")
@@ -3148,6 +3299,45 @@ def multi_dp(card: str, phase5_step_s: float) -> dict:
         if worst > 0:
             failed.append(f"{what}: {worst_leaf} over rtol 2e-3 / atol 1e-3 "
                           f"by {worst:.3g}")
+    return holds, failed
+
+
+def multi_dp(card: str, phase5_step_s: float) -> dict:
+    """Phase 11's data-parallel runs: two ranks on the card (``gloo``, the
+    port's launcher), each f32 step held against the single-process step
+    on the global batch on the card (loss and ``grad_norm`` rel 1e-4,
+    gradients rtol 2e-3 / atol 1e-3, the JAX bars of
+    tests/test_parallel.py, printed beside the largest reference
+    gradient, which shows the bar could see a dropped all-reduce or a
+    missing 1/N), the bf16 steps'
+    losses falling and their median s/step beside phase 5's; then one
+    rank on ``nccl`` (the multihost smoke).  Returns the ranks' launches,
+    summed."""
+    from autovc_tpu_torch.utils import launcher
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = launcher.launch_local_multiprocess(
+            os.path.abspath(__file__), 2, args=["--dp-rank", tmp],
+            timeout=420)
+        dp_wall = time.perf_counter() - t0
+        for r, (rc, text) in enumerate(ranks):
+            if rc != 0:
+                raise AssertionError(f"rank {r} exited {rc}:\n{text[-4000:]}")
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+    launches = {k: 0 for k in KERNELS}
+    for o in outs:
+        log({"phase": "multi_device dp rank", "rank": o["rank"],
+             "backend": o["backend"], "f32_launches": o["f32_launches"],
+             "bf16_launches": o["bf16_launches"], "card": card})
+        for k in KERNELS:
+            launches[k] += o["f32_launches"][k] + o["bf16_launches"][k]
+        require_launches(f"rank {o['rank']}", o["f32_launches"],
+                         TRAIN_KERNELS + VOCODER_KERNELS)
+        require_launches(f"rank {o['rank']} bf16", o["bf16_launches"],
+                         TRAIN_KERNELS)
+
+    holds, failed = single_process_holds(dp_inputs(), outs)
     main = outs[0]
     losses = main["losses"]
     falling = (len(losses) == DP_STEPS and all(map(math.isfinite, losses))
@@ -3183,8 +3373,202 @@ def multi_dp(card: str, phase5_step_s: float) -> dict:
     return launches
 
 
-def phase_multi_device(card: str, phase5_step_s: float) -> dict:
-    """Phase 11 (see the module docstring); returns its launches."""
+# The tensor-parallel ranks' batches, full widths on short sequences (the
+# per-step gate gathers go through the host): the generator 4 x 80 x 64
+# frames, the vocoder 4 rows of 2 frames (550 samples), the speaker
+# encoder 4 x 3 x 160; then TP_STEPS timed bf16 steps of each and a
+# 2-step bf16 train_autoencoder(mesh=) that saves.
+TP_FRAMES, TP_VOCODER_FRAMES, TP_STEPS = 64, 2, 3
+
+
+def tp_inputs():
+    """Every tensor-parallel rank's (and the reference's) full parameters
+    and global batches, made from seeds."""
+    ae_cfg, wr_cfg, se_cfg = (AutoEncoderConfig(), WaveRNNConfig(),
+                              SpeakerEncoderConfig())
+    rng = np.random.default_rng(41)
+    x = rng.random((4, 80, TP_FRAMES), dtype=np.float32)
+    c = rng.standard_normal((4, 256)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    T = TP_VOCODER_FRAMES * wr_cfg.hop_length
+    x_in = np.clip(0.3 * rng.standard_normal((4, T)), -1, 1).astype(
+        np.float32)
+    mels = rng.random((4, 80, TP_VOCODER_FRAMES + 2 * wr_cfg.pad),
+                      dtype=np.float32)
+    block = next(SyntheticSpeakers(4, se_cfg.spectrogram.
+                                   partial_utterance_n_frames,
+                                   se_cfg.input_size, 43).batches(3, 1))
+    return {
+        "ae": (AE.init(torch.Generator().manual_seed(42), ae_cfg), ae_cfg,
+               (x, c)),
+        "vocoder": (WR.init(torch.Generator().manual_seed(43), wr_cfg),
+                    wr_cfg, (x_in, np.roll(x_in, -1, 1), mels)),
+        "se": (SE.init(torch.Generator().manual_seed(44), se_cfg), se_cfg,
+               (block,)),
+    }
+
+
+class TPBatches:
+    """A generator dataset of 2 seeded batches of 4 x 80 x TP_FRAMES."""
+
+    def epoch_steps(self, batch_size):
+        return 2
+
+    def batches(self, batch_size, shuffle=True, seed=0):
+        rng = np.random.default_rng(seed)
+        for _ in range(2):
+            c = rng.standard_normal((batch_size, 256)).astype(np.float32)
+            yield (rng.random((batch_size, 80, TP_FRAMES), dtype=np.float32),
+                   c / np.linalg.norm(c, axis=1, keepdims=True))
+
+
+def tp_rank(out_dir: str) -> int:
+    """One rank of phase 11's tensor-parallel runs (``chip_smoke.py
+    --tp-rank <dir>`` under the port's launcher), on a (1, 2) ("data",
+    "model") mesh: one f32 step of the generator, the vocoder and the
+    speaker encoder from this rank's shards (``make_sharded_*_step``,
+    ``with_grads``: the gradients gathered whole), then ``TP_STEPS``
+    timed bf16 steps of each with the model group's gathers and reduces a
+    step; then a 2-step bf16 ``train_autoencoder(mesh=)`` that saves, rank
+    0 reading its checkpoint back.  Rank 0 writes the f32 losses and
+    gradients, every rank its kernels' launches."""
+    from autovc_tpu_torch.parallel import steps as PSTEPS
+    from autovc_tpu_torch.parallel import tensor as PTP
+    PREC.exact_f32()
+    PSTEPS.initialize_distributed()
+    mesh = PSHD.make_mesh((1, 2), ("data", "model"))
+    rank = mesh.rank
+    lr = 1e-4
+    out = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "bf16": {}}
+    for name in KERNELS:
+        KERNELS[name]["kernel"].launches = 0
+    makers = {"ae": lambda cfg, tx, prec, grads: PSTEPS.make_sharded_ae_step(
+                  cfg, tx, 0.999, mesh, precision=prec, with_grads=grads),
+              "vocoder": lambda cfg, tx, prec, grads:
+                  PSTEPS.make_sharded_vocoder_step(cfg, tx, mesh,
+                                                   precision=prec,
+                                                   with_grads=grads),
+              "se": lambda cfg, tx, prec, grads:
+                  PSTEPS.make_sharded_se_step(cfg, tx, mesh, precision=prec,
+                                              with_grads=grads)}
+    for what, (params, cfg, arrays) in tp_inputs().items():
+        mine = [PSTEPS.shard_batch(a, mesh) for a in arrays]
+        for prec in ("f32", "bf16"):
+            local = PSHD.shard_params(tree_clone(params), mesh)[0]
+            tx = TRS.Optimizer(lambda count: lr, 0.9, 0.999, 1e-8, 1.0)
+            state = tx.init(tree_leaves(local))
+            step = makers[what](cfg, tx, prec, prec == "f32")
+            state_args = ((local, state, tree_clone(local)) if what == "ae"
+                          else (local, state))
+            times, losses, counts = [], [], []
+            for _ in range(1 if prec == "f32" else TP_STEPS):
+                before = dict(PTP.COUNTS)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                aux = step(*state_args, *mine)[-1]
+                losses.append(float(aux["loss"]))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                counts.append({k: PTP.COUNTS[k] - before[k]
+                               for k in before})
+            if prec == "f32":
+                out[what] = {"loss": losses[0],
+                             "grad_norm": float(aux["grad_norm"])}
+                if rank == 0:
+                    out[what]["grads"] = [g.cpu() for g in
+                                          tree_leaves(aux["grads"])]
+            else:
+                out["bf16"][what] = {"step_s": times, "losses": losses,
+                                     "collectives_per_step": counts[-1]}
+    torch.cuda.synchronize()
+    out["launches"] = {k: KERNELS[k]["kernel"].launches for k in KERNELS}
+    params, cfg, _ = tp_inputs()["ae"]
+    ckpt = os.path.join(out_dir, "ckpt")
+    full, _, info = TRL.train_autoencoder(
+        params, TPBatches(), cfg, n_epochs=1, batch_size=4, log_freq=1,
+        model_name="tp", save_dir=ckpt, verbose=False, mesh=mesh)
+    out["loop"] = {"step": info["step"],
+                   "shapes": [list(t.shape) for t in tree_leaves(full)]}
+    if rank == 0:
+        path, = [os.path.join(ckpt, f) for f in os.listdir(ckpt)]
+        blob = CK.load_checkpoint(path)
+        saved = tree_leaves(from_jax_params(blob["params"], "cpu"))
+        out["loop"]["read_back"] = {
+            "step": int(blob["step"]),
+            "equal": len(saved) == len(tree_leaves(full)) and all(
+                torch.equal(a, b.cpu())
+                for a, b in zip(saved, tree_leaves(full)))}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def multi_tp(card: str, step_s: dict) -> dict:
+    """Phase 11's tensor-parallel runs: two ranks on the card (``gloo``,
+    the port's launcher) as a (1, 2) ("data", "model") mesh, each f32
+    step held against the single-process step on the card
+    (:func:`single_process_holds`); the bf16 median s/step of each model
+    beside phases 5-7's (at their own geometries), with the model group's
+    gathers and reduces a step; the TP recurrences launch none of
+    kernels 4-7 (the JAX sharded steps run scans, not their Pallas
+    kernels); the 2-step loop's checkpoint read back whole.  Returns the
+    ranks' launches, summed."""
+    from autovc_tpu_torch.utils import launcher
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = launcher.launch_local_multiprocess(
+            os.path.abspath(__file__), 2, args=["--tp-rank", tmp],
+            timeout=420)
+        tp_wall = time.perf_counter() - t0
+        for r, (rc, text) in enumerate(ranks):
+            if rc != 0:
+                raise AssertionError(f"rank {r} exited {rc}:\n{text[-4000:]}")
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(2)]
+    holds, failed = single_process_holds(tp_inputs(), outs)
+    launches = {k: 0 for k in KERNELS}
+    for o in outs:
+        for k in KERNELS:
+            launches[k] += o["launches"][k]
+        used = [k for k in TRAIN_KERNELS + VOCODER_KERNELS
+                if o["launches"][k]]
+        if used:
+            failed.append(f"rank {o['rank']}: the TP steps launched {used}")
+        if o["loop"]["step"] != 2:
+            failed.append(f"rank {o['rank']}: the loop ran "
+                          f"{o['loop']['step']} steps")
+    main = outs[0]
+    full = [list(t.shape) for t in tree_leaves(tp_inputs()["ae"][0])]
+    back = main["loop"]["read_back"]
+    if not (back["equal"] and back["step"] == 2
+            and all(o["loop"]["shapes"] == full for o in outs)):
+        failed.append(f"the TP loop's checkpoint is not its full tree: "
+                      f"{back}")
+    bf16 = {what: {"median_step_s": statistics.median(r["step_s"]),
+                   "phase_median_step_s": step_s[what],
+                   "losses": r["losses"],
+                   "collectives_per_step": r["collectives_per_step"]}
+            for what, r in main["bf16"].items()}
+    res = {"phase": "multi_device tp", "ranks": 2, "mesh": [1, 2],
+           "backend": main["backend"], "global_batches": {
+               "ae": [4, 80, TP_FRAMES],
+               "vocoder": [4, TP_VOCODER_FRAMES * 275],
+               "se": [4, 3, 160]},
+           "f32_holds": holds,
+           "tolerance": "loss and grad_norm rel 1e-4; gradients rtol 2e-3 "
+                        "/ atol 1e-3",
+           "bf16": bf16, "loop_read_back": back, "launches": launches,
+           "ranks_wall_s": tp_wall, "card": card, "failed": failed}
+    log(res)
+    if failed:
+        raise AssertionError(f"tensor-parallel runs failed: {res}")
+    return launches
+
+
+def phase_multi_device(card: str, step_s: dict) -> dict:
+    """Phase 11 (see the module docstring); ``step_s``: phases 5-7's
+    median s/step by model; returns its launches."""
     t0 = time.perf_counter()
     sr = 22050
     target = synthetic_wav(3.0, sr, 99)
@@ -3196,12 +3580,75 @@ def phase_multi_device(card: str, phase5_step_s: float) -> dict:
         for counts in (multi_chunks(vc32, vc, target, card),
                        multi_ring(vc32, target, card),
                        multi_pipeline(vc, target, tmp, card),
-                       multi_dp(card, phase5_step_s)):
+                       multi_dp(card, step_s["ae"]),
+                       multi_tp(card, step_s)):
             for k, n in counts.items():
                 launches[k] += n
     log({"phase": "multi_device", "seconds": time.perf_counter() - t0,
          "launches": launches, "card": card})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the native host mel core
+# ---------------------------------------------------------------------------
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host ms of ``reps`` calls of ``fn`` after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_native_mel(card: str) -> dict:
+    """The native host mels (``autovc_tpu_torch.native``, built here with
+    g++) of the 24 s synthetic wav, the AE's at 22.05 kHz and the SE's at
+    16 kHz, against the port's numpy mels (rtol 1e-3 / atol 1e-4 and
+    rtol 2e-3 / atol 1e-5 of the largest value, tests/test_native.py's
+    bars), with their host ms at 1 thread and at all threads beside
+    numpy's (median of 3)."""
+    from autovc_tpu_torch import native
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    res = {"phase": "native mel", "seconds_in": 24.0, "build_s": build_s,
+           "cpu_threads": os.cpu_count(), "card": card}
+    failed = []
+    for name, sr, rtol, fn, nat in (
+            ("ae", 22050, 1e-3, dsp.mel_spec_auto_encoder,
+             native.mel_spec_auto_encoder),
+            ("se", 16000, 2e-3, dsp.mel_spec_speaker_encoder,
+             native.mel_spec_speaker_encoder)):
+        wav = synthetic_wav(24.0, sr, 24)
+        dsp.USE_NATIVE = False
+        try:
+            ref = fn(wav)
+            numpy_ms = host_ms(lambda: fn(wav))
+        finally:
+            dsp.USE_NATIVE = True
+        out = nat(wav)
+        atol = 1e-4 if name == "ae" else 1e-5 * float(np.abs(ref).max())
+        excess = float((np.abs(out - ref) - (atol + rtol * np.abs(ref))
+                        ).max())
+        res[name] = {"shape": list(out.shape),
+                     "max_abs_err": float(np.abs(out - ref).max()),
+                     "tolerance": f"rtol {rtol:g} / atol {atol:.3g}",
+                     "ok": out.shape == ref.shape and excess <= 0,
+                     "numpy_ms": numpy_ms,
+                     "native_1_thread_ms": host_ms(lambda: nat(
+                         wav, n_threads=1)),
+                     "native_all_threads_ms": host_ms(lambda: nat(wav))}
+        if not res[name]["ok"]:
+            failed.append(name)
+    log(res)
+    if failed:
+        raise AssertionError(f"native mels disagree with numpy: {res}")
+    return res
 
 
 def main() -> int:
@@ -3210,79 +3657,30 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--dp-rank"]:
         return dp_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--tp-rank"]:
+        return tp_rank(sys.argv[2])
     dev = torch.device("cuda")
     PREC.exact_f32()
+    t_start = time.time()
     card = phase_environment()
-    phase_build()
+    with phase_clock("build"):
+        phase_build()
     gen = torch.Generator().manual_seed(0)
-    # kernels 2 and 3 at 2 and 24 rows in both dtypes; in bf16, each at
-    # the chunks of the conversions it runs, lstm2 (the summary's: kernel
-    # 2 at the 4 s wav's one chunk, kernel 3 at the 24 s wav's nine) and
-    # lstm1 from 2 chunks; kernel 2 at 8 rows of lstm2, the speaker
-    # encoder's stack and lstm1
-    for dt in (torch.float32, torch.bfloat16):
-        compare_lstm("lstm_stack_skewed", 2, dt, gen, dev)
-        compare_lstm("lstm_stack_stream", 24, dt, gen, dev)
-    by_wav = []
-    for _, name, chunks in CONVERSIONS:
-        by_wav.append(compare_lstm(name, chunks, torch.bfloat16, gen, dev))
-        if chunks > 1:
-            compare_lstm(name, chunks, torch.bfloat16, gen, dev, LSTM1)
-    k2, k3 = by_wav[0], by_wav[-1]
-    compare_lstm("lstm_stack_skewed", 8, torch.bfloat16, gen, dev)
-    for geom in (SE_STACK, LSTM1):
-        compare_lstm("lstm_stack_skewed", 8, torch.bfloat16, gen, dev, geom)
-    # batch serving: kernel 3 at every slab of the ladder above 8 rows
-    # (128 and 256 rows: several row groups), lstm2 and lstm1; kernel 2
-    # at one row over the 24 s wav's unchunked mel (cut=False); then the
-    # generator's wall at each slab size (the planner's cost table)
-    for rows in AE._SLAB_LADDER[1:]:
-        for geom in (LSTM2, LSTM1):
-            compare_lstm("lstm_stack_stream", rows, torch.bfloat16, gen, dev,
-                         geom)
-    long_T = dsp.mel_spec_auto_encoder(
-        synthetic_wav(24.0, 22050, 24),
-        AutoEncoderConfig().spectrogram).shape[-1]
-    for dt in (torch.float32, torch.bfloat16):
-        compare_lstm("lstm_stack_skewed", 1, dt, gen, dev,
-                     (2, 1024, 512, long_T))
-    ae_slab_ms(gen, dev, card)
-    # kernels 6 and 7 at the training path's geometries: decoder lstm2 in
-    # f32 and bf16, lstm1 (input 2 * 32 + 256), the speaker encoder's stack
-    # (cotangent on h_fin only) and lstm2 at a ragged 33 rows (kernel 7's
-    # last M-tile part-filled); the bf16 lstm2 run is the summary's
-    compare_lstm_train("lstm2", 2, 1024, 512, 16, 400, torch.float32, gen,
-                       dev)
-    k67 = compare_lstm_train("lstm2", 2, 1024, 512, 16, 400, torch.bfloat16,
-                             gen, dev)
-    compare_lstm_train("lstm1", 1, 512, 320, 16, 400, torch.bfloat16, gen,
-                       dev)
-    compare_lstm_train("ragged", 2, 1024, 512, 33, 400, torch.bfloat16, gen,
-                       dev)
-    se48 = compare_lstm_train("speaker_encoder", 3, 256, 40, 48, 160,
-                              torch.bfloat16, gen, dev, cotangents="h_fin")
-    # the speaker encoder's GE2E batch, 64 speakers x 8 utterances: both
-    # kernels over several row groups
-    se512 = compare_lstm_train("speaker_encoder_ge2e", 3, 256, 40, 512, 160,
-                               torch.bfloat16, gen, dev, cotangents="h_fin")
-    log({"phase": "compare", "kernel": "lstm_train se rows", **{
-        f"{r['rows']}_rows": {k: {m: r[k][m] for m in ("ms", "library_ms",
-                                                       "bound_ms")}
-                              for k in ("fwd", "bwd")}
-        for r in (se48, se512)}})
-    # kernels 4 and 5 at the vocoder's training geometry, f32 and bf16
-    # (the summary's), and the JAX bench's
-    compare_gru_train(8, 9 * 275, torch.float32, gen, dev)
-    k45 = compare_gru_train(8, 9 * 275, torch.bfloat16, gen, dev)
-    compare_gru_train(32, 5 * 275, torch.bfloat16, gen, dev)
+    with phase_clock("3 kernels 2/3"):
+        k2, k3 = compare_inference_kernels(gen, dev, card)
+    with phase_clock("3 kernels 6/7, 4/5"):
+        k67, k45 = compare_training_kernels(gen, dev)
     # kernel 1 at every geometry the fold picker gives phases 4 and 8;
     # those phases then must run no other bf16 geometry
     geos = kernel1_geometries()
-    k1 = compare_wavernn(gen, dev, geos)
+    with phase_clock("3 kernel 1"):
+        k1 = compare_wavernn(gen, dev, geos)
     with Kernel1Geometries() as recorder:
-        launches, conversions = phase_end_to_end(card, recorder)
-        for name, count in phase_batch_serving(card, recorder).items():
-            launches[name] += count
+        with phase_clock("4 end to end"):
+            launches, conversions = phase_end_to_end(card, recorder)
+        with phase_clock("8 batch serving"):
+            for name, count in phase_batch_serving(card, recorder).items():
+                launches[name] += count
     unheld = sorted(set(recorder.ran) - set(geos))
     log({"phase": "wavernn_sample geometries", "held": sorted(geos),
          "launches_by_geometry": {f"{r}x{f}": n for (r, f), n in sorted(
@@ -3290,26 +3688,38 @@ def main() -> int:
     if unheld or not recorder.ran:
         raise AssertionError(f"phases 4 and 8 ran kernel 1 in bf16 at "
                              f"{unheld}, which phase 3 did not hold")
-    train = phase_train(card)
-    launches.update(train["launches"])
-    phase_train_f32_vs_cpu(card)
-    vocoder = phase_vocoder_train(card)
-    launches.update(vocoder["launches"])
-    phase_vocoder_f32_vs_cpu(card)
-    se = phase_se_train(card)
-    for name, count in se["launches"].items():
-        launches[name] += count
-    phase_se_f32_vs_cpu(card)
-    for name, count in phase_cli(card).items():
-        launches[name] += count
-    for name, count in phase_reference_scripts(card, dev).items():
-        launches[name] += count
-    for name, count in phase_train_extras(card).items():
-        launches[name] += count
-    for name, count in phase_multi_device(
-            card, train["median_step_s"]).items():
-        launches[name] += count
-    phase_roofline(card, conversions, train, vocoder, se)
+    with phase_clock("5 train"):
+        train = phase_train(card)
+        launches.update(train["launches"])
+        phase_train_f32_vs_cpu(card)
+    with phase_clock("6 vocoder train"):
+        vocoder = phase_vocoder_train(card)
+        launches.update(vocoder["launches"])
+        phase_vocoder_f32_vs_cpu(card)
+    with phase_clock("7 se train"):
+        se = phase_se_train(card)
+        for name, count in se["launches"].items():
+            launches[name] += count
+        phase_se_f32_vs_cpu(card)
+    with phase_clock("9 cli"):
+        for name, count in phase_cli(card).items():
+            launches[name] += count
+    with phase_clock("12 reference scripts"):
+        for name, count in phase_reference_scripts(card, dev).items():
+            launches[name] += count
+    with phase_clock("10 train extras"):
+        for name, count in phase_train_extras(card).items():
+            launches[name] += count
+    with phase_clock("11 multi device"):
+        for name, count in phase_multi_device(card, {
+                "ae": train["median_step_s"],
+                "vocoder": vocoder["median_step_s"],
+                "se": se["median_step_s"]}).items():
+            launches[name] += count
+    with phase_clock("13 native mel"):
+        phase_native_mel(card)
+    with phase_clock("roofline"):
+        phase_roofline(card, conversions, train, vocoder, se)
 
     def entry(name, cmp, err):
         return {"name": name, "route": "cuda",
@@ -3335,6 +3745,8 @@ def main() -> int:
         if not all(math.isfinite(e[k]) for k in ("ms", "plain_ms",
                                                   "bound_ms")):
             raise AssertionError(f"non-finite timing for {e['name']}")
+    log({"phase": "phase seconds", **PHASE_SECONDS,
+         "total": round(time.time() - t_start, 2)})
     print(json.dumps(summary))
     print(card)
     print(json.dumps({"ok": True, "device": {

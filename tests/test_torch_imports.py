@@ -1,4 +1,5 @@
-"""Import hygiene of the port: ``autovc_tpu_torch``, ``chip_smoke.py`` and
+"""Import hygiene of the port: ``autovc_tpu_torch`` (its tensor-parallel
+collectives and its native mel core included), ``chip_smoke.py`` and
 the port's reference-checkpoint scripts import nothing of JAX or of the
 JAX package (checked in a subprocess where
 both are made unimportable), the port runs a CPU conversion there (through
@@ -63,7 +64,12 @@ def test_port_imports_and_converts_without_jax():
                 "autovc_tpu_torch.parallel.steps",
                 "autovc_tpu_torch.parallel.ring",
                 "autovc_tpu_torch.parallel.pipeline",
-                "autovc_tpu_torch.parallel.multihost_smoke"} <= names, names
+                "autovc_tpu_torch.parallel.multihost_smoke",
+                "autovc_tpu_torch.parallel.tensor",
+                "autovc_tpu_torch.native"} <= names, names
+        from autovc_tpu_torch import native
+        mel = native.mel_spec_auto_encoder(np.zeros(4096, np.float32))
+        assert mel.shape == (80, 15) and np.isfinite(mel).all()
         from autovc_tpu_torch import Audio, ConverterConfig, VoiceConverter
         cfg = ConverterConfig().with_overrides(vocoder={
             "rnn_dims": 32, "fc_dims": 32,

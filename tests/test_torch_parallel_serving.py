@@ -53,6 +53,7 @@ from autovc_tpu_torch.parallel import ring as tring
 from autovc_tpu_torch.parallel import sharding as shd
 from autovc_tpu_torch.parallel import steps as tsteps
 from autovc_tpu_torch.train import schedules as TS
+from autovc_tpu_torch.utils import tree_leaves
 
 CPU = torch.device("cpu")
 SR = 22050
@@ -145,21 +146,46 @@ def test_make_mesh_positions_and_refusals(monkeypatch):
 
 
 def test_tensor_parallel_raises_naming_roadmap(ae):
+    """The calls that a 'model' axis used to refuse, on a local (1, 2)
+    ("data", "model") mesh: ``shard_params`` gives each position the JAX
+    ``NamedSharding``'s shards; the sharded steps refuse a local mesh of
+    several positions as on a data mesh (the ranks must be launched);
+    the chunk-sharded convert and the ring run over the data axis with the
+    parameters whole, equal to a one-position mesh."""
     mesh = shd.make_mesh((1, 2), ("data", "model"), devices=[CPU] * 2)
+    jmesh = jshd.make_mesh((1, 2), ("data", "model"),
+                           devices=jax.devices()[:2])
+    local = [tree_leaves(t) for t in shd.shard_params(ae["tp"], mesh)]
+    placed = jax.tree_util.tree_leaves(jshd.shard_params(ae["jp"], jmesh))
+    assert len(placed) == len(local[0])
+    split = 0
+    for i, arr in enumerate(placed):
+        for s in arr.addressable_shards:
+            m = list(jmesh.devices.reshape(-1)).index(s.device)
+            np.testing.assert_array_equal(local[m][i].numpy(),
+                                          np.asarray(s.data))
+        split += local[0][i].shape != arr.shape
+    assert split > 30
     tx = TS.Optimizer(lambda c: 1e-3, 0.9, 0.999, 1e-8, 1.0)
-    for call in (lambda: shd.shard_params(ae["tp"], mesh),
-                 lambda: tsteps.make_sharded_ae_step(ae["tcfg"], tx, 0.9,
+    for call in (lambda: tsteps.make_sharded_ae_step(ae["tcfg"], tx, 0.9,
                                                      mesh),
                  lambda: tsteps.make_sharded_se_step(TSCfg(), tx, mesh),
-                 lambda: tsteps.make_sharded_vocoder_step(TWCfg(), tx, mesh),
-                 lambda: tsteps.chunk_sharded_convert(
-                     ae["tp"], torch.zeros(2, 80, N), torch.zeros(1, 256),
-                     torch.zeros(1, 256), 2, ae["tcfg"], mesh=mesh),
-                 lambda: tring.ring_lstm_layer(
-                     TR.init_lstm_layer(torch.Generator(), 4, 8),
-                     torch.zeros(1, 4, 4), mesh)):
-        with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1"):
+                 lambda: tsteps.make_sharded_vocoder_step(TWCfg(), tx,
+                                                          mesh)):
+        with pytest.raises(ValueError, match="one process per mesh position"):
             call()
+    chunks = torch.rand(2, 80, N, generator=torch.Generator().manual_seed(3))
+    c = torch.nn.functional.normalize(torch.ones(1, 256), dim=-1)
+    got, ref = (tsteps.chunk_sharded_convert(ae["tp"], chunks, c, c, 2,
+                                             ae["tcfg"], mesh=m)
+                for m in (mesh, _mesh(1)))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-6)
+    layer = TR.init_lstm_layer(torch.Generator().manual_seed(4), 4, 8)
+    x = torch.rand(1, 4, 4, generator=torch.Generator().manual_seed(5))
+    outs, _ = tring.ring_lstm_layer(layer, x, mesh)
+    np.testing.assert_allclose(torch.cat(outs, dim=1).numpy(),
+                               TR.lstm_layer(layer, x)[0].numpy(), rtol=0,
+                               atol=1e-6)
 
 
 def test_steps_refuse_a_local_mesh_and_batches_split(ae):
@@ -487,7 +513,7 @@ def test_convert_parallel_refusals(vc):
     """JAX's ValueErrors, with the JAX package's messages (an unknown
     ``parallel``, ``"chunks"`` without ``cut``, ``"ring"`` with
     ``pad_to_seconds``, an unknown ``convert_batch`` strategy), a mesh of
-    the wrong type, and tensor parallelism."""
+    the wrong type; and a mesh with a model axis, which converts."""
     wav = _wav(0.5, 150.0, 4)
     jax_source = inspect.getsource(JVC.convert) + inspect.getsource(
         JVC.convert_batch)
@@ -511,9 +537,10 @@ def test_convert_parallel_refusals(vc):
         assert str(err.value).startswith(fragment) and fragment in jax_source
     with pytest.raises(TypeError, match="Mesh"):
         convert(parallel="chunks", mesh="data")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert(parallel="chunks", mesh=shd.make_mesh(
-            (1, 2), ("data", "model"), devices=[CPU] * 2))
+    out = convert(parallel="chunks", mesh=shd.make_mesh(
+        (1, 2), ("data", "model"), devices=[CPU] * 2))
+    assert out.wav.shape == convert().wav.shape
+    assert np.all(np.isfinite(out.wav))
 
 
 def _pinned(steps, rows, pick_dim, generator, device):

@@ -11,10 +11,10 @@ Full SE width (3 x 256 on 40 mels, embedding 256) at small batches (S 3-4
 speakers, U 2-3 utterances, T 40 frames).  Parameters come from the JAX
 ``init`` through the weight bridge and data from numpy seeds.  The JAX
 side runs its scan path (``fast_kernels=False`` / ``make_se_step`` on the
-CPU); the port runs kernels 6/7's plain versions.  The JAX package's host
-mel takes its C++ core where it is built; the tests that compare host
-mels switch it off (``dsp.USE_NATIVE``), so both sides run the same numpy
-path."""
+CPU); the port runs kernels 6/7's plain versions.  Both packages' host
+mels take their C++ cores; the tests that compare host mels switch both
+off (``dsp.USE_NATIVE``), so both sides run the same numpy path, and
+``use_native=True`` holds the two cores against each other."""
 import os
 
 import jax
@@ -57,8 +57,9 @@ def _one_torch_thread():
 
 @pytest.fixture
 def numpy_mel(monkeypatch):
-    """The JAX package's host mel on its numpy path, as the port's."""
+    """Both packages' host mels on their numpy paths."""
     monkeypatch.setattr(jdsp, "USE_NATIVE", False)
+    monkeypatch.setattr(tdsp, "USE_NATIVE", False)
 
 
 @pytest.fixture(scope="module")
@@ -243,14 +244,17 @@ def _wav(seconds, f0, seed):
 @pytest.mark.parametrize("seconds", [0.3, 2.45])
 def test_sliced_speaker_mel_matches_jax(numpy_mel, seconds):
     """Exactly the JAX host path's partials and slices: one padded partial
-    below a window, several overlapping ones above."""
+    below a window, several overlapping ones above; on the numpy path and,
+    with ``use_native=True``, through each package's C++ core."""
     wav = _wav(seconds, 150.0, seed=3)
     ref = jdsp.mel_spec_speaker_encoder_sliced(wav)
     out = tdsp.mel_spec_speaker_encoder_sliced(wav)
     np.testing.assert_array_equal(out[0], ref[0])
     assert out[1:] == ref[1:] and out[0].shape[1:] == (160, 40)
-    with pytest.raises(NotImplementedError, match="native"):
-        tdsp.mel_spec_speaker_encoder_sliced(wav, use_native=True)
+    ref = jdsp.mel_spec_speaker_encoder_sliced(wav, use_native=True)
+    out = tdsp.mel_spec_speaker_encoder_sliced(wav, use_native=True)
+    np.testing.assert_array_equal(out[0], ref[0])
+    assert out[1:] == ref[1:]
 
 
 def _speaker_dirs(tmp_path, seconds=(1.7, 1.7, 0.9)):

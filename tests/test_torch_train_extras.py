@@ -11,6 +11,7 @@ import glob
 import json
 import os
 import pickle
+import sys
 import threading
 
 import jax
@@ -33,9 +34,14 @@ from autovc_tpu_torch.models import wavernn as TWR
 from autovc_tpu_torch.train import loop as TL
 from autovc_tpu_torch.train import schedules as TS
 from autovc_tpu_torch.utils import checkpoint as TCK
-from autovc_tpu_torch.utils import tree_leaves
+from autovc_tpu_torch.utils import tree_clone, tree_leaves
 from autovc_tpu_torch.utils.bridge import from_jax_params
 from autovc_tpu_torch.utils.logging import MetricsLogger as TLogger
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, TESTS)
+from torch_dp_worker import ArrayDataset  # noqa: E402
+from torch_tp_worker import BlockDataset, VocoderDataset  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -405,21 +411,113 @@ def test_examples_are_ignored_by_the_other_models(tmp_path, monkeypatch):
 
 
 
+_MESH_LOOPS = """
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+sys.path.insert(0, {tests!r})
+from torch_dp_worker import ArrayDataset
+from torch_tp_worker import BlockDataset, VocoderDataset
+from autovc_tpu_torch.parallel import sharding as shd
+from autovc_tpu_torch.parallel import steps as psteps
+from autovc_tpu_torch.train import loop as L
+from autovc_tpu_torch.utils import tree_leaves
+
+torch.set_num_threads(1)
+psteps.initialize_distributed()
+inp = torch.load(os.path.join({d!r}, "inputs.pt"), weights_only=False)
+mesh = shd.make_mesh((1, 2), ("data", "model"))
+kw = dict(n_epochs=1, model_name="", verbose=False, mesh=mesh)
+ae = inp["train_autoencoder"]
+p, _, info = L.train_autoencoder(ae["params"], ArrayDataset(ae["x"], ae["c"]),
+                                 ae["cfg"], batch_size=2, precision="f32",
+                                 opt_overrides={{"lr": 1e-4}}, **kw)
+out = {{"train_autoencoder": (info["step"], tree_leaves(p))}}
+se = inp["train_speaker_encoder"]
+p, info = L.train_speaker_encoder(se["params"], BlockDataset(se["block"]),
+                                  se["cfg"], steps_per_epoch=1, **kw)
+out["train_speaker_encoder"] = (info["step"], tree_leaves(p))
+voc = inp["train_vocoder"]
+p, info = L.train_vocoder(voc["params"], VocoderDataset(voc["batch"]),
+                          voc["cfg"], steps_per_epoch=1, batch_size=2,
+                          lr=1e-4, **kw)
+out["train_vocoder"] = (info["step"], tree_leaves(p))
+torch.save(out, os.path.join({d!r}, f"rank{{mesh.rank}}.pt"))
+dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_loops(tmp_path_factory):
+    """Two gloo ranks as a (1, 2) ("data", "model") mesh, each running one
+    step of the three loops (started by the port's launcher); the inputs
+    and both ranks' (step, returned parameters)."""
+    from autovc_tpu_torch.utils import launcher
+    d = tmp_path_factory.mktemp("mesh_loops")
+    rng = np.random.default_rng(7)
+    gen = torch.Generator().manual_seed(7)
+    wcfg = TWCfg().with_overrides(res_blocks=2, rnn_dims=16, fc_dims=16,
+                                  compute_dims=8, res_out_dims=16)
+    F = 2 + 2 * wcfg.pad
+    x_in = rng.uniform(-1, 1, (2, 2 * wcfg.total_scale)).astype(np.float32)
+    inputs = {
+        "train_autoencoder": {
+            "cfg": TCfg().with_overrides(**SMALL),
+            "params": TAE.init(gen, TCfg().with_overrides(**SMALL)),
+            "x": rng.random((2, 80, 32), dtype=np.float32),
+            "c": rng.random((2, 256), dtype=np.float32)},
+        "train_speaker_encoder": {
+            "cfg": TSECfg(), "params": TSE.init(gen, TSECfg()),
+            "block": rng.random((2, 2, 24, 40), dtype=np.float32)},
+        "train_vocoder": {
+            "cfg": wcfg, "params": TWR.init(gen, wcfg),
+            "batch": (x_in, np.roll(x_in, -1, 1),
+                      rng.random((2, 80, F), dtype=np.float32))},
+    }
+    torch.save(inputs, str(d / "inputs.pt"))
+    script = d / "mesh_loops.py"
+    script.write_text(_MESH_LOOPS.format(tests=TESTS, d=str(d)))
+    res = launcher.launch_local_multiprocess(str(script), 2, device="cpu",
+                                             timeout=240)
+    assert all(rc == 0 for rc, _ in res), [out[-3000:] for _, out in res]
+    return inputs, [torch.load(str(d / f"rank{r}.pt"), weights_only=False)
+                    for r in range(2)]
+
+
 @pytest.mark.parametrize("loop", ["train_autoencoder",
                                   "train_speaker_encoder", "train_vocoder"])
-def test_mesh_loops_name_their_roadmap_item(loop):
-    """The data-parallel loops run over a mesh; a 'model' axis larger
-    than 1 (tensor parallelism, not computed by the port) is refused with
-    the ROADMAP item that ports it, before any parameter or batch is
-    touched."""
-    from autovc_tpu_torch.config import (AutoEncoderConfig,
-                                         SpeakerEncoderConfig, WaveRNNConfig)
-    from autovc_tpu_torch.parallel import sharding as shd
-    cfg = {"train_autoencoder": AutoEncoderConfig(),
-           "train_speaker_encoder": SpeakerEncoderConfig(),
-           "train_vocoder": WaveRNNConfig()}[loop]
-    mesh = shd.make_mesh((1, 2), ("data", "model"),
-                         devices=[torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP, Queue 1, tensor-parallel"):
-        getattr(TL, loop)(None, None, cfg, mesh=mesh)
+def test_mesh_loops_name_their_roadmap_item(mesh_loops, loop):
+    """Each loop runs a step on a (1, 2) ("data", "model") mesh (tensor
+    parallelism, ROADMAP Queue 1 item 9b) and returns the full tree: the
+    shapes of the tree it was given, the same on both ranks, within 3 lr
+    of the one-process step (Adam moves a weight by about lr a step)."""
+    inputs, ranks = mesh_loops
+    inp = inputs[loop]
+    kw = dict(n_epochs=1, model_name="", verbose=False)
+    params = tree_clone(inp["params"])
+    if loop == "train_autoencoder":
+        ref, _, info = TL.train_autoencoder(
+            params, ArrayDataset(inp["x"], inp["c"]), inp["cfg"],
+            batch_size=2, precision="f32", opt_overrides={"lr": 1e-4}, **kw)
+        lr = 1e-4
+    elif loop == "train_speaker_encoder":
+        ref, info = TL.train_speaker_encoder(
+            params, BlockDataset(inp["block"]), inp["cfg"],
+            steps_per_epoch=1, **kw)
+        lr = inp["cfg"].optimizer.lr
+    else:
+        ref, info = TL.train_vocoder(
+            params, VocoderDataset(inp["batch"]), inp["cfg"],
+            steps_per_epoch=1, batch_size=2, lr=1e-4, **kw)
+        lr = 1e-4
+    ref = tree_leaves(ref)
+    for out in ranks:
+        step, got = out[loop]
+        assert step == info["step"] == 1
+        assert [g.shape for g in got] == [r.shape for r in ref]
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), r.numpy(), atol=3 * lr,
+                                       rtol=0)
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0][loop][1],
+                                                  ranks[1][loop][1]))
