@@ -1,0 +1,11 @@
+"""audio_ms.convert: host audio: the preprocessing and the outprocessing, ms a request: ``convert``'s synchronised
+stage walls (``VoiceConverter.stage_times``) of the traced window's
+requests, summed over preprocess, outprocess, over the requests."""
+
+STAGES = ('preprocess', 'outprocess')
+
+
+def read(r):
+    if not r.stage_ms or not all(s in r.stage_ms for s in STAGES):
+        return None
+    return sum(r.stage_ms[s] for s in STAGES)

@@ -1,0 +1,11 @@
+"""vocoder_ms.convert: the vocoder, ms a request: ``convert``'s synchronised
+stage walls (``VoiceConverter.stage_times``) of the traced window's
+requests, summed over vocoder, over the requests."""
+
+STAGES = ('vocoder',)
+
+
+def read(r):
+    if not r.stage_ms or not all(s in r.stage_ms for s in STAGES):
+        return None
+    return sum(r.stage_ms[s] for s in STAGES)
