@@ -27,6 +27,12 @@ utterance, joins all utterances' fold rows, samples them in slabs of at
 most ``_MAX_SLAB_ROWS`` rows (one kernel-1 pass a slab) and finishes each
 utterance into one flat int16 array (:func:`_finish_many`).
 
+Both programs are spans of :mod:`autovc_tpu_torch.utils.profiling`:
+``vocoder/condition``, ``vocoder/sample`` (one a sampling pass) and
+``vocoder/finish``; the counters ``k1.row_steps`` (rows x steps of each
+pass, padding rows included) and ``k1.samples`` (the samples returned)
+give the sampling loop's useful share.
+
 ``auto_target`` picks the fold length (:func:`auto_fold_target`) with the
 JAX package's wall model over kernel 1's time a step measured on an H100
 (``_ROWS_US``).
@@ -56,7 +62,7 @@ from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops import rnn as R
 from autovc_tpu_torch.ops import wavernn_kernels as WK
 from autovc_tpu_torch.parallel import tensor as TP
-from autovc_tpu_torch.utils import resolve_device
+from autovc_tpu_torch.utils import profiling, resolve_device
 
 Params = Dict[str, Any]
 
@@ -450,17 +456,33 @@ def _generate_program(params: Params, mel: torch.Tensor,
     ``packed``: the loop's weights from ``wavernn_kernels.pack_weights``
     (built per call when None)."""
     wave_len = (mel.shape[-1] - 1) * cfg.hop_length
-    mel_rows, aux_rows = _prepare_frame_conditioning(
-        params, mel, cfg, target, overlap, batched)
-    n_folds = mel_rows.shape[0]
-    bucket = _row_bucket(n_folds)
-    if bucket != n_folds:
-        mel_rows = F.pad(mel_rows, (0, 0, 0, 0, 0, bucket - n_folds))
-        aux_rows = F.pad(aux_rows, (0, 0, 0, 0, 0, bucket - n_folds))
-    samples = WK.generate_rows(params, mel_rows, aux_rows, cfg, fast_math,
-                               generator, packed)
-    return _finish(samples[:n_folds], overlap, wave_len, cfg.hop_length,
-                   batched, mu_law, cfg.n_classes)
+    with profiling.span("vocoder/condition"):
+        mel_rows, aux_rows = _prepare_frame_conditioning(
+            params, mel, cfg, target, overlap, batched)
+        n_folds = mel_rows.shape[0]
+        bucket = _row_bucket(n_folds)
+        if bucket != n_folds:
+            mel_rows = F.pad(mel_rows, (0, 0, 0, 0, 0, bucket - n_folds))
+            aux_rows = F.pad(aux_rows, (0, 0, 0, 0, 0, bucket - n_folds))
+    samples = _sample(params, mel_rows, aux_rows, cfg, fast_math, generator,
+                      packed)
+    profiling.count("k1.samples", wave_len)
+    with profiling.span("vocoder/finish"):
+        return _finish(samples[:n_folds], overlap, wave_len, cfg.hop_length,
+                       batched, mu_law, cfg.n_classes)
+
+
+def _sample(params: Params, mel_rows: torch.Tensor, aux_rows: torch.Tensor,
+            cfg: WaveRNNConfig, fast_math: bool,
+            generator: torch.Generator | None, packed) -> torch.Tensor:
+    """One pass of the sampling loop (``WK.generate_rows``) as span
+    ``vocoder/sample``, counting its rows x steps (padding rows included)
+    under ``k1.row_steps``."""
+    with profiling.span("vocoder/sample"):
+        samples = WK.generate_rows(params, mel_rows, aux_rows, cfg,
+                                   fast_math, generator, packed)
+    profiling.count("k1.row_steps", samples.shape[0] * samples.shape[1])
+    return samples
 
 
 def generate(params: Params, mel, cfg: WaveRNNConfig = WaveRNNConfig(),
@@ -514,44 +536,46 @@ def _generate_many_program(params: Params, mels: tuple,
     ``n_slabs x SLAB`` rows, one sampling pass a slab (the noise drawn slab
     by slab from ``generator``), then :func:`_finish_many`: the flat int16
     PCM of every utterance."""
-    aux_all = None
-    if len(mels) > 1:
-        Fmax = max(int(m.shape[-1]) for m in mels)
-        stacked = torch.cat([F.pad(m, (0, Fmax - m.shape[-1]))
-                             for m in mels], dim=0)
-        aux_all = _mel_resnet(params["upsample"]["resnet"],
-                              pad_mel(stacked, cfg.pad))
-    conds, auxs, counts, wave_lens = [], [], [], []
-    for u, mel in enumerate(mels):
-        wave_lens.append((int(mel.shape[-1]) - 1) * cfg.hop_length)
-        aux_pre = (None if aux_all is None
-                   else aux_all[u:u + 1, :, :mel.shape[-1]])
-        cond, aux = _prepare_frame_conditioning(
-            params, mel, cfg, target, overlap, True, aux_pre)
-        conds.append(cond)
-        auxs.append(aux)
-        counts.append(int(cond.shape[0]))
-    cond = torch.cat(conds, dim=0)
-    aux = torch.cat(auxs, dim=0)
-    total_folds = int(cond.shape[0])
-
     slab_rows = _MAX_SLAB_ROWS if slab_rows is None else slab_rows
     if not (slab_rows > 0 and slab_rows % 8 == 0):
         raise ValueError(f"slab_rows must be a positive multiple of 8, "
                          f"got {slab_rows}")
-    SLAB = min(slab_rows, _row_bucket(total_folds))
-    n_slabs = max(1, -(-total_folds // SLAB))
-    padded = n_slabs * SLAB
-    if padded != total_folds:
-        cond = F.pad(cond, (0, 0, 0, 0, 0, padded - total_folds))
-        aux = F.pad(aux, (0, 0, 0, 0, 0, padded - total_folds))
-    slab_outs = [WK.generate_rows(params, cond[s * SLAB:(s + 1) * SLAB],
-                                  aux[s * SLAB:(s + 1) * SLAB], cfg,
-                                  fast_math, generator, packed)
+    with profiling.span("vocoder/condition"):
+        aux_all = None
+        if len(mels) > 1:
+            Fmax = max(int(m.shape[-1]) for m in mels)
+            stacked = torch.cat([F.pad(m, (0, Fmax - m.shape[-1]))
+                                 for m in mels], dim=0)
+            aux_all = _mel_resnet(params["upsample"]["resnet"],
+                                  pad_mel(stacked, cfg.pad))
+        conds, auxs, counts, wave_lens = [], [], [], []
+        for u, mel in enumerate(mels):
+            wave_lens.append((int(mel.shape[-1]) - 1) * cfg.hop_length)
+            aux_pre = (None if aux_all is None
+                       else aux_all[u:u + 1, :, :mel.shape[-1]])
+            cond, aux = _prepare_frame_conditioning(
+                params, mel, cfg, target, overlap, True, aux_pre)
+            conds.append(cond)
+            auxs.append(aux)
+            counts.append(int(cond.shape[0]))
+        cond = torch.cat(conds, dim=0)
+        aux = torch.cat(auxs, dim=0)
+        total_folds = int(cond.shape[0])
+        SLAB = min(slab_rows, _row_bucket(total_folds))
+        n_slabs = max(1, -(-total_folds // SLAB))
+        padded = n_slabs * SLAB
+        if padded != total_folds:
+            cond = F.pad(cond, (0, 0, 0, 0, 0, padded - total_folds))
+            aux = F.pad(aux, (0, 0, 0, 0, 0, padded - total_folds))
+    slab_outs = [_sample(params, cond[s * SLAB:(s + 1) * SLAB],
+                         aux[s * SLAB:(s + 1) * SLAB], cfg, fast_math,
+                         generator, packed)
                  for s in range(n_slabs)]
-    samples = torch.cat(slab_outs, dim=0)[:total_folds]
-    return _finish_many(samples, tuple(counts), tuple(wave_lens), overlap,
-                        cfg.hop_length)
+    profiling.count("k1.samples", sum(wave_lens))
+    with profiling.span("vocoder/finish"):
+        samples = torch.cat(slab_outs, dim=0)[:total_folds]
+        return _finish_many(samples, tuple(counts), tuple(wave_lens),
+                            overlap, cfg.hop_length)
 
 
 def generate_many(params: Params, mels, cfg: WaveRNNConfig = WaveRNNConfig(),

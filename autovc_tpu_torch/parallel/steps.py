@@ -60,7 +60,8 @@ from autovc_tpu_torch.parallel import sharding as shd
 from autovc_tpu_torch.parallel import streams as ST
 from autovc_tpu_torch.parallel import tensor as TP
 from autovc_tpu_torch.train import loop as L
-from autovc_tpu_torch.utils import resolve_device, tree_leaves, tree_unflatten
+from autovc_tpu_torch.utils import (profiling, resolve_device, tree_leaves,
+                                    tree_unflatten)
 
 
 def initialize_distributed(coordinator_address: str | None = None,
@@ -157,24 +158,25 @@ def make_sharded_ae_step(cfg, tx, ema_decay: float, mesh: shd.Mesh,
     specs = full_specs(mesh, AE.init, cfg)
 
     def step(params, opt_state, ema, x, c_org):
-        x, c_org = L._on_device(params, x, c_org)
-        model = _tensor_parallel(mesh, specs, params)
-        terms = {}
+        with profiling.call():
+            x, c_org = L._on_device(params, x, c_org)
+            model = _tensor_parallel(mesh, specs, params)
+            terms = {}
 
-        def share(p):
-            value, out = AE.loss(p, x, c_org, cfg, mode=precision,
-                                 group=group, model=model)
-            terms.update(out)
-            return value / n
+            def share(p):
+                value, out = AE.loss(p, x, c_org, cfg, mode=precision,
+                                     group=group, model=model)
+                terms.update(out)
+                return value / n
 
-        _, grads = L._value_and_grads(params, share)
-        aux = _sum_over_ranks(grads, {k: v / n for k, v in terms.items()},
-                              group)
-        if with_grads:
-            aux["grads"] = _grads_tree(params, grads, specs, mesh)
-        aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state,
-                                   model)
-        L.ema_update(ema, params, ema_decay)
+            _, grads = L._value_and_grads(params, share)
+            aux = _sum_over_ranks(
+                grads, {k: v / n for k, v in terms.items()}, group)
+            if with_grads:
+                aux["grads"] = _grads_tree(params, grads, specs, mesh)
+            aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state,
+                                       model)
+            L.ema_update(ema, params, ema_decay)
         return params, opt_state, ema, aux
 
     return step
@@ -195,27 +197,28 @@ def make_sharded_se_step(cfg, tx, mesh: shd.Mesh,
     specs = full_specs(mesh, SE.init, cfg)
 
     def step(params, opt_state, block):
-        model = _tensor_parallel(mesh, specs, params)
-        if model is None:
-            L.check_se_depth(params)
-        block, = L._on_device(params, block)
-        S, U, T, M = block.shape
+        with profiling.call():
+            model = _tensor_parallel(mesh, specs, params)
+            if model is None:
+                L.check_se_depth(params)
+            block, = L._on_device(params, block)
+            S, U, T, M = block.shape
 
-        def share(p):
-            emb = SE._forward_train(p, block.reshape(S * U, T, M),
-                                    precision, model).reshape(S, U, -1)
-            return SE.ge2e_loss(p, COL.all_gather(emb, group)) / n
+            def share(p):
+                emb = SE._forward_train(p, block.reshape(S * U, T, M),
+                                        precision, model).reshape(S, U, -1)
+                return SE.ge2e_loss(p, COL.all_gather(emb, group)) / n
 
-        value, grads = L._value_and_grads(params, share)
-        aux = _sum_over_ranks(grads, {"loss": value}, group)
-        scaled = {id(params["similarity_weight"]),
-                  id(params["similarity_bias"])}
-        leaves = tree_leaves(params)
-        grads = [g * 0.01 if id(p) in scaled else g
-                 for p, g in zip(leaves, grads)]
-        if with_grads:
-            aux["grads"] = _grads_tree(params, grads, specs, mesh)
-        aux["grad_norm"] = tx.step(leaves, grads, opt_state, model)
+            value, grads = L._value_and_grads(params, share)
+            aux = _sum_over_ranks(grads, {"loss": value}, group)
+            scaled = {id(params["similarity_weight"]),
+                      id(params["similarity_bias"])}
+            leaves = tree_leaves(params)
+            grads = [g * 0.01 if id(p) in scaled else g
+                     for p, g in zip(leaves, grads)]
+            if with_grads:
+                aux["grads"] = _grads_tree(params, grads, specs, mesh)
+            aux["grad_norm"] = tx.step(leaves, grads, opt_state, model)
         return params, opt_state, aux
 
     return step
@@ -233,16 +236,17 @@ def make_sharded_vocoder_step(cfg, tx, mesh: shd.Mesh,
     specs = full_specs(mesh, WR.init, cfg)
 
     def step(params, opt_state, x_in, y, mels):
-        x_in, y, mels = L._on_device(params, x_in, y, mels)
-        model = _tensor_parallel(mesh, specs, params)
-        value, grads = L._value_and_grads(params, lambda p: WR.loss(
-            p, x_in, y, mels, cfg, train=True, mode=precision,
-            group=group, model=model) / n)
-        aux = _sum_over_ranks(grads, {"loss": value}, group)
-        if with_grads:
-            aux["grads"] = _grads_tree(params, grads, specs, mesh)
-        aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state,
-                                   model)
+        with profiling.call():
+            x_in, y, mels = L._on_device(params, x_in, y, mels)
+            model = _tensor_parallel(mesh, specs, params)
+            value, grads = L._value_and_grads(params, lambda p: WR.loss(
+                p, x_in, y, mels, cfg, train=True, mode=precision,
+                group=group, model=model) / n)
+            aux = _sum_over_ranks(grads, {"loss": value}, group)
+            if with_grads:
+                aux["grads"] = _grads_tree(params, grads, specs, mesh)
+            aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state,
+                                       model)
         return params, opt_state, aux
 
     return step

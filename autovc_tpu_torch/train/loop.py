@@ -36,6 +36,11 @@ takes part in ``parallel.sharding.gather_params``, so that rank 0 writes
 and logs the full tree: the checkpoint has the one-process layout, and a
 resume loads the full tree and shards it.  The loops return the full
 trees.
+
+Every step is one call of :mod:`autovc_tpu_torch.utils.profiling` with the
+spans ``train/forward`` and ``train/backward`` (:func:`_value_and_grads`),
+``train/optimizer`` (``schedules.Optimizer.step``) and, for the generator,
+``train/ema`` (:func:`ema_update`).
 """
 from __future__ import annotations
 
@@ -52,8 +57,8 @@ from autovc_tpu_torch.ops import lstm_train_kernels as LT
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.parallel import sharding as shd
 from autovc_tpu_torch.train import schedules
-from autovc_tpu_torch.utils import (close_progbar, progbar, tree_clone,
-                                    tree_leaves, tree_unflatten)
+from autovc_tpu_torch.utils import (close_progbar, profiling, progbar,
+                                    tree_clone, tree_leaves, tree_unflatten)
 from autovc_tpu_torch.utils.bridge import from_jax_params
 from autovc_tpu_torch.utils.checkpoint import (latest_checkpoint,
                                                load_checkpoint,
@@ -64,8 +69,9 @@ from autovc_tpu_torch.utils.checkpoint import (latest_checkpoint,
 @torch.no_grad()
 def ema_update(ema, params, decay: float):
     """``e = decay * e + (1 - decay) * p`` for every leaf, in place."""
-    for e, p in zip(tree_leaves(ema), tree_leaves(params)):
-        e.copy_(decay * e + (1.0 - decay) * p)
+    with profiling.span("train/ema"):
+        for e, p in zip(tree_leaves(ema), tree_leaves(params)):
+            e.copy_(decay * e + (1.0 - decay) * p)
     return ema
 
 
@@ -77,8 +83,10 @@ def _value_and_grads(params, fn):
     for p in leaves:
         p.requires_grad_(True)
     try:
-        value = fn(params)
-        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+        with profiling.span("train/forward"):
+            value = fn(params)
+        with profiling.span("train/backward"):
+            grads = torch.autograd.grad(value, leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -127,11 +135,12 @@ def make_ae_step(cfg: AutoEncoderConfig, tx: schedules.Optimizer,
     precision = precision or cfg.learn.precision
 
     def step(params, opt_state, ema, x, c_org):
-        aux, grads = loss_and_grads(params, x, c_org, cfg, precision)
-        if with_grads:
-            aux["grads"] = tree_unflatten(params, grads)
-        aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state)
-        ema_update(ema, params, ema_decay)
+        with profiling.call():
+            aux, grads = loss_and_grads(params, x, c_org, cfg, precision)
+            if with_grads:
+                aux["grads"] = tree_unflatten(params, grads)
+            aux["grad_norm"] = tx.step(tree_leaves(params), grads, opt_state)
+            ema_update(ema, params, ema_decay)
         return params, opt_state, ema, aux
 
     return step
@@ -393,13 +402,14 @@ def make_se_step(cfg: SpeakerEncoderConfig, tx: schedules.Optimizer,
     precision = precision or cfg.learn.precision
 
     def step(params, opt_state, batch):
-        loss, grads = se_loss_and_grads(params, batch, precision)
-        scaled = {id(params["similarity_weight"]),
-                  id(params["similarity_bias"])}
-        leaves = tree_leaves(params)
-        grads = [g * 0.01 if id(p) in scaled else g
-                 for p, g in zip(leaves, grads)]
-        grad_norm = tx.step(leaves, grads, opt_state)
+        with profiling.call():
+            loss, grads = se_loss_and_grads(params, batch, precision)
+            scaled = {id(params["similarity_weight"]),
+                      id(params["similarity_bias"])}
+            leaves = tree_leaves(params)
+            grads = [g * 0.01 if id(p) in scaled else g
+                     for p, g in zip(leaves, grads)]
+            grad_norm = tx.step(leaves, grads, opt_state)
         return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
 
     return step
@@ -576,9 +586,10 @@ def make_vocoder_step(cfg: WaveRNNConfig, tx: schedules.Optimizer,
     recurrence policy; parameters, gradients and Adam moments stay f32."""
 
     def step(params, opt_state, x_in, y, mels):
-        loss, grads = vocoder_loss_and_grads(params, x_in, y, mels, cfg,
-                                             precision)
-        grad_norm = tx.step(tree_leaves(params), grads, opt_state)
+        with profiling.call():
+            loss, grads = vocoder_loss_and_grads(params, x_in, y, mels, cfg,
+                                                 precision)
+            grad_norm = tx.step(tree_leaves(params), grads, opt_state)
         return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
 
     return step

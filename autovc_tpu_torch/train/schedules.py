@@ -33,6 +33,7 @@ import torch
 
 from autovc_tpu_torch.config import OptimizerConfig
 from autovc_tpu_torch.parallel import collectives as COL
+from autovc_tpu_torch.utils import profiling
 
 
 def noam_schedule(base_lr: float, dim_model: int, n_warmup_steps: int):
@@ -117,22 +118,24 @@ class Optimizer:
              model=None) -> torch.Tensor:
         """One update of ``params`` (in place) and ``state``; returns the
         global norm of ``grads`` before clipping (``model``: module
-        docstring)."""
-        grad_norm = self.global_norm(params, grads, model)
-        grads = self.clip(grads, grad_norm)
-        count = state["count"] + 1
-        lr = self.schedule(state["count"])
-        dev = grads[0].device
-        bc1 = 1 - torch.tensor(self.b1, device=dev) ** count
-        bc2 = 1 - torch.tensor(self.b2, device=dev) ** count
-        for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            mu.copy_((1 - self.b1) * g + self.b1 * mu)
-            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            p.add_(torch.tensor(-lr, dtype=u.dtype, device=dev) * u)
-        state["count"] = count
+        docstring).  It is span ``train/optimizer`` of
+        :mod:`autovc_tpu_torch.utils.profiling`."""
+        with profiling.span("train/optimizer"):
+            grad_norm = self.global_norm(params, grads, model)
+            grads = self.clip(grads, grad_norm)
+            count = state["count"] + 1
+            lr = self.schedule(state["count"])
+            dev = grads[0].device
+            bc1 = 1 - torch.tensor(self.b1, device=dev) ** count
+            bc2 = 1 - torch.tensor(self.b2, device=dev) ** count
+            for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+                mu.copy_((1 - self.b1) * g + self.b1 * mu)
+                nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                if self.weight_decay:
+                    u = u + self.weight_decay * p
+                p.add_(torch.tensor(-lr, dtype=u.dtype, device=dev) * u)
+            state["count"] = count
         return grad_norm
 
 

@@ -24,10 +24,15 @@ one sampling loop (``wavernn.generate_many``).  The kernels' packed
 weights (decoder lstm2, the vocoder loop) are built at construction and
 rebuilt by ``_pack_weights`` wherever training changes the parameters.
 
-Each stage of ``convert`` is a ``torch.profiler`` range named
-``convert/<stage>``.  Setting ``stage_times`` to a dict makes ``convert``
-synchronise the device around each stage and record its wall seconds
-there (for a breakdown; it adds the synchronisations).
+Each stage of ``convert`` is a span of :mod:`autovc_tpu_torch.utils.profiling`
+named ``convert/<stage>`` (preprocess, embed_source, embed_target, mel,
+autoencoder, vocoder, download, outprocess); ``convert_batch``'s are
+``convert_batch/<stage>`` (target, preprocess with a ``convert_batch/load``
+child per source, mel, embed, autoencoder, vocoder, outprocess; on the
+pipeline path ``convert_batch/pipeline`` in place of autoencoder and
+vocoder).  Setting ``stage_times`` to a dict makes ``convert`` record its
+spans (in the active recording, else in one of its own) and write each
+stage's critical-path seconds there, with no synchronise.
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ from autovc_tpu_torch.models import LoadedModel, load_model, save_model
 from autovc_tpu_torch.ops import lstm_kernels as LK
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops import wavernn_kernels as WK
-from autovc_tpu_torch.utils import resolve_device, retrieve_file_paths
+from autovc_tpu_torch.utils import (profiling, resolve_device,
+                                    retrieve_file_paths)
 from autovc_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -130,21 +136,6 @@ class VoiceConverter:
                 self.vocoder.params, self.vocoder.config,
                 self.vocoder_precision == "bf16")
 
-    @contextlib.contextmanager
-    def _stage(self, name: str):
-        """One named stage of ``convert`` (see the module docstring)."""
-        with torch.profiler.record_function(f"convert/{name}"):
-            if self.stage_times is None:
-                yield
-                return
-            sync = (torch.cuda.synchronize if self.device.type == "cuda"
-                    else (lambda: None))
-            sync()
-            t0 = time.perf_counter()
-            yield
-            sync()
-            self.stage_times[name] = time.perf_counter() - t0
-
     @property
     def speakers(self) -> Dict[str, np.ndarray]:
         """Mean-speaker embedding registry (rides in the SE checkpoint)."""
@@ -220,10 +211,10 @@ class VoiceConverter:
                   if g.auto_target else g.target)
         mu_law = g.mu_law and wr_cfg.mode == "RAW"
         with torch.inference_mode():
-            with self._stage("mel"):
+            with profiling.span("convert/mel"):
                 wav_i16 = torch.from_numpy(MEL.pcm16_quantise(wav_p)).to(dev)
                 chunks = MEL._slice_mel(wav_i16, mel_cfg, starts, N)
-            with self._stage("autoencoder"):
+            with profiling.span("convert/autoencoder"):
                 c_src = torch.as_tensor(np.asarray(c_source, np.float32),
                                         device=dev)
                 c_trg = torch.as_tensor(np.asarray(c_target, np.float32),
@@ -241,14 +232,14 @@ class VoiceConverter:
                         ae_params, padded, c_src, c_trg, M, ae_cfg, overlap,
                         self.ae_precision, mesh, lstm2_packed)
                     post = post[:, :total_frames].to(dev)
-            with self._stage("vocoder"):
+            with profiling.span("convert/vocoder"):
                 gen = torch.Generator(device=dev).manual_seed(seed)
                 out = WRm._generate_program(
                     self.vocoder.params, post[None], gen, wr_cfg, target,
                     g.overlap, g.batched, mu_law,
                     self.vocoder_precision == "bf16", self._vocoder_packed)
                 pcm = WRm._pcm16(out)
-            with self._stage("download"):
+            with profiling.span("convert/download"):
                 return pcm.cpu().numpy().astype(np.float32) / 32767.0
 
     def _unchunked_convert(self, wav, c_source, c_target, ae_cfg, seed,
@@ -262,10 +253,10 @@ class VoiceConverter:
 
         dev = self.device
         with torch.inference_mode():
-            with self._stage("mel"):
+            with profiling.span("convert/mel"):
                 mel = dsp.mel_spec_auto_encoder(wav, ae_cfg.spectrogram)
                 mel = torch.from_numpy(np.asarray(mel, np.float32)).to(dev)
-            with self._stage("autoencoder"):
+            with profiling.span("convert/autoencoder"):
                 post = AEm.infer(
                     ae_params, mel[None],
                     torch.as_tensor(np.asarray(c_source, np.float32),
@@ -273,7 +264,7 @@ class VoiceConverter:
                     torch.as_tensor(np.asarray(c_target, np.float32),
                                     device=dev),
                     ae_cfg, self.ae_precision, lstm2_packed)
-            with self._stage("vocoder"):
+            with profiling.span("convert/vocoder"):
                 return WRm.generate(
                     self.vocoder.params, post, self.vocoder.config,
                     torch.Generator(device=dev).manual_seed(seed),
@@ -293,7 +284,7 @@ class VoiceConverter:
         n = int(mesh.shape["data"])
         dev0 = mesh.devices[0]
         with torch.inference_mode():
-            with self._stage("mel"):
+            with profiling.span("convert/mel"):
                 mel = dsp.mel_spec_auto_encoder(wav, ae_cfg.spectrogram)
                 Tn = (mel.shape[-1] // n) * n
                 if Tn == 0:
@@ -301,7 +292,7 @@ class VoiceConverter:
                                      f"devices ({mel.shape[-1]} mel frames)")
                 x = torch.from_numpy(np.ascontiguousarray(
                     mel[None, :, :Tn], np.float32)).to(dev0)
-            with self._stage("autoencoder"):
+            with profiling.span("convert/autoencoder"):
                 post = pring.ring_autovc_infer(
                     ae_params, x,
                     torch.as_tensor(np.asarray(c_source, np.float32),
@@ -309,7 +300,7 @@ class VoiceConverter:
                     torch.as_tensor(np.asarray(c_target, np.float32),
                                     device=dev0),
                     ae_cfg, mesh, "data", self.ae_precision)
-            with self._stage("vocoder"):
+            with profiling.span("convert/vocoder"):
                 return WRm.generate(
                     self.vocoder.params, post.to(self.device),
                     self.vocoder.config,
@@ -381,57 +372,63 @@ class VoiceConverter:
             print(f"Converting '{source}' -> '{target}'...")
         t0 = time.time()
 
-        with self._stage("preprocess"):
-            audio_src = (Audio(source, sr) if isinstance(source, str)
-                         else source)
-            audio_src.preprocess(*preprocess, **preprocess_args)
-        true_samples = len(audio_src.wav)
-        if pad_to_seconds:
-            bucket = int(round(pad_to_seconds * audio_src.sr))
-            pad = (-len(audio_src.wav)) % bucket
-            if pad:
-                audio_src.wav = np.pad(audio_src.wav, (0, pad))
-        with self._stage("embed_source"):
-            c_source = self._embed(audio_src)[None]
-        with self._stage("embed_target"):
-            c_target = self._speaker_embedding(target, preprocess,
-                                               preprocess_args, sr)[None]
-        ae_cfg = self.AE.config
-        if partial_frames is not None:
-            if partial_frames < ae_cfg.freq:
-                raise ValueError(
-                    f"partial_frames must be >= the encoder's downsampling "
-                    f"freq ({ae_cfg.freq}): shorter chunks produce no "
-                    f"forward content codes")
-            ae_cfg = ae_cfg.with_overrides(
-                spectrogram={"partial_utterance_n_frames": partial_frames})
-        mel_cfg = ae_cfg.spectrogram
-        ae_params = self._ae_params(use_ema)
-        lstm2_packed = None if use_ema else self._lstm2_packed
-        if parallel == "ring":
-            waveform = self._ring_convert(audio_src.wav, c_source, c_target,
-                                          ae_cfg, seed, ae_params, mesh)
-        elif cut:
-            waveform = self._fused_convert(
-                audio_src.wav, c_source, c_target, ae_cfg, overlap, seed,
-                ae_params, lstm2_packed,
-                mesh if parallel == "chunks" else None)
-        else:
-            waveform = self._unchunked_convert(
-                audio_src.wav, c_source, c_target, ae_cfg, seed, ae_params,
-                lstm2_packed)
-        if pad_to_seconds:
-            # keep exactly the span the unpadded slice set gives
-            _, true_slices = dsp.compute_partial_slices(
-                true_samples, mel_cfg.sr,
-                partial_utterance_n_frames=mel_cfg.partial_utterance_n_frames,
-                overlap=overlap, mel_window_step=mel_cfg.mel_window_step)
-            waveform = waveform[:(true_slices[-1].stop - 1)
-                                * mel_cfg.hop_length]
+        timed = self.stage_times is not None
+        with (profiling.recording() if timed else contextlib.nullcontext()
+              ) as rec, profiling.call() as call:
+            with profiling.span("convert/preprocess"):
+                audio_src = (Audio(source, sr) if isinstance(source, str)
+                             else source)
+                audio_src.preprocess(*preprocess, **preprocess_args)
+            true_samples = len(audio_src.wav)
+            if pad_to_seconds:
+                bucket = int(round(pad_to_seconds * audio_src.sr))
+                pad = (-len(audio_src.wav)) % bucket
+                if pad:
+                    audio_src.wav = np.pad(audio_src.wav, (0, pad))
+            with profiling.span("convert/embed_source"):
+                c_source = self._embed(audio_src)[None]
+            with profiling.span("convert/embed_target"):
+                c_target = self._speaker_embedding(target, preprocess,
+                                                   preprocess_args, sr)[None]
+            ae_cfg = self.AE.config
+            if partial_frames is not None:
+                if partial_frames < ae_cfg.freq:
+                    raise ValueError(
+                        f"partial_frames must be >= the encoder's "
+                        f"downsampling freq ({ae_cfg.freq}): shorter chunks "
+                        f"produce no forward content codes")
+                ae_cfg = ae_cfg.with_overrides(
+                    spectrogram={"partial_utterance_n_frames": partial_frames})
+            mel_cfg = ae_cfg.spectrogram
+            ae_params = self._ae_params(use_ema)
+            lstm2_packed = None if use_ema else self._lstm2_packed
+            if parallel == "ring":
+                waveform = self._ring_convert(audio_src.wav, c_source,
+                                              c_target, ae_cfg, seed,
+                                              ae_params, mesh)
+            elif cut:
+                waveform = self._fused_convert(
+                    audio_src.wav, c_source, c_target, ae_cfg, overlap, seed,
+                    ae_params, lstm2_packed,
+                    mesh if parallel == "chunks" else None)
+            else:
+                waveform = self._unchunked_convert(
+                    audio_src.wav, c_source, c_target, ae_cfg, seed, ae_params,
+                    lstm2_packed)
+            if pad_to_seconds:
+                # keep exactly the span the unpadded slice set gives
+                _, true_slices = dsp.compute_partial_slices(
+                    true_samples, mel_cfg.sr, partial_utterance_n_frames=(
+                        mel_cfg.partial_utterance_n_frames),
+                    overlap=overlap, mel_window_step=mel_cfg.mel_window_step)
+                waveform = waveform[:(true_slices[-1].stop - 1)
+                                    * mel_cfg.hop_length]
 
-        with self._stage("outprocess"):
-            audio_out = Audio(waveform, sr=sr, sr_org=mel_cfg.sr)
-            audio_out.preprocess(*outprocess, **outprocess_args)
+            with profiling.span("convert/outprocess"):
+                audio_out = Audio(waveform, sr=sr, sr_org=mel_cfg.sr)
+                audio_out.preprocess(*outprocess, **outprocess_args)
+            if timed:
+                self.stage_times.update(rec.seconds(call, "convert/"))
         if self.verbose:
             dur = len(audio_out.wav) / audio_out.sr
             dt = time.time() - t0
@@ -506,50 +503,15 @@ class VoiceConverter:
         outprocess_args = dict(cc.outprocess_args if outprocess_args is None
                                else outprocess_args)
         sources = retrieve_file_paths(sources)
-        c_target = self._speaker_embedding(target, preprocess,
-                                           preprocess_args, sr)[None]
         ae_cfg = self.AE.config
-
-        def load(src):
-            audio = Audio(src, sr)
-            audio.preprocess(*preprocess, **preprocess_args)
-            return audio
-
-        workers = min(8, len(sources) or 1)
-        with ThreadPoolExecutor(max_workers=workers) as ex:
-            audios = list(ex.map(load, sources))
-        with torch.inference_mode():
-            all_chunks = [MEL.mel_spec_auto_encoder_sliced(
-                a.wav, ae_cfg.spectrogram, overlap=overlap, pcm16=True,
-                device=self.device)[0] for a in audios]
-            c_orgs = self._embed_many(audios)
-            lstm2_packed = None if use_ema else self._lstm2_packed
-            if parallel == "pipeline":
-                from autovc_tpu_torch.parallel import pipeline as ppipe
-                pipe = ppipe.conversion_pipeline(
-                    self._ae_params(use_ema), self.vocoder.params, ae_cfg,
-                    self.vocoder.config, devices, overlap,
-                    self.ae_precision, self.vocoder_precision == "bf16",
-                    lstm2_packed, self._vocoder_packed)
-                c_trg = torch.as_tensor(np.asarray(c_target, np.float32),
-                                        device=self.device)
-                wavs = [w.astype(np.float32) / 32767.0 for w in pipe.run(
-                    [(chunks, c_orgs[i:i + 1], c_trg, seed + i)
-                     for i, chunks in enumerate(all_chunks)])]
-            else:
-                packed, starts, lengths = AEm.batch_forward_packed(
-                    self._ae_params(use_ema), all_chunks, c_orgs, c_target,
-                    ae_cfg, overlap, self.ae_precision,
-                    lstm2_packed=lstm2_packed)
-                post_mels = [packed[:, s:s + L]
-                             for s, L in zip(starts, lengths)]
-                wavs = WRm.generate_many(
-                    self.vocoder.params, post_mels, self.vocoder.config,
-                    torch.Generator(device=self.device).manual_seed(seed),
-                    fast_math=self.vocoder_precision == "bf16",
-                    device=self.device, packed=self._vocoder_packed)
-
         trg = os.path.splitext(os.path.basename(str(target)))[0]
+        workers = min(8, len(sources) or 1)
+
+        def load(src, parent):
+            with profiling.span("convert_batch/load", parent):
+                audio = Audio(src, sr)
+                audio.preprocess(*preprocess, **preprocess_args)
+                return audio
 
         def finish(src_wav):
             src, wav = src_wav
@@ -561,8 +523,57 @@ class VoiceConverter:
                 audio_out.save(os.path.join(save_dir, f"{name}_to_{trg}.wav"))
             return audio_out
 
-        with ThreadPoolExecutor(max_workers=workers) as ex:
-            return list(ex.map(finish, zip(sources, wavs)))
+        with profiling.call():
+            with profiling.span("convert_batch/target"):
+                c_target = self._speaker_embedding(target, preprocess,
+                                                   preprocess_args, sr)[None]
+            with profiling.span("convert_batch/preprocess") as pre, \
+                    ThreadPoolExecutor(max_workers=workers) as ex:
+                audios = list(ex.map(load, sources, [pre] * len(sources)))
+            with torch.inference_mode():
+                with profiling.span("convert_batch/mel"):
+                    all_chunks = [MEL.mel_spec_auto_encoder_sliced(
+                        a.wav, ae_cfg.spectrogram, overlap=overlap,
+                        pcm16=True, device=self.device)[0] for a in audios]
+                with profiling.span("convert_batch/embed"):
+                    c_orgs = self._embed_many(audios)
+                lstm2_packed = None if use_ema else self._lstm2_packed
+                if parallel == "pipeline":
+                    from autovc_tpu_torch.parallel import pipeline as ppipe
+                    with profiling.span("convert_batch/pipeline"):
+                        pipe = ppipe.conversion_pipeline(
+                            self._ae_params(use_ema), self.vocoder.params,
+                            ae_cfg, self.vocoder.config, devices, overlap,
+                            self.ae_precision,
+                            self.vocoder_precision == "bf16", lstm2_packed,
+                            self._vocoder_packed)
+                        c_trg = torch.as_tensor(
+                            np.asarray(c_target, np.float32),
+                            device=self.device)
+                        wavs = [w.astype(np.float32) / 32767.0
+                                for w in pipe.run(
+                                    [(chunks, c_orgs[i:i + 1], c_trg,
+                                      seed + i)
+                                     for i, chunks in enumerate(all_chunks)])]
+                else:
+                    with profiling.span("convert_batch/autoencoder"):
+                        packed, starts, lengths = AEm.batch_forward_packed(
+                            self._ae_params(use_ema), all_chunks, c_orgs,
+                            c_target, ae_cfg, overlap, self.ae_precision,
+                            lstm2_packed=lstm2_packed)
+                        post_mels = [packed[:, s:s + L]
+                                     for s, L in zip(starts, lengths)]
+                    with profiling.span("convert_batch/vocoder"):
+                        wavs = WRm.generate_many(
+                            self.vocoder.params, post_mels,
+                            self.vocoder.config,
+                            torch.Generator(device=self.device).manual_seed(
+                                seed),
+                            fast_math=self.vocoder_precision == "bf16",
+                            device=self.device, packed=self._vocoder_packed)
+            with profiling.span("convert_batch/outprocess"), \
+                    ThreadPoolExecutor(max_workers=workers) as ex:
+                return list(ex.map(finish, zip(sources, wavs)))
 
     def convert_multiple(self, sources, targets,
                          match_method: str = "all_combinations",

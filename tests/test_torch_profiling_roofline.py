@@ -2,8 +2,8 @@
 package's modules: every cost model gives the JAX integers on the default
 configurations and two small ones, ``account`` / ``format_table`` give
 the JAX entries for the same peaks, ``chip_spec`` maps the three H100
-parts and refuses any other card, ``StepTimer`` does the JAX arithmetic,
-and ``trace`` writes a Chrome trace on the CPU."""
+parts and refuses any other card, and ``trace`` writes a Chrome trace on
+the CPU."""
 import json
 import os
 
@@ -12,7 +12,6 @@ import pytest
 import torch
 
 from autovc_tpu import config as JC
-from autovc_tpu.utils import profiling as JP
 from autovc_tpu.utils import roofline as JR
 from autovc_tpu_torch import config as TC
 from autovc_tpu_torch.utils import profiling as TP
@@ -123,25 +122,6 @@ def test_chip_spec_maps_the_h100_parts(name, peaks):
 def test_chip_spec_refuses_another_card(name):
     with pytest.raises(ValueError, match="no peak table"):
         TR.chip_spec(name)
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    now = [100.0]
-    monkeypatch.setattr(TP.time, "time", lambda: now[0])
-    timers = [JP.StepTimer(sr=16000, hop_length=200),
-              TP.StepTimer(sr=16000, hop_length=200)]
-    for t in timers:
-        for n in (80, 120, 40):
-            t.tick(n)
-    now[0] = 102.5
-    jm, tm = (t.metrics() for t in timers)
-    assert tm == jm == {"sec_per_step": pytest.approx(2.5 / 3),
-                        "audio_s_per_s": pytest.approx(
-                            240 * 200 / 16000 / 2.5)}
-    for t in timers:
-        t.reset()
-    assert [(t.steps, t.frames, t.sec_per_step) for t in timers] == [
-        (0, 0, 0.0)] * 2
 
 
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
