@@ -38,6 +38,13 @@
 //          block for itself, in one fixed order, so all of them pick the
 //          same samples), the Gumbel-max pick, xI, then xI @ W_ih1 and
 //          the GRU1 cell -> h1, x1                        -> counter c1
+//          Where the pick is over fc3's classes themselves (RAW) and fc3
+//          does not fit in shared memory, A's pick is split by class
+//          (the SPLIT instantiation): R1 block b holds fc3 rows of its
+//          slice_classes classes, takes every row's best of them and
+//          publishes it as one epoch-tagged 64-bit key a row (atomicMax
+//          into the two-slot key ring)                    -> counter cs
+//          then every R1 block reads the keys: each row's sample.
 //       B (R2): x1 @ W_ih2x and the GRU2 cell -> h2, x2    -> counter c2
 //       C (R1): fc1 -> x3                                  -> counter c3
 //       D (R2): fc2 -> x4                                  -> counter c4
@@ -72,8 +79,10 @@ constexpr int kMaxTaps = 9;        // W = 2J + 1 upsample taps at most
 constexpr int kWrPad = 32;         // bf16 pitch padding of resident rows
 constexpr int kWrMaxMTiles = 4;    // rows per pass <= 64
 constexpr int kWrItems = 4;        // epilogue items a thread, at most
-// arrival counters: the four stages, then the prologue's barrier
-constexpr int kC1 = 0, kC2 = 1, kC3 = 2, kC4 = 3, kCPro = 4;
+// arrival counters: the four stages, the prologue's barrier, the split
+// pick's class slices
+constexpr int kC1 = 0, kC2 = 1, kC3 = 2, kC4 = 3, kCPro = 4, kCS = 5;
+constexpr int kCounters = 6;
 
 template <typename T>
 struct WrArgs {
@@ -101,15 +110,18 @@ struct WrArgs {
   float* state;           // f32 ring: pre_I, x1, each (2, B, rd)
   T* ring;                // operand ring: h1, x1, h2, x2 (2, B, rd);
                           // x3, x4 (2, B, fc)
-  unsigned int* bar;      // (5,) arrival counters, 0 at launch
+  unsigned int* bar;      // (kCounters,) arrival counters, 0 at launch
   float* spill;           // per-row block state where it is not in shared
                           // memory: wr_spill_floats a block
+  unsigned long long* keys;   // the split pick's candidates: (2, B)
   int B, fpf, S, W, rd, fc, n_classes, nr_mix, pick_dim, raw_mode;
   // the plan
   int units, fc_units, rows, passes, resident, fc3_resident, pre_smem,
-      noise_smem, state_smem;
-  unsigned int prod[5];   // each counter's producers (arrivals an epoch)
+      noise_smem, state_smem, slice_classes;
+  unsigned int prod[kCounters];   // each counter's producers (arrivals an
+                                  // epoch)
   int mpad, g, steps, ushift, fshift;   // log2 units, log2 fc_units
+  int cbits;              // the split pick's class field: bits of n_classes - 1
 };
 
 // ---------------------------------------------------------------------------
@@ -140,14 +152,18 @@ __host__ __device__ inline size_t wr_spill_floats(int B, int u, int uf) {
   return (size_t)B * (7 * u + uf + 1);
 }
 
+// slice: the split pick's classes a block (0: each R1 block picks from
+// all of fc3; its slice then holds those fc3 rows, and its logits stay in
+// registers).
 __host__ __device__ inline WrSmem wr_smem(int B, int rd, int fc, int ncls,
                                           int pick, int u, int uf, int mpad,
                                           int bf16, int resident,
                                           int fc3_res, int pre_smem,
-                                          int noise_smem, int state_smem) {
+                                          int noise_smem, int state_smem,
+                                          int slice) {
   const int maxk = rd > fc ? rd : fc;
   const int n3 = wr_ntiles_pad(ncls);
-  const int nps[3] = {3 * u, uf, n3};
+  const int nps[3] = {3 * u, uf, slice ? uf : n3};
   size_t parts = 0;
   for (int i = 0; i < 3; ++i) {
     const int kp = bf16 ? wr_kparts(nps[i] / 8) : 1;
@@ -161,7 +177,8 @@ __host__ __device__ inline WrSmem wr_smem(int B, int rd, int fc, int ncls,
   m.wf = o;
   o += resident ? wr_up16((size_t)uf * (maxk + kWrPad) * 2) : 0;
   m.w3 = o;
-  o += fc3_res ? wr_up16((size_t)ncls * (fc + kWrPad) * 2) : 0;
+  o += slice ? wr_up16((size_t)slice * (fc + kWrPad) * 2)
+       : fc3_res ? wr_up16((size_t)ncls * (fc + kWrPad) * 2) : 0;
   m.A = o;   // f32: the pass's staged operand rows
   o += bf16 ? 0 : wr_up16((size_t)mpad * maxk * 4);
   m.parts = o;
@@ -174,7 +191,7 @@ __host__ __device__ inline WrSmem wr_smem(int B, int rd, int fc, int ncls,
   m.pre = o;
   o += pre_smem ? wr_up16((size_t)B * rd * 4) : 0;
   m.noise = o;
-  o += noise_smem ? wr_up16((size_t)B * (pick + 1) * 4) : 0;
+  o += noise_smem ? wr_up16((size_t)B * (slice ? slice : pick + 1) * 4) : 0;
   m.xs = o;
   o += wr_up16((size_t)Bs * 4);
   m.red = o;
@@ -502,7 +519,7 @@ template <typename T>
 struct WrShared {
   T* wg;          // resident GRU rows: W_ih (3 units), then W_hh
   T* wf;          // resident fc1 (R1) or fc2 (R2) rows
-  T* w3;          // resident fc3 (R1)
+  T* w3;          // resident fc3 (R1), or the block's slice of it
   float* A;       // f32: the pass's staged operand rows
   float* parts;   // the product's K parts
   // per-row state, in shared memory or (state_smem = 0) in L2:
@@ -510,6 +527,7 @@ struct WrShared {
   float* hown;    // (B, units) the block's GRU state
   float* pre;     // (B, rd) pre_I of the step (prefetched), or unused
   float* noise;   // (B, pick_dim + 1) Gumbel lanes and the logistic value
+                  // (split pick: (B, slice_classes), the slice's lanes)
   float* xs;      // (B,) the samples fed back
   float* red;     // (kWarps, kRB) warp sums (f32 products)
   float* cst;     // b_ih, b_hh of the block's units (3 units each), b_fc3
@@ -519,10 +537,11 @@ struct WrShared {
 
 // What a block owns: GRU units j0 .. j0 + nu - 1 (GRU1 in R1 blocks,
 // GRU2 and those pre_I columns in R2 blocks) and fc columns c0 .. c0 +
-// nf - 1 (fc1 in R1, fc2 in R2; nf may be 0).
+// nf - 1 (fc1 in R1, fc2 in R2; nf may be 0); on the split pick, classes
+// k0 .. k0 + nk - 1 (R1; nk may be 0, and is 0 without the split).
 struct WrRole {
   bool r1;
-  int j0, nu, c0, nf;
+  int j0, nu, c0, nf, k0, nk;
 };
 
 // Block `blk`'s role: the first g blocks R1, the next g R2.  The launch
@@ -537,12 +556,17 @@ __host__ __device__ inline WrRole wr_role(const WrArgs<T>& a, int blk) {
   r.c0 = b * a.fc_units;
   r.nf = a.fc - r.c0 < a.fc_units ? a.fc - r.c0 : a.fc_units;
   r.nf = r.nf > 0 ? r.nf : 0;
+  r.k0 = b * a.slice_classes;
+  r.nk = a.n_classes - r.k0 < a.slice_classes ? a.n_classes - r.k0
+                                               : a.slice_classes;
+  r.nk = r.r1 && r.nk > 0 ? r.nk : 0;
   return r;
 }
 
 // Whether a block of role r bumps counter c after its stage: every R1
 // block c1, every R2 block c2, the blocks that own fc columns c3 (R1) and
-// c4 (R2), every block the prologue's.  The kernel arrives where this
+// c4 (R2), every block the prologue's, the R1 blocks that own classes cs
+// (none without the split pick).  The kernel arrives where this
 // says and nowhere else, and the launch counts each counter's producers
 // from it and holds them to the plan's, the wait targets (epoch e waits
 // for e x producers).
@@ -552,6 +576,7 @@ __host__ __device__ inline bool wr_arrives(const WrRole& r, int c) {
     case kC2: return !r.r1;
     case kC3: return r.r1 && r.nf > 0;
     case kC4: return !r.r1 && r.nf > 0;
+    case kCS: return r.nk > 0;
     default: return true;
   }
 }
@@ -737,12 +762,143 @@ __device__ void wr_pick(const WrArgs<T>& a, const WrShared<T>& s, int ts) {
   }
 }
 
-// The noise of step ts, and pre_I of step ts + 1, into shared memory
-// ahead of stage A (the copies of pre_I stay in flight: stage A waits).
-template <typename T>
-__device__ void wr_prefetch(const WrArgs<T>& a, const WrShared<T>& s, int ts) {
+// The split pick's order of a value: unsigned, larger for larger floats
+// (-0 as +0, so that equal values tie); NaN never gets here.
+__device__ __forceinline__ unsigned int wr_order(float v) {
+  const unsigned int u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : u | 0x80000000u;
+}
+
+// The split pick's first half, in an R1 block that owns classes k0 .. k0 +
+// nk - 1: their logits for every row from x4 of step ts (a warp a 16-row
+// M-tile and n-tile, the K chunks in order: wr_product's order at kp =
+// 1, so each logit is the whole pick's, bit for bit), plus the bias and
+// the Gumbel lane; each row's best (the largest value, the lowest class
+// among equal ones; NaN and -inf never) goes into the row's key of slot
+// wr_slot(ts) as (epoch ts + 1, the value's order, the inverted class),
+// an atomicMax: the word then holds the best of every slice, and a
+// stale word (an older epoch) loses to any of them.
+template <int MT>
+__device__ void wr_slice(const WrArgs<__nv_bfloat16>& a,
+                         const WrShared<__nv_bfloat16>& s, const WrRole& r,
+                         int ts) {
+  constexpr int KB = 4;   // K chunks in flight
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int fc = a.fc, sc = a.slice_classes, nts = sc / 8;
+  const int nch = (fc + 31) / 32;
+  const __nv_bfloat16* x4 = wr_op(a, kOpX4, wr_slot(ts));
+  unsigned long long* keys = a.keys + (size_t)wr_slot(ts) * a.B;
+  const float* b3 = s.cst + 6 * a.units + r.k0;
+  const unsigned long long tag = (unsigned long long)(ts + 1)
+                                 << (32 + a.cbits);
+  const unsigned int cmask = (1u << a.cbits) - 1u;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int r0 = 0; r0 < a.B; r0 += a.rows) {
+    const int nr = min(a.rows, a.B - r0);
+    const WrARing A{x4 + (size_t)r0 * fc, fc, nr};
+    for (int i = warp; i < MT * nts; i += kWarps) {
+      const int mt = i / nts, j = i - mt * nts;
+      const __nv_bfloat16* wrow = s.w3 + (size_t)(j * 8 + gid) * (fc + kWrPad);
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int c = 0; c < nch; c += KB) {
+        uint4 y[KB], x[KB][2];
+#pragma unroll
+        for (int q = 0; q < KB; ++q) {
+          const int k = (c + q) * 32 + 8 * tq;
+          const bool in = c + q < nch && k < fc;
+          y[q] = in ? lds16(wrow + k) : zero;
+          x[q][0] = in ? A.load(mt * 16 + gid, k) : zero;
+          x[q][1] = in ? A.load(mt * 16 + gid + 8, k) : zero;
+        }
+#pragma unroll
+        for (int q = 0; q < KB; ++q) {
+          if (c + q >= nch) break;
+          const uint32_t s0[4] = {x[q][0].x, x[q][1].x, x[q][0].y, x[q][1].y};
+          const uint32_t s1[4] = {x[q][0].z, x[q][1].z, x[q][0].w, x[q][1].w};
+          mma_bf16(acc, s0, y[q].x, y[q].y);
+          mma_bf16(acc, s1, y[q].z, y[q].w);
+        }
+      }
+      // lane (gid, tq) holds rows gid and gid + 8 of the M-tile, classes
+      // j * 8 + 2 tq and + 1 of the slice; a row's 8 are the quad's
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = mt * 16 + gid + 8 * h, row = r0 + rr;
+        float best = __int_as_float(0xff800000);  // -inf
+        int pick = 0x7fffffff;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = j * 8 + 2 * tq + e;
+          if (rr < nr && c < r.nk) {
+            const float gn =
+                a.noise_smem ? s.noise[(size_t)row * sc + c]
+                             : __ldg(a.gumbel + ((size_t)ts * a.B + row) *
+                                                    a.pick_dim + r.k0 + c);
+            const float v = acc[2 * h + e] + b3[c] + gn;
+            if (v > best) {
+              best = v;
+              pick = r.k0 + c;
+            }
+          }
+        }
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+          const int op = __shfl_xor_sync(0xffffffffu, pick, off);
+          if (ob > best || (ob == best && op < pick)) {
+            best = ob;
+            pick = op;
+          }
+        }
+        if (tq == 0 && pick != 0x7fffffff)
+          atomicMax(keys + row,
+                    tag | (unsigned long long)wr_order(best) << a.cbits |
+                        (cmask - (unsigned int)pick));
+      }
+    }
+  }
+}
+
+// The split pick's second half (every R1 block, after every slice's
+// arrival on cs): the sample of step ts for every row from its key, as
+// wr_pick's RAW rule (pick_dim - 1 where no slice saw a number above
+// -inf: then the word is still an older epoch's), into xs; block 0
+// writes it out.
+__device__ void wr_merge(const WrArgs<__nv_bfloat16>& a,
+                         const WrShared<__nv_bfloat16>& s, int ts) {
+  const unsigned long long* keys = a.keys + (size_t)wr_slot(ts) * a.B;
+  const unsigned int cmask = (1u << a.cbits) - 1u;
+  for (int row = threadIdx.x; row < a.B; row += kThreads) {
+    const unsigned long long k = __ldcg(keys + row);
+    const int pick = (k >> (32 + a.cbits)) == (unsigned long long)(ts + 1)
+                         ? (int)(cmask - (unsigned int)(k & cmask))
+                         : a.pick_dim - 1;
+    const float sample =
+        2.0f * (float)pick / ((float)a.n_classes - 1.0f) - 1.0f;
+    s.xs[row] = sample;
+    if (blockIdx.x == 0) a.out[(size_t)row * a.steps + ts] = sample;
+  }
+  __syncthreads();
+}
+
+// The noise of step ts (on the split pick the Gumbel lanes of the block's
+// classes), and pre_I of step ts + 1, into shared memory ahead of stage A
+// (the copies of pre_I stay in flight: stage A waits).
+template <typename T, bool SPLIT>
+__device__ void wr_prefetch(const WrArgs<T>& a, const WrShared<T>& s,
+                            const WrRole& r, int ts) {
   const int pd = a.pick_dim;
-  if (a.noise_smem && ts >= 0) {
+  if constexpr (SPLIT) {
+    const int sc = a.slice_classes;
+    if (a.noise_smem && ts >= 0 && r.nk > 0) {
+      for (int i = threadIdx.x; i < a.B * sc; i += kThreads) {
+        const int b = i / sc, c = i - b * sc;
+        s.noise[i] = c < r.nk ? __ldg(a.gumbel + ((size_t)ts * a.B + b) * pd +
+                                      r.k0 + c)
+                              : 0.0f;
+      }
+    }
+  } else if (a.noise_smem && ts >= 0) {
     for (int i = threadIdx.x; i < a.B * (pd + 1); i += kThreads) {
       const int b = i / (pd + 1), c = i - b * (pd + 1);
       s.noise[i] = c < pd ? __ldg(a.gumbel + ((size_t)ts * a.B + b) * pd + c)
@@ -930,14 +1086,16 @@ __device__ void wr_dense(const WrArgs<T>& a, const WrShared<T>& s,
 // the kernel
 // ---------------------------------------------------------------------------
 
-template <typename T, int MT>
+// SPLIT: the split pick (bf16 only); without it the R1 blocks each pick
+// from all classes (wr_pick), and nothing of the split is compiled.
+template <typename T, int MT, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, 1) wr_kernel(WrArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr bool kBf16 = sizeof(T) == 2;
   const WrSmem L = wr_smem(a.B, a.rd, a.fc, a.n_classes, a.pick_dim,
                            a.units, a.fc_units, a.mpad, kBf16, a.resident,
                            a.fc3_resident, a.pre_smem, a.noise_smem,
-                           a.state_smem);
+                           a.state_smem, SPLIT ? a.slice_classes : 0);
   WrShared<T> s;
   s.wg = reinterpret_cast<T*>(smem_raw + L.wg);
   s.wf = reinterpret_cast<T*>(smem_raw + L.wf);
@@ -982,6 +1140,11 @@ __global__ void __launch_bounds__(kThreads, 1) wr_kernel(WrArgs<T> a) {
     if (r.r1 && a.fc3_resident)
       wr_load_rows(s.w3, {a.w_fc3, a.fc, 0, 0, a.n_classes, 0},
                    a.n_classes, a.fc);
+    if constexpr (SPLIT) {
+      if (r.nk > 0)
+        wr_load_rows(s.w3, {a.w_fc3 + (size_t)r.k0 * a.fc, a.fc, 0, 0, r.nk, 0},
+                     a.slice_classes, a.fc);
+    }
   }
   for (int i = threadIdx.x; i < B * 3 * u; i += kThreads) s.hh[i] = 0.0f;
   for (int i = threadIdx.x; i < B * u; i += kThreads) s.hown[i] = 0.0f;
@@ -992,12 +1155,22 @@ __global__ void __launch_bounds__(kThreads, 1) wr_kernel(WrArgs<T> a) {
   wr_wait(bar + kCPro, a.prod[kCPro]);
 
   if (r.r1) {
-    wr_prefetch(a, s, -1);   // pre_I of step 0
+    wr_prefetch<T, SPLIT>(a, s, r, -1);   // pre_I of step 0
     for (int t = 0; t < steps; ++t) {
       const unsigned int e = t + 1;   // the epoch of step t's counters
       if (t % a.S == 0) wr_frame(a, s, r, t / a.S);
       // A: the sample of step t - 1 (x_0 = 0), then GRU1
-      if (t > 0) {
+      if constexpr (SPLIT) {
+        if (t > 0) {
+          if (wr_arrives(r, kCS)) {
+            wr_wait(bar + kC4, t * a.prod[kC4]);   // x4 of step t - 1
+            wr_slice<MT>(a, s, r, t - 1);
+            wr_arrive(bar + kCS);
+          }
+          wr_wait(bar + kCS, t * a.prod[kCS]);   // every slice's best
+          wr_merge(a, s, t - 1);
+        }
+      } else if (t > 0) {
         wr_wait(bar + kC4, t * a.prod[kC4]);   // x4 of step t - 1
         wr_pick<T, MT>(a, s, t - 1);
       }
@@ -1016,10 +1189,20 @@ __global__ void __launch_bounds__(kThreads, 1) wr_kernel(WrArgs<T> a) {
                         wr_op(a, kOpX3, wr_slot(t)));
         wr_arrive(bar + kC3);
       }
-      wr_prefetch(a, s, t);
+      wr_prefetch<T, SPLIT>(a, s, r, t);
     }
     // the last sample
-    if (blockIdx.x == 0) {
+    if constexpr (SPLIT) {
+      if (wr_arrives(r, kCS)) {
+        wr_wait(bar + kC4, steps * a.prod[kC4]);
+        wr_slice<MT>(a, s, r, steps - 1);
+        wr_arrive(bar + kCS);
+      }
+      if (blockIdx.x == 0) {
+        wr_wait(bar + kCS, steps * a.prod[kCS]);
+        wr_merge(a, s, steps - 1);
+      }
+    } else if (blockIdx.x == 0) {
       wr_wait(bar + kC4, steps * a.prod[kC4]);
       wr_pick<T, MT>(a, s, steps - 1);
     }
@@ -1054,14 +1237,15 @@ __global__ void __launch_bounds__(kThreads, 1) wr_kernel(WrArgs<T> a) {
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int MT>
+template <typename T, int MT, bool SPLIT>
 static int wr_go(WrArgs<T>& a, int blocks, size_t smem, cudaStream_t st) {
-  return launch_cooperative(wr_kernel<T, MT>, a, blocks, smem, st);
+  return launch_cooperative(wr_kernel<T, MT, SPLIT>, a, blocks, smem, st);
 }
 
 // The plan of wr_plan (units, fc columns and rows a pass, the routes,
-// each counter's producers, shared-memory bytes), checked against the
-// kernel's own layout, ownership (wr_role) and arrivals (wr_arrives).
+// the split pick's classes a block, each counter's producers,
+// shared-memory bytes), checked against the kernel's own layout,
+// ownership (wr_role) and arrivals (wr_arrives).
 template <typename T>
 static int launch(const void* const* p, const int* n, cudaStream_t stream) {
   constexpr bool bf16 = sizeof(T) == 2;
@@ -1080,16 +1264,26 @@ static int launch(const void* const* p, const int* n, cudaStream_t stream) {
               const_cast<T*>(static_cast<const T*>(p[22])),
               const_cast<unsigned int*>(static_cast<const unsigned int*>(p[23])),
               const_cast<float*>(static_cast<const float*>(p[24])),
+              reinterpret_cast<unsigned long long*>(const_cast<void*>(p[25])),
               n[0], n[1], n[2], n[3], n[4], n[5], n[6], n[7], n[8], n[9],
-              n[10], n[11], n[12], n[13], n[14], n[15], n[16], n[17], n[18]};
-  for (int c = 0; c < 5; ++c) a.prod[c] = (unsigned int)n[19 + c];
-  const int smem_bytes = n[24];
+              n[10], n[11], n[12], n[13], n[14], n[15], n[16], n[17], n[18],
+              n[19]};
+  for (int c = 0; c < kCounters; ++c) a.prod[c] = (unsigned int)n[20 + c];
+  const int smem_bytes = n[20 + kCounters];
   if (a.B < 1 || a.rd % 16 || a.fc % 16 || a.W < 1 || a.W > kMaxTaps ||
       a.units < 8 || (a.units & (a.units - 1)) || a.fc_units < 8 ||
       (a.fc_units & (a.fc_units - 1)) ||
       a.rows < 1 || a.passes < 1 || a.pick_dim < 1 ||
       a.pick_dim > a.n_classes ||
       (!bf16 && (a.resident || a.fc3_resident)))
+    return cudaErrorInvalidValue;
+  // the split pick: bf16, RAW, fc3 not whole in each block, 8-class tiles,
+  // and every step's epoch fits above the value and the class
+  a.cbits = a.n_classes > 1 ? 32 - __builtin_clz(a.n_classes - 1) : 0;
+  if (a.slice_classes &&
+      (!bf16 || !a.raw_mode || a.pick_dim != a.n_classes || a.fc3_resident ||
+       a.slice_classes % 8 || a.keys == nullptr || a.cbits > 24 ||
+       (long long)a.fpf * a.S >= (1ll << (32 - a.cbits))))
     return cudaErrorInvalidValue;
   const int tile = bf16 ? 16 : kRB;
   a.mpad = (a.rows + tile - 1) / tile * tile;
@@ -1106,25 +1300,33 @@ static int launch(const void* const* p, const int* n, cudaStream_t stream) {
   // every GRU unit and fc column of each role has exactly one owner, in
   // order, and each counter's producers are the plan's
   int next[2][2] = {{0, 0}, {0, 0}};   // [R1, R2][unit, column]
-  unsigned int prod[5] = {0, 0, 0, 0, 0};
+  int next_class = 0;                  // the split pick's classes
+  unsigned int prod[kCounters] = {0, 0, 0, 0, 0, 0};
   for (int b = 0; b < blocks; ++b) {
     const WrRole r = wr_role(a, b);
     int* nx = next[r.r1 ? 0 : 1];
-    if (r.j0 != nx[0] || r.nu < 1 || (r.nf > 0 && r.c0 != nx[1]))
+    if (r.j0 != nx[0] || r.nu < 1 || (r.nf > 0 && r.c0 != nx[1]) ||
+        (r.nk > 0 && r.k0 != next_class))
       return cudaErrorInvalidValue;
     nx[0] += r.nu;
     nx[1] += r.nf;
-    for (int c = 0; c < 5; ++c) prod[c] += wr_arrives(r, c);
+    next_class += r.nk;
+    for (int c = 0; c < kCounters; ++c) prod[c] += wr_arrives(r, c);
   }
   for (int k = 0; k < 2; ++k)
     if (next[k][0] != a.rd || next[k][1] != a.fc) return cudaErrorInvalidValue;
-  for (int c = 0; c < 5; ++c)
-    if (prod[c] != a.prod[c] || prod[c] < 1) return cudaErrorInvalidValue;
+  if (next_class != (a.slice_classes ? a.n_classes : 0))
+    return cudaErrorInvalidValue;
+  // every counter has producers but cs, which has them on the split only
+  for (int c = 0; c < kCounters; ++c)
+    if (prod[c] != a.prod[c] ||
+        (prod[c] < 1 && (c != kCS || a.slice_classes)))
+      return cudaErrorInvalidValue;
   if (!a.state_smem && a.spill == nullptr) return cudaErrorInvalidValue;
   const WrSmem L = wr_smem(a.B, a.rd, a.fc, a.n_classes, a.pick_dim, a.units,
                            a.fc_units, a.mpad, bf16, a.resident,
                            a.fc3_resident, a.pre_smem, a.noise_smem,
-                           a.state_smem);
+                           a.state_smem, a.slice_classes);
   if (L.total != (size_t)smem_bytes) return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1133,24 +1335,32 @@ static int launch(const void* const* p, const int* n, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (blocks > sms) return cudaErrorInvalidValue;  // every unit needs a block
   if constexpr (!bf16) {
-    return wr_go<T, 1>(a, blocks, L.total, stream);
+    return wr_go<T, 1, false>(a, blocks, L.total, stream);
+  } else if (a.slice_classes) {
+    switch (a.mpad / 16) {
+      case 1: return wr_go<T, 1, true>(a, blocks, L.total, stream);
+      case 2: return wr_go<T, 2, true>(a, blocks, L.total, stream);
+      case 3: return wr_go<T, 3, true>(a, blocks, L.total, stream);
+      default: return wr_go<T, 4, true>(a, blocks, L.total, stream);
+    }
   } else {
     switch (a.mpad / 16) {
-      case 1: return wr_go<T, 1>(a, blocks, L.total, stream);
-      case 2: return wr_go<T, 2>(a, blocks, L.total, stream);
-      case 3: return wr_go<T, 3>(a, blocks, L.total, stream);
-      default: return wr_go<T, 4>(a, blocks, L.total, stream);
+      case 1: return wr_go<T, 1, false>(a, blocks, L.total, stream);
+      case 2: return wr_go<T, 2, false>(a, blocks, L.total, stream);
+      case 3: return wr_go<T, 3, false>(a, blocks, L.total, stream);
+      default: return wr_go<T, 4, false>(a, blocks, L.total, stream);
     }
   }
 }
 
 }  // namespace avc
 
-// C interface (ctypes).  ptrs: the 25 pointers of WrArgs in declaration
-// order (mf .. spill); ints: B, fpf, S, W, rd, fc, n_classes, nr_mix,
+// C interface (ctypes).  ptrs: the 26 pointers of WrArgs in declaration
+// order (mf .. keys); ints: B, fpf, S, W, rd, fc, n_classes, nr_mix,
 // pick_dim, raw_mode, then the plan: units, fc_units, rows, passes,
-// resident, fc3_resident, pre_smem, noise_smem, state_smem, the
-// producers of c1, c2, c3, c4 and the prologue's counter, smem_bytes.
+// resident, fc3_resident, pre_smem, noise_smem, state_smem,
+// slice_classes, the producers of c1, c2, c3, c4, the prologue's counter
+// and cs, smem_bytes.
 // bf16 != 0 selects bf16 weights and operands.  Returns a cudaError_t
 // value (0 on success).
 extern "C" int wavernn_sample_launch(const void* const* ptrs, const int* ints,

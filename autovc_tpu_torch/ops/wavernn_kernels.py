@@ -17,7 +17,8 @@ rows (B, fpf, res_out) — and samples (B, fpf * total_scale) waveform rows:
     tensors.
 
 The kernel's launch plan (:func:`wr_plan`: block roles, rows a pass,
-which weights stay in shared memory) and its step schedule
+which weights stay in shared memory, whether the pick is split by class)
+and its step schedule
 (:func:`wr_schedule`: which stage reads which ring slot after which
 counter epoch) are plain Python, tested on the CPU
 (``tests/test_torch_wr_plan.py``).
@@ -38,6 +39,7 @@ import torch
 from autovc_tpu_torch.ops import _build
 from autovc_tpu_torch.ops import precision as PREC
 from autovc_tpu_torch.ops.mol import LOG_SCALE_MIN
+from autovc_tpu_torch.utils import profiling
 
 MAX_TAPS = 9  # kMaxTaps of csrc/wavernn_sample.cu: W = 2J + 1 <= 9
 
@@ -257,8 +259,11 @@ def sample_rows_plain(inp: RowsInputs, gumbel: torch.Tensor,
 # memory, an H100's opt-in shared memory per block.
 THREADS, WARPS, ROW_TILE_F32, PITCH_PAD = 256, 8, 8, 32
 MAX_ROWS, MAX_ITEMS, SMEM_MAX = 64, 4, 232448
-# the arrival counters: one a stage, then the prologue's barrier
-COUNTERS = ("c1", "c2", "c3", "c4", "pro")
+# the arrival counters: one a stage, then the prologue's barrier, then the
+# class slices' candidates (the split pick's exchange; no producers else)
+COUNTERS = ("c1", "c2", "c3", "c4", "pro", "cs")
+# the counter of the rows x steps that a launch samples on the split pick
+SPLIT_ROW_STEPS = "k1.split_row_steps"
 
 
 def _up16(n: int) -> int:
@@ -282,27 +287,33 @@ def wr_spill_floats(B: int, units: int, fc_units: int) -> int:
 def wr_smem_bytes(B: int, rd: int, fc: int, n_classes: int, pick_dim: int,
                   units: int, fc_units: int, mpad: int, bf16: bool,
                   resident: bool, fc3_resident: bool, pre_smem: bool,
-                  noise_smem: bool, state_smem: bool) -> int:
+                  noise_smem: bool, state_smem: bool,
+                  slice_classes: int = 0) -> int:
     """The kernel's shared memory a block (``wr_smem`` of the source):
-    resident GRU rows (W_ih, W_hh of the block's units), fc rows and fc3;
-    the pass's staged operand (f32 only: bf16 products read theirs from
-    L2); the products' K parts; where ``state_smem``, the per-row state
-    (the h product, the block's GRU state); pre_I and the noise of a step
-    when prefetched; the samples (per-row state); the f32 warp sums; the
-    block's biases; its slices of the frame's pre_r2 and pre_f (per-row
-    state)."""
+    resident GRU rows (W_ih, W_hh of the block's units), fc rows and fc3
+    (or, on the split pick, the ``slice_classes`` fc3 rows of the block's
+    class slice); the pass's staged operand (f32 only: bf16 products read
+    theirs from L2); the products' K parts (the split pick's slice keeps
+    its logits in registers); where ``state_smem``, the per-row state (the
+    h product, the block's GRU state); pre_I and the noise of a step when
+    prefetched (on the split pick the slice's Gumbel lanes); the samples
+    (per-row state); the f32 warp sums; the block's biases; its slices of
+    the frame's pre_r2 and pre_f (per-row state)."""
     maxk, n3 = max(rd, fc), -(-n_classes // 8) * 8
     Bs = B if state_smem else 0
     parts = max((_kparts(n // 8) if bf16 else 1) * mpad * n * 4
-                for n in (3 * units, fc_units, n3))
+                for n in (3 * units, fc_units) + (() if slice_classes
+                                                  else (n3,)))
+    w3_rows = slice_classes or (n_classes if fc3_resident else 0)
     return sum((
         _up16(2 * 3 * units * (rd + PITCH_PAD) * 2) if resident else 0,
         _up16(fc_units * (maxk + PITCH_PAD) * 2) if resident else 0,
-        _up16(n_classes * (fc + PITCH_PAD) * 2) if fc3_resident else 0,
+        _up16(w3_rows * (fc + PITCH_PAD) * 2),
         0 if bf16 else _up16(mpad * maxk * 4), _up16(parts),
         _up16(Bs * 3 * units * 4), _up16(Bs * units * 4),
         _up16(B * rd * 4) if pre_smem else 0,
-        _up16(B * (pick_dim + 1) * 4) if noise_smem else 0,
+        _up16(B * (slice_classes or pick_dim + 1) * 4) if noise_smem
+        else 0,
         _up16(Bs * 4), WARPS * ROW_TILE_F32 * 4,
         _up16((6 * units + n_classes) * 4),
         _up16(Bs * (3 * units + fc_units) * 4)))
@@ -324,7 +335,13 @@ class WrPlan:
     in its part of an L2 scratch).  Each stage takes the rows ``passes``
     times, ``rows`` at a time (``mpad`` padded: ``m_tiles`` 16-row tiles
     in bf16).  ``producers``: the blocks that bump each of
-    :data:`COUNTERS` once an epoch (the wait targets a step)."""
+    :data:`COUNTERS` once an epoch (the wait targets a step).
+    ``slice_classes``: 0 where every R1 block takes fc3 and the pick over
+    all classes itself; else the split pick: R1 block b holds fc3 rows
+    [b * slice_classes, (b + 1) * slice_classes) in shared memory, takes
+    each row's best of those classes and publishes it (counter "cs"), and
+    every R1 block merges the candidates (``noise_smem`` then prefetches
+    the slice's Gumbel lanes)."""
     route: str
     units: int
     fc_units: int
@@ -341,13 +358,15 @@ class WrPlan:
     producers: tuple
     resident_bytes: int
     smem_bytes: int
+    slice_classes: int = 0
 
     @property
     def from_l2(self) -> tuple:
         """The weights and inputs a step reads from L2 rather than shared
         memory."""
         out = () if self.route == "mma_smem" else ("gru", "fc1", "fc2")
-        return out + (() if self.fc3_resident else ("fc3",)) + \
+        return out + (() if self.fc3_resident or self.slice_classes
+                      else ("fc3",)) + \
             (() if self.pre_smem else ("pre_I",)) + \
             (() if self.noise_smem else ("noise",)) + \
             (() if self.state_smem else ("state",))
@@ -367,6 +386,14 @@ class WrPlan:
                         (c0, max(0, min(self.fc_units, fc - c0)))))
         return out
 
+    def class_slices(self, n_classes: int) -> list:
+        """(first class, classes) of each R1 block's slice of the split
+        pick, as the kernel's ``wr_role`` assigns them ((.., 0) for a
+        block that owns none, and for every block without the split)."""
+        k = self.slice_classes
+        return [(b * k, max(0, min(k, n_classes - b * k)) if k else 0)
+                for b in range(self.gru_blocks)]
+
 
 def wr_plan(B: int, rd: int, fc: int, n_classes: int, bf16: bool,
             sms: int, pick_dim: Optional[int] = None) -> WrPlan:
@@ -378,7 +405,13 @@ def wr_plan(B: int, rd: int, fc: int, n_classes: int, bf16: bool,
     under each, the per-row state in shared memory, then in L2 (which
     fits any B); under each, pre_I and the noise prefetched, then pre_I
     from L2, then both; under each, fc3 resident, then from L2.
-    ``pick_dim`` defaults to ``n_classes`` (RAW), the larger noise."""
+    ``pick_dim`` defaults to ``n_classes`` (RAW), the larger noise.
+
+    By shape alone, bf16 only: where the pick is over the classes
+    themselves (RAW: ``pick_dim == n_classes``, no mean or scale columns)
+    and fc3's rows do not fit in shared memory beside the block's GRU and
+    fc rows, the pick is split by class (``slice_classes``: 8 classes an
+    R1 block, 16, 32, ... where there are more than 8 a block)."""
     if rd % 16 or fc % 16 or rd < 16 or fc < 16 or B < 1 or sms < 2 \
             or n_classes < 1:
         raise ValueError(f"bad sampling geometry: B={B}, rd={rd}, fc={fc}, "
@@ -392,13 +425,20 @@ def wr_plan(B: int, rd: int, fc: int, n_classes: int, bf16: bool,
     units = 8 * pow2(-(-(-(-rd // 8)) // (sms // 2)))
     g = -(-rd // units)
     fc_units = 8 * pow2(-(-(-(-fc // 8)) // g))
+    gru_fc_rows = _up16(2 * 3 * units * (rd + PITCH_PAD) * 2) + \
+        _up16(fc_units * (max(rd, fc) + PITCH_PAD) * 2)
+    split = bf16 and pick == n_classes and \
+        gru_fc_rows + _up16(n_classes * (fc + PITCH_PAD) * 2) > SMEM_MAX
+    slices = 8 * pow2(-(-(-(-n_classes // 8)) // g)) if split else 0
     tile = 16 if bf16 else ROW_TILE_F32
     # (GRU and fc rows, fc3, pre_I, noise in shared memory), best first:
     # pre_I (B x rd f32, read by every R1 block on the critical path) is
     # worth more than fc3 resident (30 rows)
     prefetch = [(True, True), (False, True), (False, False)]
     routes = [(True, state, fc3) + p for state in (True, False)
-              for p in prefetch for fc3 in (True, False)] if bf16 else []
+              for p in prefetch
+              for fc3 in ((False,) if split else (True, False))] \
+        if bf16 else []
     routes += [(False, state, False) + p for state in (True, False)
                for p in prefetch]
     nfc = -(-fc // fc_units)       # the blocks of a role that own fc columns
@@ -412,13 +452,12 @@ def wr_plan(B: int, rd: int, fc: int, n_classes: int, bf16: bool,
         for res, state, fc3, pre, noise in routes:
             smem = wr_smem_bytes(B, rd, fc, n_classes, pick, units,
                                  fc_units, mpad, bf16, res, fc3, pre, noise,
-                                 state)
+                                 state, slices)
             if smem > SMEM_MAX:
                 continue
-            resident = (_up16(2 * 3 * units * (rd + PITCH_PAD) * 2)
-                        + _up16(fc_units * (max(rd, fc) + PITCH_PAD) * 2)
-                        if res else 0) + (
-                _up16(n_classes * (fc + PITCH_PAD) * 2) if fc3 else 0)
+            resident = (gru_fc_rows if res else 0) + _up16(
+                (slices or (n_classes if fc3 else 0)) * (fc + PITCH_PAD)
+                * 2)
             return WrPlan(
                 route="fma" if not bf16 else
                 "mma_smem" if res else "mma_l2",
@@ -426,10 +465,19 @@ def wr_plan(B: int, rd: int, fc: int, n_classes: int, bf16: bool,
                 rows=rows, passes=passes, mpad=mpad,
                 m_tiles=mpad // 16 if bf16 else 0, fc3_resident=fc3,
                 pre_smem=pre, noise_smem=noise, state_smem=state,
-                producers=(g, g, nfc, nfc, 2 * g),
-                resident_bytes=resident, smem_bytes=smem)
+                producers=(g, g, nfc, nfc, 2 * g,
+                           -(-n_classes // slices) if slices else 0),
+                resident_bytes=resident, smem_bytes=smem,
+                slice_classes=slices)
     raise ValueError(f"kernel 1 does not fit B={B}, rd={rd}, fc={fc}, "
                      f"n_classes={n_classes} in shared memory")
+
+
+def split_epochs(n_classes: int) -> int:
+    """The most steps a split-pick launch takes: a candidate word holds
+    the epoch (the step + 1) above the value's 32 order bits and the
+    inverted class, so that a stale word loses to any of the step's."""
+    return (1 << (32 - (n_classes - 1).bit_length())) - 1
 
 
 def device_plan(inp: RowsInputs, dev) -> WrPlan:
@@ -459,11 +507,15 @@ class WrStage:
     arrives: Optional[str]
 
 
-def wr_schedule(steps: int) -> list:
+def wr_schedule(steps: int, split: bool = False) -> list:
     """Kernel 1's stages over ``steps`` steps, in an order that respects
     every wait: the prologue's pre_I of step 0 (all blocks then meet at a
     barrier, counter "pro"), then per step t
       pick(t - 1)  R1: fc3 and the pick of step t - 1's sample (t > 0)
+                   (``split``: slice(t - 1), the owners of class slices:
+                   fc3 of their classes, each row's best of them -> cand
+                   (arrive cs); merge(t - 1), every R1 block: each row's
+                   sample from the candidates)
       A(t)         R1: xI, GRU1 -> h1, x1, x1f      (arrive c1)
       pre(t + 1)   R2: its pre_I slice of step t + 1
       B(t)         R2: GRU2 -> h2, x2               (arrive c2)
@@ -475,13 +527,22 @@ def wr_schedule(steps: int) -> list:
     if steps < 1:
         raise ValueError(f"kernel 1 needs steps >= 1, not {steps}")
     S = WrStage
+
+    def pick(t):   # the stages that take step t's sample
+        if not split:
+            return [S("pick", t, "R1", (("c4", t + 1),), (("x4", t),), (),
+                      None)]
+        return [S("slice", t, "R1", (("c4", t + 1),), (("x4", t),),
+                  (("cand", t),), "cs"),
+                S("merge", t, "R1", (("cs", t + 1),), (("cand", t),), (),
+                  None)]
+
     out = [S("pre", 0, "R2", (), (), (("pre", 0),), "pro"),
            S("prologue", 0, "R1", (), (), (), "pro")]
     for t in range(steps):
         e, last = t + 1, t + 1 == steps
         if t > 0:
-            out.append(S("pick", t - 1, "R1", (("c4", t),),
-                         (("x4", t - 1),), (), None))
+            out += pick(t - 1)
         first = (("pro", 1),) if t == 0 else ()
         out.append(S("A", t, "R1", first, (("pre", t),),
                      (("h1", t), ("x1", t), ("x1f", t)), "c1"))
@@ -500,9 +561,7 @@ def wr_schedule(steps: int) -> list:
                          None))
         out.append(S("D", t, "R2", (("c3", e),), (("x3", t),),
                      (("x4", t),), "c4"))
-    out.append(S("pick", steps - 1, "R1", (("c4", steps),),
-                 (("x4", steps - 1),), (), None))
-    return out
+    return out + pick(steps - 1)
 
 
 def launch(inp: RowsInputs, gumbel: torch.Tensor,
@@ -528,6 +587,10 @@ def launch(inp: RowsInputs, gumbel: torch.Tensor,
         raise ValueError("weights must all be f32 or all bf16")
     dev = inp.mf.device
     plan = device_plan(inp, dev)
+    if plan.slice_classes and steps > split_epochs(inp.n_classes):
+        raise ValueError(f"the split pick takes at most "
+                         f"{split_epochs(inp.n_classes)} steps (its "
+                         f"candidates carry the step), got {steps}")
     out = torch.empty(B, steps, device=dev)
     state = torch.empty(4 * B * rd, device=dev)       # pre_I, x1: 2 slots
     ring = torch.empty(2 * B * (4 * rd + 2 * fc), device=dev, dtype=wdt)
@@ -535,29 +598,34 @@ def launch(inp: RowsInputs, gumbel: torch.Tensor,
     spill = torch.empty(1 if plan.state_smem else plan.blocks
                         * wr_spill_floats(B, plan.units, plan.fc_units),
                         device=dev)
+    # the split pick's candidate words: (2 slots, B), epoch-tagged
+    keys = torch.zeros(2 * B if plan.slice_classes else 1,
+                       dtype=torch.int64, device=dev)
     tensors = (inp.mf, inp.base, inp.pre_r2, inp.pre_f1, inp.pre_f2,
                inp.ktab, inp.w_x) + weights + (
         inp.b_ih1, inp.b_hh1, inp.b_hh2, inp.b_fc3, gumbel, logistic,
-        out, state, ring, bar, spill)
+        out, state, ring, bar, spill, keys)
     for i, t in enumerate(tensors):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"kernel input {i} is not a contiguous tensor "
                              f"on {dev}")
-        if t.dtype not in (torch.float32, wdt, torch.int32):
+        if t.dtype not in (torch.float32, wdt, torch.int32, torch.int64):
             raise ValueError(f"kernel input {i} has dtype {t.dtype}")
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    ints = (ctypes.c_int * 25)(
+    ints = (ctypes.c_int * 27)(
         B, inp.fpf, inp.ktab.shape[1], inp.ktab.shape[0], rd, fc,
         inp.n_classes, inp.nr_mix, inp.pick_dim, int(inp.raw_mode),
         plan.units, plan.fc_units, plan.rows, plan.passes,
         int(plan.route == "mma_smem"), int(plan.fc3_resident),
         int(plan.pre_smem), int(plan.noise_smem), int(plan.state_smem),
-        *plan.producers, plan.smem_bytes)
+        plan.slice_classes, *plan.producers, plan.smem_bytes)
     with torch.cuda.device(dev):      # the C side launches on the current device
         SAMPLE(ctypes.cast(ptrs, ctypes.c_void_p),
                ctypes.cast(ints, ctypes.c_void_p),
                int(wdt == torch.bfloat16),
                torch.cuda.current_stream(dev).cuda_stream)
+    if plan.slice_classes:
+        profiling.count(SPLIT_ROW_STEPS, B * steps)
     return out
 
 

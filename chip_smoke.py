@@ -37,7 +37,9 @@ Phases (any failure exits non-zero):
      short folds, and buckets above 64 rows that stage a step's rows in
      passes), with the ``wavernn_sample picked`` line of their times, and
      in f32 at the smallest of those buckets above 64 rows; phases 4 and 8
-     then fail if they run kernel 1 in bf16 at a geometry not held here.
+     then fail if they run kernel 1 in bf16 at a geometry not held here;
+     kernel 1 in bf16 in RAW with 9 bits (the split pick) at 32, 64 and
+     128 rows over a 2475-step fold, the ``wavernn_sample raw9`` line.
      Kernel 1's plain version runs each step as one CUDA graph replay of
      ``wavernn_kernels.plain_step`` (``plain_graphed``: the step index,
      the previous sample and the GRU states in static buffers), first
@@ -896,6 +898,8 @@ def compare_wavernn_f32(cfg, params, rows: int, pinned: bool, gen,
 # moves the later ones, so their pick scores differ by up to a few 1e-3
 # where no bug moves them (a misplaced term moves them by O(0.1-1)).
 PICK_TIE = 1e-2
+# the most rows of one hold that :func:`near_tie_flips` searches
+MAX_FLIPS = 4
 
 
 def near_tie_flips(inp, gumbel, logistic, out, ref, steps: int,
@@ -905,15 +909,23 @@ def near_tie_flips(inp, gumbel, logistic, out, ref, steps: int,
     is a near-tie pick: raising one Gumbel lane of the plain loop at that
     step and row by ``nudge`` (the smallest of 1e-4, 3e-4, 1e-3, 3e-3
     and ``PICK_TIE`` that does) makes it give the kernel's sample there.  A row whose first
-    difference no such nudge explains is left out, and fails its hold."""
+    difference no such nudge explains is left out, and fails its hold.
+    In RAW the kernel's sample names its class, so only that lane can
+    explain it and only that lane is tried.  Near-ties are rare: where
+    more than ``MAX_FLIPS`` rows differ none is searched (all fail)."""
     S = inp.ktab.shape[1]
     diff = (out[:, :steps] - ref[:, :steps]).abs() >= bar
     flips = {}
-    for r in diff.any(dim=1).nonzero().flatten().tolist():
+    rows = diff.any(dim=1).nonzero().flatten().tolist()
+    if len(rows) > MAX_FLIPS:
+        return flips
+    for r in rows:
         t = int(diff[r].nonzero()[0])
         cut, gum, lgs = first_frames(inp, gumbel, logistic, t // S + 1)
+        lanes = ([round((float(out[r, t]) + 1.0) * (inp.n_classes - 1) / 2)]
+                 if inp.raw_mode else range(inp.pick_dim))
         for nudge in (1e-4, 3e-4, 1e-3, 3e-3, PICK_TIE):
-            for lane in range(inp.pick_dim):
+            for lane in lanes:
                 g = gum.clone()
                 g[t, r, lane] += nudge
                 s = WK.sample_rows_plain(cut, g, lgs)
@@ -982,8 +994,12 @@ def compare_wavernn_bf16(cfg, params, rows: int, fpf: int, gen,
     ms = timed_ms(lambda: WK.launch(inp, gum, lgs), 2)
     moved, ops = wavernn_cost(inp, gum, lgs, out)
     b_ms, b_by = bound(moved, ops, torch.bfloat16)
-    return hold(out, ref, 2 * float(spread.max()),
-                1.15 * float(spread.mean()),
+    # RAW: the pinned lane decides every pick, so the plain loop has no
+    # spread and the kernel must give its classes exactly (a class step
+    # is 2 / (n_classes - 1))
+    exact = inp.raw_mode and float(spread.max()) == 0.0
+    return hold(out, ref, 1e-3 if exact else 2 * float(spread.max()),
+                None if exact else 1.15 * float(spread.mean()),
                 steps=inp.steps, noise="pinned",
                 plain_spread_max=float(spread.max()),
                 plain_spread_mean=float(spread.mean()), ms=ms,
@@ -1161,9 +1177,55 @@ def compare_wavernn(gen, dev, geos: dict) -> dict:
                      "max_abs_err": c["max_abs_err"],
                      "passes": c["plan"]["passes"]}
         for (r, f), c in picked.items()}})
+    compare_wavernn_raw9(gen, dev)
     four = single_pick(expected_frames(int(CONVERSIONS[0][0] * 22050),
                                        AutoEncoderConfig().spectrogram), cfg)
     return picked[(four["rows"], four["frames"])]
+
+
+def hold_wavernn_raw9_tie(cfg, params, rows: int, gen, dev) -> dict:
+    """Kernel 1 on the split pick where three classes tie exactly at every
+    step, two in one slice (on two lanes of a quad) and one in another:
+    the fc3 rows and biases of classes 102 and 300 are class 100's (R1
+    blocks 12, 12 and 37), and their Gumbel lanes are raised by 1e3
+    (exact in bf16), so every pick is a tie that goes to the lowest class,
+    as the plain loop's argmax: every sample is class 100's."""
+    tied = [100, 102, 300]
+    fc3 = {k: v.clone() for k, v in params["fc3"].items()}
+    for c in tied[1:]:
+        fc3["w"][c] = fc3["w"][tied[0]]
+        fc3["b"][c] = fc3["b"][tied[0]]
+    inp, gum, lgs = wavernn_inputs(cfg, dict(params, fc3=fc3), rows, 2,
+                                   True, gen, dev)
+    gum[:, :, tied] = 1e3
+    out = WK.launch(inp, gum, lgs)
+    want = torch.full_like(out, 2.0 * tied[0] / (cfg.n_classes - 1) - 1.0)
+    return hold(out, want, 1e-3, dtype="torch.bfloat16", rows=rows,
+                steps=inp.steps, noise=f"lanes {tied} tied")
+
+
+def compare_wavernn_raw9(gen, dev) -> dict:
+    """Kernel 1 in bf16 in RAW with 9 bits (512 classes: the split pick,
+    each R1 block 8 of them) against the plain loop at 32, 64 and 128
+    rows x 9 frames (2475 steps, the 4 s wav's fold), the holds of
+    :func:`compare_wavernn_bf16` (pinned, every step: the classes exactly,
+    since the pinned lane decides every pick), and a tie across two slices
+    at 64 rows (:func:`hold_wavernn_raw9_tie`); logs a ``wavernn_sample
+    raw9`` line of each one's plan, ms and us a step."""
+    cfg = WaveRNNConfig().with_overrides(mode="RAW", bits=9)
+    params = from_jax_params(WR.init(gen, cfg), dev)
+    res = {rows: compare_wavernn_bf16(cfg, params, rows, 9, gen, dev,
+                                      mode="RAW-9")
+           for rows in (32, 64, 128)}
+    hold_wavernn_raw9_tie(cfg, params, 64, gen, dev)
+    log({"phase": "wavernn_sample raw9", **{
+        f"{rows}_rows": {"ms": c["ms"], "us_per_step": c["us_per_step"],
+                         "bound_ms": c["bound_ms"], "plain_ms": c["plain_ms"],
+                         "max_abs_err": c["max_abs_err"],
+                         "slice_classes": c["plan"]["slice_classes"],
+                         "from_l2": list(WK.WrPlan(**c["plan"]).from_l2)}
+        for rows, c in res.items()}})
+    return res
 
 
 def synthetic_wav(seconds: float, sr: int, seed: int) -> np.ndarray:

@@ -6,12 +6,14 @@ Needs an NVIDIA GPU and nvcc.  For each mutant the port is copied into a
 temporary directory and one edit is made to the copy's
 ``csrc/wavernn_sample.cu`` (the ring slots, the pre_I phase, the M-tiles
 of a product, the logits a block picks from, a counter's target, who
-arrives on a counter); every
+arrives on a counter; the split pick's wait, slot and tie rule); every
 copy's kernel is built at once (one nvcc per copy, all started together),
 then for each a subprocess holds the mutated kernel against the plain
 loop with ``chip_smoke.compare_wavernn_f32`` (8 rows drawn, 48 rows
 pinned, 4 frames) and ``chip_smoke.compare_wavernn_bf16`` (16 and 48
-rows, 8 frames), the smoke run's bars.  The first "mutant" is an
+rows in MOL, 32 and 128 rows in RAW with 9 bits, the split pick, 8
+frames) and ``chip_smoke.hold_wavernn_raw9_tie`` (ties within a class
+slice and across two, 64 rows), the smoke run's bars.  The first "mutant" is an
 unmutated copy.  Prints one JSON line per mutant: each geometry's "pass"
 or the first failure's message.
 """
@@ -59,6 +61,35 @@ MUTANTS = {
     # producers from wr_arrives, refuses the plan's targets
     "c2_arrivals_not_the_plans": [("    case kC2: return !r.r1;",
                                    "    case kC2: return true;")],
+    # the split pick (RAW-9): the merge reads the candidates without
+    # waiting for the slices
+    "cs_wait_removed": [(
+        "wr_wait(bar + kCS, t * a.prod[kCS]);   // every slice's best",
+        ";")],
+    # block 0's slice does not arrive on cs: the launch, which counts the
+    # producers from wr_arrives, finds one fewer than the plan's
+    "cs_producers_one_short": [("    case kCS: return r.nk > 0;",
+                                "    case kCS: return r.nk > 0 && r.k0 > 0;")],
+    # the slices put their candidates into the other slot than the merge
+    # reads
+    "cs_wrong_slot": [(
+        "  unsigned long long* keys = a.keys + (size_t)wr_slot(ts) * a.B;",
+        "  unsigned long long* keys = a.keys + (size_t)wr_slot(ts + 1) * "
+        "a.B;")],
+    # a tie between two classes of one slice goes to the higher one
+    "cs_tie_to_higher": [(
+        "if (ob > best || (ob == best && op < pick)) {\n"
+        "            best = ob;\n            pick = op;\n          }\n"
+        "        }\n        if (tq == 0",
+        "if (ob > best || (ob == best && op > pick)) {\n"
+        "            best = ob;\n            pick = op;\n          }\n"
+        "        }\n        if (tq == 0")],
+    # the key's class field not inverted: a tie across two slices goes to
+    # the higher class
+    "cs_key_class_not_inverted": [
+        ("(cmask - (unsigned int)pick));", "((unsigned int)pick));"),
+        ("? (int)(cmask - (unsigned int)(k & cmask))",
+         "? (int)(unsigned int)(k & cmask)")],
 }
 
 CHECK = """
@@ -71,6 +102,8 @@ S.PREC.exact_f32()
 gen, dev, out = torch.Generator().manual_seed(0), torch.device("cuda"), {}
 cfg = WaveRNNConfig()
 params = from_jax_params(WR.init(gen, cfg), dev)
+raw9 = cfg.with_overrides(mode="RAW", bits=9)   # the split pick
+raw9_params = from_jax_params(WR.init(gen, raw9), dev)
 for key, fn in (
         ("f32 8 rows", lambda: S.compare_wavernn_f32(cfg, params, 8, False,
                                                      gen, dev)),
@@ -79,7 +112,13 @@ for key, fn in (
         ("bf16 16 rows", lambda: S.compare_wavernn_bf16(cfg, params, 16, 8,
                                                         gen, dev)),
         ("bf16 48 rows", lambda: S.compare_wavernn_bf16(cfg, params, 48, 8,
-                                                        gen, dev))):
+                                                        gen, dev)),
+        ("raw9 bf16 32 rows", lambda: S.compare_wavernn_bf16(
+            raw9, raw9_params, 32, 8, gen, dev)),
+        ("raw9 bf16 128 rows", lambda: S.compare_wavernn_bf16(
+            raw9, raw9_params, 128, 8, gen, dev)),
+        ("raw9 tie 64 rows", lambda: S.hold_wavernn_raw9_tie(
+            raw9, raw9_params, 64, gen, dev))):
     try:
         fn()
         out[key] = "pass"

@@ -505,10 +505,13 @@ def test_bf16_scan_stacks_run_the_kernels(cuda_device, L, I, H, rows,
 
 
 def _sampling_case(device, fast_math: bool, dims: int, rows: int,
-                   **over):
+                   pinned: bool = True, **over):
     """Kernel 1 against the plain loop at rnn_dims = fc_dims = ``dims``,
     ``rows`` x 10 frames, pinned noise: f32 at atol 1e-3, bf16 at 1e-2.
-    Returns the plan it ran on."""
+    With drawn noise (``pinned=False``) the first frame is held so (a pick
+    that one side flips on a near-tie later decorrelates the streams), and
+    in RAW every sample is one of the classes' values.  Returns the plan
+    it ran on."""
     cfg = WaveRNNConfig().with_overrides(rnn_dims=dims, fc_dims=dims,
                                          **SMALL, **over)
     gen = torch.Generator().manual_seed(1)
@@ -524,14 +527,19 @@ def _sampling_case(device, fast_math: bool, dims: int, rows: int,
     gum, lgs = WK.draw_noise(inp.steps, rows, inp.pick_dim, noise_gen,
                              device)
     lane = torch.randint(0, inp.pick_dim, (inp.steps, rows, 1), generator=gen)
-    gum = gum.scatter(-1, lane.to(device), 1e3)
+    if pinned:
+        gum = gum.scatter(-1, lane.to(device), 1e3)
     if fast_math:
         gum, lgs = PREC.round_bf16(gum), PREC.round_bf16(lgs)
     gum, lgs = gum.contiguous(), lgs.contiguous()
     out = WK.launch(inp, gum, lgs)
     ref = WK.sample_rows_plain(inp, gum, lgs)
-    torch.testing.assert_close(out, ref, atol=1e-2 if fast_math else 1e-3,
-                               rtol=0)
+    held = slice(None) if pinned else slice(0, cfg.total_scale)
+    torch.testing.assert_close(out[:, held], ref[:, held],
+                               atol=1e-2 if fast_math else 1e-3, rtol=0)
+    if inp.raw_mode:
+        pick = (out + 1.0) * (inp.n_classes - 1) / 2
+        torch.testing.assert_close(pick, pick.round(), atol=1e-3, rtol=0)
     return WK.device_plan(inp, device)
 
 
@@ -564,10 +572,59 @@ def test_sampling_kernel_in_several_passes(cuda_device, fast_math, rows,
 
 @pytest.mark.cuda
 def test_sampling_kernel_noise_from_l2(cuda_device):
-    """RAW with 9 bits at 64 rows: the 512 Gumbel lanes a row do not fit
-    beside the rest, so stage A reads the noise (and fc3) from L2."""
+    """RAW with 9 bits at 64 rows: fc3 (512 x 544 bf16) does not fit
+    beside the GRU and fc rows, so the pick is split by class: each of the
+    64 R1 blocks holds its 8 fc3 rows and prefetches their Gumbel lanes,
+    and a step reads neither fc3 nor the noise from L2."""
     plan = _sampling_case(cuda_device, True, 512, 64, mode="RAW", bits=9)
-    assert not plan.noise_smem and not plan.fc3_resident
+    assert plan.slice_classes == 8 and plan.producers[-1] == 64
+    assert plan.noise_smem and not plan.fc3_resident
+    assert "fc3" not in plan.from_l2 and "noise" not in plan.from_l2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("rows", [32, 64, 128])
+def test_sampling_kernel_raw9_split_pick(cuda_device, rows, pinned):
+    """RAW with 9 bits on the split pick at 32, 64 and 128 rows (two
+    passes), rnn_dims = fc_dims = 512: pinned noise over every step, drawn
+    noise over the first frame (bf16, atol 1e-2)."""
+    plan = _sampling_case(cuda_device, True, 512, rows, pinned, mode="RAW",
+                          bits=9)
+    assert plan.slice_classes == 8 and plan.passes == -(-rows // 64)
+
+
+@pytest.mark.cuda
+def test_sampling_kernel_raw9_tie_goes_to_the_lower_class(cuda_device):
+    """The split pick's tie rule within one R1 block's slice and across
+    two: the fc3 rows and biases of classes 102 and 300 are class 100's
+    and their Gumbel lanes are raised by 1e3 (exact in bf16), so every
+    pick ties; every sample is class 100's, as ``torch.argmax`` (the
+    first maximal index) picks."""
+    cfg = WaveRNNConfig().with_overrides(rnn_dims=512, fc_dims=512, **SMALL,
+                                         mode="RAW", bits=9)
+    gen = torch.Generator().manual_seed(2)
+    params = from_jax_params(WR.init(gen, cfg), cuda_device)
+    for c in (102, 300):
+        params["fc3"]["w"][c] = params["fc3"]["w"][100]
+        params["fc3"]["b"][c] = params["fc3"]["b"][100]
+    J = WR._upsample_margin(params["upsample"]["up_convs"],
+                            cfg.upsample_factors)
+    rows, frames = 32, 10
+    mel_rows = torch.rand(rows, frames + 2 * J, cfg.feat_dims, generator=gen)
+    aux_rows = torch.randn(rows, frames, cfg.res_out_dims, generator=gen)
+    inp = WK.prepare_rows(params, mel_rows.to(cuda_device),
+                          aux_rows.to(cuda_device), cfg, True)
+    gum, lgs = WK.draw_noise(inp.steps, rows, inp.pick_dim,
+                             torch.Generator(device=cuda_device).manual_seed(0),
+                             cuda_device)
+    gum = PREC.round_bf16(gum)
+    gum[:, :, [100, 102, 300]] = 1e3
+    gum, lgs = gum.contiguous(), PREC.round_bf16(lgs).contiguous()
+    assert WK.device_plan(inp, cuda_device).slice_classes == 8
+    out = WK.launch(inp, gum, lgs)
+    want = torch.full_like(out, 2.0 * 100 / 511 - 1.0)
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
 
 
 @pytest.mark.cuda

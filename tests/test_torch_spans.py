@@ -336,6 +336,34 @@ def test_kernel1_counters_match_the_launches(vc, monkeypatch, many):
     assert names.count("vocoder/condition") == 1
 
 
+def _k1_split_reader():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "h100bench", "metrics", "k1_split.py")
+    spec = importlib.util.spec_from_file_location("k1_split_reader", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("counters,want", [
+    ({"k1.row_steps": 1200, TWK.SPLIT_ROW_STEPS: 1200}, 100.0),
+    ({"k1.row_steps": 1200, TWK.SPLIT_ROW_STEPS: 300}, 25.0),
+    ({"k1.row_steps": 1200}, 0.0),
+    ({}, None)])
+def test_k1_split_reads_the_split_share(monkeypatch, counters, want):
+    """The benchmark's ``k1_split`` reader: 100 x the split pick's row
+    steps over all of kernel 1's, nothing without a sampling pass, and
+    nothing from a program that has no split pick."""
+    from h100bench import program_spans
+    reader = _k1_split_reader()
+    monkeypatch.setattr(program_spans, "counters", lambda: dict(counters))
+    got = reader.read(None)
+    assert got == (None if want is None else pytest.approx(want))
+    monkeypatch.delattr(TWK, "SPLIT_ROW_STEPS")
+    assert reader.read(None) is None
+
+
 def _ae_state():
     cfg = AutoEncoderConfig().with_overrides(dim_neck=4, dim_emb=16,
                                              dim_pre=16)
@@ -365,6 +393,32 @@ def test_training_step_spans_and_identical_state():
 
 
 # -- on the card ---------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,split", [("RAW", True), ("MOL", False)])
+def test_split_row_steps_counted_on_the_card(mode, split):
+    """A launch on the split pick (RAW with 9 bits, rnn_dims = fc_dims =
+    512) counts its rows x steps under ``k1.split_row_steps``, as many as
+    ``k1.row_steps``; MOL's launch counts none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel has no CPU mode")
+    from autovc_tpu_torch.config import WaveRNNConfig
+    from autovc_tpu_torch.utils.bridge import from_jax_params
+    dev = torch.device("cuda")
+    cfg = WaveRNNConfig().with_overrides(mode=mode, bits=9)
+    gen = torch.Generator().manual_seed(0)
+    params = from_jax_params(TWR.init(gen, cfg), dev)
+    J = TWR._upsample_margin(params["upsample"]["up_convs"],
+                             cfg.upsample_factors)
+    mel = torch.rand(32, 2 + 2 * J, cfg.feat_dims, generator=gen).to(dev)
+    aux = torch.randn(32, 2, cfg.res_out_dims, generator=gen).to(dev)
+    with P.recording() as rec:
+        out = TWR._sample(params, mel, aux, cfg, True, None, None)
+    torch.cuda.synchronize()
+    assert rec.counters["k1.row_steps"] == out.numel() == 32 * 2 * 275
+    assert rec.counters.get(TWK.SPLIT_ROW_STEPS, 0) == (
+        out.numel() if split else 0)
+
 
 @pytest.mark.cuda
 def test_one_clock_on_the_card():
