@@ -7,16 +7,19 @@ requests drawn from the seed, the reference converts each source again
 (audio, speaker embeddings, generator, vocoder conditioning) and runs the
 vocoder teacher-forced over the fold rows the program's sampling loop
 served, with the same noise drawn again from the request's seed and
-rounded to the configuration's precision, as the program takes it.  Three
-numbers:
+rounded to the configuration's precision, as the program takes it.  What
+is particular to the vocoder (its conditioning, teacher-forced pass,
+sample pick and finish) is the configuration's reference module's.
+Three numbers:
 
 * ``mel_err``: the widest gap between the converted mel the program
   handed its vocoder and the reference's, over every frame and bin;
 * ``served_gap``: the widest distance, in noise units, from a served
-  sample to one the reference would serve at that step
-  (``pick_costs``: a pick's shortfall below the best Gumbel-perturbed
-  score, plus for MOL the shift of its logistic noise the value needs),
-  over every sample that reaches the output;
+  sample to one the reference would serve at that step (the reference's
+  ``pick``: for the published vocoders a pick's shortfall below the best
+  Gumbel-perturbed score, plus for a mixture of logistics the shift of
+  its logistic noise the value needs), over every sample that reaches the
+  output;
 * ``finish_err``: the widest gap between the served waveform and the
   reference's finish of the served rows (crossfade, trim, fade, PCM16,
   outprocessing), in full-scale units.
@@ -91,13 +94,11 @@ def sample_items(cell, seed: int, items: list) -> list:
 
 def reference_models(cell, seed: int, device, precision: str) -> dict:
     from h100bench.harness import make_states
-    ref = cell.reference()
+    ref = cell.ref
     ref.exact_f32()
     states = make_states(ref, cell.config, seed, device)
-    groups = {"speaker_encoder": "speaker_encoder",
-              "generator": "auto_encoder", "vocoder": "vocoder"}
     return {k: ref.build(k, cell.config[g], precision, device, states[k])
-            for k, g in groups.items()}
+            for k, (_, g) in ref.MODELS.items()}
 
 
 @torch.no_grad()
@@ -106,7 +107,7 @@ def judge_conversions(cell, seed: int, items: list, device,
     """``mel_err``, ``served_gap`` and ``finish_err`` over the judged
     requests; with ``control``, also each control's readings of the same
     numbers under ``<control>/<number>`` (:data:`CONTROLS`)."""
-    ref = cell.reference()
+    ref = cell.ref
     cfg = cell.config
     models = reference_models(cell, seed, device, "f32")
     ctrl = reference_models(cell, seed, device, "fp8") if control else None
@@ -129,17 +130,24 @@ CONTROLS = ("fp8", "fp8_vocoder")
 
 
 def _folded(ref, voc_model, post, voc: dict, steps: int) -> tuple:
-    """(cond rows (n, steps, feat), aux rows (n, steps, res)) of the mel
-    ``post`` through ``voc_model``'s conditioning, folded as served."""
+    """Each part of the mel ``post`` through ``voc_model``'s conditioning,
+    folded as served: a tuple of (n, steps, ...) rows."""
     overlap = voc["generate"]["overlap"]
-    mels, aux = ref.conditioning(voc_model, post, voc)
     target = steps - 2 * overlap
-    return ref.fold(mels, target, overlap), ref.fold(aux, target, overlap)
+    return tuple(ref.fold(c, target, overlap)
+                 for c in ref.conditioning(voc_model, post, voc))
+
+
+def _stacked(cond: list, owners: list) -> tuple:
+    """Each part of the folded conditioning ``cond`` (a tuple of parts per
+    source) at the rows ``owners`` ((source, fold) each), stacked."""
+    return tuple(torch.stack([cond[u][p][i] for u, i in owners])
+                 for p in range(len(cond[0])))
 
 
 def _conditioned_rows(ref, cfg, m, item, device, steps):
-    """Per source: (cond rows (n, steps, feat), aux rows (n, steps, res),
-    wave_len) of the reference models ``m``."""
+    """Per source: (folded conditioning (:func:`_folded`), wave_len, the
+    converted mel) of the reference models ``m``."""
     sr = cfg["auto_encoder"]["spectrogram"]["sr"]
     se_c = cfg["speaker_encoder"]["spectrogram"]
     target_db = cfg["convert"]["preprocess_args"]["target_dBFS"]
@@ -153,39 +161,37 @@ def _conditioned_rows(ref, cfg, m, item, device, steps):
         post = ref.generator_mel(m["generator"], wav, c_org[None],
                                  c_trg[None], cfg["auto_encoder"], device)
         wave_len = (post.shape[-1] - 1) * voc["hop_length"]
-        rows.append(_folded(ref, m["vocoder"], post, voc, steps)
-                    + (wave_len, post))
+        rows.append((_folded(ref, m["vocoder"], post, voc, steps), wave_len,
+                     post))
     return rows
 
 
 def judge_request(ref, cfg, models, ctrl, item, device) -> dict:
     precision = cfg["precision"]
     voc = cfg["vocoder"]
-    mode = voc["mode"]
-    n_cls = ref.n_classes(voc)
-    lanes = n_cls if mode == "RAW" else n_cls // 3
+    pick = ref.pick(cfg)
     overlap = voc["generate"]["overlap"]
     steps = int(item["launches"][0].shape[1])
     target = steps - 2 * overlap
     rows = _conditioned_rows(ref, cfg, models, item, device, steps)
     out = {"served_gap": 0.0, "finish_err": 0.0, "positions": 0,
-           "mel_err": max(float((m.reshape(r[3].shape).float() - r[3])
+           "mel_err": max(float((m.reshape(r[2].shape).float() - r[2])
                                 .abs().max())
                           for m, r in zip(item["mels"], rows))}
     # each control's fold rows of conditioning, per source
     cond = {}
     if ctrl is not None:
         crows = _conditioned_rows(ref, cfg, ctrl, item, device, steps)
-        cond["fp8"] = [c[:2] for c in crows]
-        cond["fp8_vocoder"] = [_folded(ref, ctrl["vocoder"], r[3], voc, steps)
+        cond["fp8"] = [c[0] for c in crows]
+        cond["fp8_vocoder"] = [_folded(ref, ctrl["vocoder"], r[2], voc, steps)
                                for r in rows]
-        out["fp8/mel_err"] = max(float((c[3] - r[3]).abs().max())
+        out["fp8/mel_err"] = max(float((c[2] - r[2]).abs().max())
                                  for c, r in zip(crows, rows))
         for name in CONTROLS:
             out[f"{name}/served_gap"] = 0.0
     # (utterance, fold) of each served row, in the program's row order
     owner = [(u, i) for u, r in enumerate(rows)
-             for i in range(r[0].shape[0])]
+             for i in range(r[0][0].shape[0])]
     served = torch.cat([t.float() for t in item["launches"]])[:len(owner)]
     gen = torch.Generator(device=device).manual_seed(item["seed"])
     r0 = 0
@@ -194,7 +200,8 @@ def judge_request(ref, cfg, models, ctrl, item, device) -> dict:
         if int(launch.shape[1]) != steps:
             raise ValueError("sampling launches of one request differ in "
                              "their steps")
-        gumbel, logistic = ref.draw_noise(gen, steps, B, lanes, device)
+        gumbel, logistic = ref.draw_noise(gen, steps, B, pick["lanes"],
+                                          device)
         # the noise at the configuration's precision, as every side takes it
         gumbel, logistic = (ref.round_to(gumbel, precision),
                             ref.round_to(logistic, precision))
@@ -207,33 +214,30 @@ def judge_request(ref, cfg, models, ctrl, item, device) -> dict:
             x_prev = torch.nn.functional.pad(s[:, :-1], (1, 0))
             mask = torch.stack([
                 torch.arange(steps, device=device) + i * (target + overlap)
-                < rows[u][2] for u, i in owner[b0:b1]])
-            mels = torch.stack([rows[u][0][i] for u, i in owner[b0:b1]])
-            aux = torch.stack([rows[u][1][i] for u, i in owner[b0:b1]])
-            logits = models["vocoder"].sample_rate_pass(x_prev, mels, aux)
-            cost = ref.pick_costs(logits, g, lg, s, mode, n_cls)
+                < rows[u][1] for u, i in owner[b0:b1]])
+            parts = _stacked([r[0] for r in rows], owner[b0:b1])
+            logits = ref.teacher_forced(models["vocoder"], x_prev, parts)
+            cost = pick["costs"](logits, g, lg, s)
             out["served_gap"] = max(out["served_gap"],
                                     float(cost[mask].max()))
             out["positions"] += int(mask.sum())
             for name, c in cond.items():
-                cm = torch.stack([c[u][0][i] for u, i in owner[b0:b1]])
-                ca = torch.stack([c[u][1][i] for u, i in owner[b0:b1]])
-                cl = ctrl["vocoder"].sample_rate_pass(x_prev, cm, ca)
-                cs = ref.control_samples(cl, g, lg, mode, n_cls)
-                cc = ref.pick_costs(logits, g, lg, cs, mode, n_cls)
+                cl = ref.teacher_forced(ctrl["vocoder"], x_prev,
+                                        _stacked(c, owner[b0:b1]))
+                cs = pick["samples"](cl, g, lg)
+                cc = pick["costs"](logits, g, lg, cs)
                 key = f"{name}/served_gap"
                 out[key] = max(out[key], float(cc[mask].max()))
         r0 += B
-    mu_law = n_cls if (mode == "RAW" and voc["generate"]["mu_law"]) else None
     post = {"target_dBFS": cfg["convert"]["outprocess_args"]["target_dBFS"],
             "remove_noise": "remove_noise" in cfg["convert"]["outprocess"],
             "sr": cfg["convert"]["sr"]}
     served_np = served.cpu().numpy()
     row = 0
-    for u, (c, _, wave_len, _) in enumerate(rows):
-        n = c.shape[0]
+    for u, (parts, wave_len, _) in enumerate(rows):
+        n = parts[0].shape[0]
         want = ref.finish(served_np[row:row + n], overlap, wave_len,
-                          voc["hop_length"], mu_law, post)
+                          voc["hop_length"], pick["mu_law"], post)
         got = np.asarray(item["outputs"][u], np.float32)
         err = (float(np.abs(got - want).max()) if got.shape == want.shape
                else float("inf"))
@@ -257,7 +261,7 @@ def reference_record(cell, seed: int, device, precision: str = "f32"):
     and its EMA's change over the steps (the program's record's keys)."""
     from h100bench import traffic
     from h100bench.harness import make_states
-    ref = cell.reference()
+    ref = cell.ref
     ref.exact_f32()
     cfg, mix = cell.config, cell.mix
     ae = cfg["auto_encoder"]

@@ -23,6 +23,13 @@ I / rnn1 / rnn2 / fc1-3).  Departures, each also in the program:
 ``precision="fp8"`` builds the control: every weight and every input of a
 linear, convolution or recurrent layer rounded to float8 e4m3 with a
 per-tensor scale (recurrent states stay float32).
+
+The module is also the benchmark's one source of what is particular to
+this configuration's models (``harness.REFERENCE_TABLE`` lists the names;
+the last section of this file holds those that are not the mathematics
+itself): the models and their groups, the program's parameter trees, the
+vocoder's useful operations, its sample pick, its teacher-forced pass and
+the points of the program that the benchmark taps and plants faults in.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ import scipy.signal as signal
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from h100bench import costs, weights
 
 LOG_SCALE_MIN = float(math.log(1e-14))
 
@@ -433,9 +442,7 @@ def build(kind: str, c: dict, precision: str = "f32", device=None,
     """A reference model ("speaker_encoder", "generator", "vocoder") of
     config group ``c``, in eval mode, its weights from ``state`` (a state
     dict), at ``precision`` ("f32", or "fp8": the control)."""
-    cls = {"speaker_encoder": SpeakerEncoder, "generator": Generator,
-           "vocoder": WaveRNN}[kind]
-    model = cls(c)
+    model = MODELS[kind][0](c)
     if state is not None:
         model.load_state_dict(state)
     model = model.to(device).eval()
@@ -601,3 +608,76 @@ def draw_noise(gen: torch.Generator, steps: int, rows: int, lanes: int,
     gumbel = -torch.log(-torch.log(u1))
     u2 = torch.rand((steps, rows), generator=gen, device=device) * span + lo
     return gumbel, torch.log(u2) - torch.log(1.0 - u2)
+
+
+# ---------------------------------------------------------------------------
+# What the benchmark asks of this configuration's models
+# ---------------------------------------------------------------------------
+
+# Each model kind: its reference class and the configuration's group it is
+# built from.
+MODELS = {"speaker_encoder": (SpeakerEncoder, "speaker_encoder"),
+          "generator": (Generator, "auto_encoder"),
+          "vocoder": (WaveRNN, "vocoder")}
+
+# The points of the program (module, attribute) that the benchmark wraps:
+# "rows" returns each block of fold rows of served samples (rows, steps);
+# "mel" takes the converted mel as the vocoder gets it, as its second
+# argument; "pick" returns the samples each sampling pass picks (rows,
+# steps); "pcm" returns an utterance's served PCM; "vocoder" (the vocoder's
+# pass over a call's utterances) and "noise" (its noise draw) label the
+# idle gaps of a traced run.
+POINTS = {
+    "rows": ("autovc_tpu_torch.ops.wavernn_kernels", "generate_rows"),
+    "mel": ("autovc_tpu_torch.models.wavernn", "_prepare_frame_conditioning"),
+    "pick": ("autovc_tpu_torch.ops.wavernn_kernels", "sample_rows"),
+    "pcm": ("autovc_tpu_torch.models.wavernn", "_pcm16"),
+    "vocoder": ("autovc_tpu_torch.models.wavernn", "_generate_many_program"),
+    "noise": ("autovc_tpu_torch.ops.wavernn_kernels", "draw_noise"),
+}
+
+
+def program_tree(kind: str, state: dict, cfg: dict, names=None):
+    """The program's parameter tree of model ``kind`` from its reference
+    ``state``; ``names``, when given, is filled with state name -> the
+    program's tensor."""
+    if kind == "speaker_encoder":
+        return weights.speaker_encoder_tree(
+            state, cfg["speaker_encoder"]["num_layers"], names)
+    if kind == "generator":
+        return weights.generator_tree(state, names)
+    v = cfg["vocoder"]
+    return weights.vocoder_tree(state, v["res_blocks"],
+                                len(v["upsample_factors"]), names)
+
+
+def vocoder_flops(cfg: dict) -> tuple:
+    """The vocoder's useful operations for one output sample and for one
+    mel frame."""
+    voc = cfg["vocoder"]
+    return costs.wavernn_sample_flops(voc), costs.wavernn_frame_flops(voc)
+
+
+def pick(cfg: dict) -> dict:
+    """The vocoder's sample pick as the output check reads it: ``lanes``,
+    the Gumbel lanes a row and step (:func:`draw_noise`); ``costs(logits,
+    gumbel, logistic, served)`` (:func:`pick_costs`) and ``samples(logits,
+    gumbel, logistic)`` (:func:`control_samples`) at the configuration's
+    mode and classes; ``mu_law``, the classes the finish expands mu-law by,
+    or None."""
+    voc = cfg["vocoder"]
+    mode, n = voc["mode"], n_classes(voc)
+    raw = mode == "RAW"
+    return {"lanes": n if raw else n // 3,
+            "mu_law": n if raw and voc["generate"]["mu_law"] else None,
+            "costs": lambda logits, gumbel, logistic, served: pick_costs(
+                logits, gumbel, logistic, served, mode, n),
+            "samples": lambda logits, gumbel, logistic: control_samples(
+                logits, gumbel, logistic, mode, n)}
+
+
+def teacher_forced(model: WaveRNN, x_prev: torch.Tensor,
+                   cond: tuple) -> torch.Tensor:
+    """Logits (B, T, classes) of the previous samples ``x_prev`` (B, T) and
+    the folded rows of each part of :func:`conditioning`, (B, T, ...)."""
+    return model.sample_rate_pass(x_prev, *cond)

@@ -215,20 +215,21 @@ def embed_flops(cfg: dict, frames: int, partials: int) -> float:
 
 
 def conversion_flops(cfg: dict, mel_frames: int, chunks: int,
-                     samples_out: int, se_frames: int,
-                     se_partials: int) -> float:
+                     samples_out: int, se_frames: int, se_partials: int,
+                     vocoder: tuple) -> float:
     """Useful operations of converting one utterance: the AE mel of its
     chunked span (``mel_frames``), the source's speaker embedding, the
     generator over its ``chunks`` chunks, and the vocoder over every
-    output sample and frame."""
-    ae, voc = cfg["auto_encoder"], cfg["vocoder"]
+    output sample and frame (``vocoder``: its operations for one sample
+    and for one frame, from the configuration's reference module)."""
+    ae = cfg["auto_encoder"]
     sp = ae["spectrogram"]
-    frames_out = samples_out // voc["hop_length"] + 1
+    sample_ops, frame_ops = vocoder
+    frames_out = samples_out // cfg["vocoder"]["hop_length"] + 1
     return (mel_flops(mel_frames, sp["n_fft"], sp["n_mels"])
             + embed_flops(cfg, se_frames, se_partials)
             + generator_flops(ae, chunks, sp["partial_utterance_n_frames"])
-            + samples_out * wavernn_sample_flops(voc)
-            + frames_out * wavernn_frame_flops(voc))
+            + samples_out * sample_ops + frames_out * frame_ops)
 
 
 def roofline_seconds(flops: float, nbytes: float, p: Peaks) -> float:

@@ -1,11 +1,14 @@
 """Faults planted under the timed path, for the control readings
 (``control.py``) and the tests that see ``correct`` come out false: each
-is a context manager factory for ``harness.run(..., fault=...)``.
+is a context manager factory for ``harness.run(..., fault=...)``, called
+with the configuration's reference module, whose ``POINTS`` say where the
+vocoder's samples and PCM are produced.
 
-* ``token_altered``: one served sample of every sampling launch (row 0,
-  mid-row) moved to the other side of zero where the loop produces it;
+* ``token_altered``: one served sample of every sampling pass (row 0,
+  mid-row) moved to the other side of zero where the pick produces it
+  (the point "pick");
 * ``answer_altered``: the served waveform's loudest sample negated where
-  the vocoder produces it;
+  the vocoder produces it (the point "pcm");
 * ``half_batch``: the generator's merge over the first half of the chunk
   rows only (half of the batch left out, the mean taken over the rest);
 * ``train_half_batch``: the training loss taken over the first half of
@@ -21,6 +24,8 @@ import contextlib
 
 import torch
 
+from h100bench.harness import program_point
+
 
 @contextlib.contextmanager
 def _patched(mod, attr, make):
@@ -32,35 +37,31 @@ def _patched(mod, attr, make):
         setattr(mod, attr, original)
 
 
-def token_altered():
-    from autovc_tpu_torch.ops import wavernn_kernels as WK
-
+def token_altered(ref):
     def make(orig):
-        def sample_rows(inp, gumbel, logistic):
-            out = orig(inp, gumbel, logistic)
+        def pick(*args, **kwargs):
+            out = orig(*args, **kwargs)
             t = out.shape[1] // 2
             out[0, t] = -0.9 if float(out[0, t]) >= 0 else 0.9
             return out
-        return sample_rows
-    return _patched(WK, "sample_rows", make)
+        return pick
+    return _patched(*program_point(ref, "pick"), make)
 
 
-def answer_altered():
+def answer_altered(ref):
     """The served waveform's loudest PCM sample negated where the vocoder
     produces it."""
-    from autovc_tpu_torch.models import wavernn as WRm
-
     def make(orig):
-        def pcm16(x):
-            out = orig(x)
+        def pcm(*args, **kwargs):
+            out = orig(*args, **kwargs)
             i = int(out.abs().argmax())
             out[i] = -out[i]
             return out
-        return pcm16
-    return _patched(WRm, "_pcm16", make)
+        return pcm
+    return _patched(*program_point(ref, "pcm"), make)
 
 
-def half_batch():
+def half_batch(_ref):
     """The generator's merge takes the mean over the first half of each
     utterance's chunk rows and leaves the rest out (frames only they
     cover stay 0)."""
@@ -92,7 +93,7 @@ def half_batch():
     return stack
 
 
-def train_half_batch():
+def train_half_batch(_ref):
     from autovc_tpu_torch.models import autoencoder as AEm
 
     def make(orig):
@@ -103,7 +104,7 @@ def train_half_batch():
     return _patched(AEm, "loss", make)
 
 
-def train_state_unchanged():
+def train_state_unchanged(_ref):
     from autovc_tpu_torch.train import schedules
 
     def make(orig):
@@ -117,7 +118,7 @@ def train_state_unchanged():
     return _patched(schedules.Optimizer, "step", make)
 
 
-def train_grad_altered():
+def train_grad_altered(_ref):
     from autovc_tpu_torch.train import loop
 
     def make(orig):

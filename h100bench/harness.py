@@ -9,6 +9,21 @@ metric or a cell is found by its name under the benchmark's folder:
 ``BENCHMARK.json`` beside the folder lists the cells and metrics.  The
 program under test is ``autovc_tpu_torch``; this module imports it only
 inside the functions that drive it.
+
+What is particular to a configuration's models is asked of its reference
+module alone, by the names of :data:`REFERENCE_TABLE`: the models and the
+groups they are built from, the program's parameter trees, the vocoder's
+useful operations, its sample pick and teacher-forced pass, and the points
+of the program that the benchmark taps and plants faults in (as module and
+attribute names).  The program's ``ConverterConfig`` takes each of its
+groups that the configuration holds, as it stands: a group the program
+cannot take raises.  ``harness.py``, ``check.py`` and ``faults.py`` know
+no vocoder by name.  So
+a configuration with another vocoder comes as new files and appended
+entries only: its ``configs/<config>.json`` and the reference module it
+names, a ``traffic/<mix>.json``, a ``limits/<cell>.json``, the readers of
+its own metrics under ``metrics/``, and its cells and metrics appended to
+``BENCHMARK.json``.
 """
 from __future__ import annotations
 
@@ -18,7 +33,7 @@ import json
 import os
 import sys
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from pathlib import Path
 
 import numpy as np
@@ -28,7 +43,15 @@ from h100bench import costs, trace, traffic, weights
 
 ROOT = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "autovc_tpu")
-MODELS = ("speaker_encoder", "generator", "vocoder")
+# What a configuration's reference module answers (``configs/autovc_ref.py``
+# says what each is): the table's own names, then the mathematics that the
+# output check and the cost arithmetic call.
+REFERENCE_TABLE = (
+    "MODELS", "POINTS", "program_tree", "vocoder_flops", "pick",
+    "teacher_forced",
+    "build", "exact_f32", "round_to", "load_wav", "normalize_volume",
+    "partial_slices", "embed", "generator_mel", "conditioning", "fold",
+    "finish", "draw_noise")
 
 
 def forbidden_modules(modules=None) -> list:
@@ -69,14 +92,22 @@ class Cell:
     limits: dict
     end_to_end: list
     per_layer: list
+    ref: object           # the configuration's reference module
 
     @property
     def kind(self) -> str:
         return self.mix["kind"]
 
-    def reference(self):
-        return load_module(self.root / "configs" /
-                           f"{self.config['reference']}.py")
+
+def load_reference(root: Path, config: dict):
+    """The reference module that ``config`` names, with every name of
+    :data:`REFERENCE_TABLE`; one that lacks a name raises, naming it."""
+    ref = load_module(root / "configs" / f"{config['reference']}.py")
+    missing = [n for n in REFERENCE_TABLE if not hasattr(ref, n)]
+    if missing:
+        raise AttributeError(f"reference module {config['reference']!r} "
+                             f"lacks {', '.join(missing)}")
+    return ref
 
 
 def _applies(metric: dict, cell: str, reported: set) -> bool:
@@ -108,7 +139,7 @@ def load_cell(name: str, root: Path = ROOT,
                  if _applies(m, name, reported)]
     return Cell(name, root, spec, w, config,
                 traffic.load_mix(root, w["traffic"]), limits, e2e,
-                per_layer)
+                per_layer, load_reference(root, config))
 
 
 def process_age() -> float:
@@ -154,53 +185,50 @@ def sync(device) -> None:
 
 
 def meta_models(ref, cfg: dict) -> dict:
+    """Each model of the reference, built from its group on the meta
+    device."""
     with torch.device("meta"):
-        return {"speaker_encoder": ref.SpeakerEncoder(cfg["speaker_encoder"]),
-                "generator": ref.Generator(cfg["auto_encoder"]),
-                "vocoder": ref.WaveRNN(cfg["vocoder"])}
+        return {k: cls(cfg[group]) for k, (cls, group) in ref.MODELS.items()}
 
 
-def make_states(ref, cfg: dict, seed: int, device, kinds=MODELS) -> dict:
-    """Each model's weights from the seed, on ``device``."""
+def make_states(ref, cfg: dict, seed: int, device, kinds=None) -> dict:
+    """Each model's weights from the seed, on ``device`` (``kinds``: all
+    the reference's models by default)."""
     metas = meta_models(ref, cfg)
     return {k: weights.make_state(metas[k], weights.stream_seed(seed, k),
-                                  device) for k in kinds}
+                                  device) for k in kinds or metas}
 
 
-def program_tree(kind: str, state: dict, cfg: dict, names=None):
-    """The program's parameter tree of ``kind`` from a reference state; a
-    copy of its own.  ``names``: filled with state name -> program leaf."""
+def program_tree(ref, kind: str, state: dict, cfg: dict, names=None):
+    """The program's parameter tree of ``kind`` from a reference state (the
+    reference's ``program_tree``), a copy of its own.  ``names``: filled
+    with state name -> program leaf."""
     state = {k: v.detach().clone().contiguous() for k, v in state.items()}
-    if kind == "speaker_encoder":
-        return weights.speaker_encoder_tree(
-            state, cfg["speaker_encoder"]["num_layers"], names)
-    if kind == "generator":
-        return weights.generator_tree(state, names)
-    v = cfg["vocoder"]
-    return weights.vocoder_tree(state, v["res_blocks"],
-                                len(v["upsample_factors"]), names)
+    return ref.program_tree(kind, state, cfg, names)
 
 
 def converter_config(cfg: dict):
+    """The program's ``ConverterConfig``: each of its groups that ``cfg``
+    holds, from there (one the program cannot take raises)."""
     from autovc_tpu_torch import ConverterConfig
-    groups = ("auto_encoder", "speaker_encoder", "vocoder", "convert")
     return ConverterConfig().with_overrides(
-        **{g: cfg[g] for g in groups})
+        **{f.name: cfg[f.name] for f in fields(ConverterConfig)
+           if f.name in cfg})
 
 
 def make_converter(cell: Cell, seed: int, device):
     """The program's converter at the cell's configuration, its weights
     replaced by the seed's."""
     from autovc_tpu_torch import VoiceConverter
-    ref = cell.reference()
+    ref = cell.ref
     vc = VoiceConverter(config=converter_config(cell.config), verbose=False,
                         device=device)
     states = make_states(ref, cell.config, seed, device)
-    vc.SE.params = program_tree("speaker_encoder",
+    vc.SE.params = program_tree(ref, "speaker_encoder",
                                 states["speaker_encoder"], cell.config)
-    vc.AE.params = program_tree("generator", states["generator"],
+    vc.AE.params = program_tree(ref, "generator", states["generator"],
                                 cell.config)
-    vc.vocoder.params = program_tree("vocoder", states["vocoder"],
+    vc.vocoder.params = program_tree(ref, "vocoder", states["vocoder"],
                                      cell.config)
     vc._pack_weights("auto_encoder")
     vc._pack_weights("vocoder")
@@ -213,14 +241,21 @@ def make_converter(cell: Cell, seed: int, device):
 # ---------------------------------------------------------------------------
 
 
+def program_point(ref, name: str) -> tuple:
+    """(module, attribute) of the program at the reference's point
+    ``name`` (``POINTS``), the module imported."""
+    module, attr = ref.POINTS[name]
+    return importlib.import_module(module), attr
+
+
 class RowsTap:
     """Keeps what the vocoder is handed and what it serves: each
-    utterance's converted mel as it reaches the vocoder
-    (``wavernn._prepare_frame_conditioning``) and each block of fold rows
-    the sampling loop returns (``wavernn_kernels.generate_rows``), which
-    the output check judges."""
+    utterance's converted mel as it reaches the vocoder (the reference's
+    point "mel") and each block of fold rows the sampling loop returns
+    ("rows"), which the output check judges."""
 
-    def __init__(self):
+    def __init__(self, ref):
+        self.ref = ref
         self.launches = []
         self.mels = []
 
@@ -232,9 +267,9 @@ class RowsTap:
 
     @contextlib.contextmanager
     def installed(self):
-        from autovc_tpu_torch.models import wavernn as WRm
-        from autovc_tpu_torch.ops import wavernn_kernels as WK
-        rows, cond = WK.generate_rows, WRm._prepare_frame_conditioning
+        rows_mod, rows_attr = program_point(self.ref, "rows")
+        cond_mod, cond_attr = program_point(self.ref, "mel")
+        rows, cond = getattr(rows_mod, rows_attr), getattr(cond_mod, cond_attr)
 
         def tapped_rows(*args, **kwargs):
             out = rows(*args, **kwargs)
@@ -245,13 +280,13 @@ class RowsTap:
             self.mels.append(mel)
             return cond(params, mel, *args, **kwargs)
 
-        WK.generate_rows = tapped_rows
-        WRm._prepare_frame_conditioning = tapped_cond
+        setattr(rows_mod, rows_attr, tapped_rows)
+        setattr(cond_mod, cond_attr, tapped_cond)
         try:
             yield self
         finally:
-            WK.generate_rows = rows
-            WRm._prepare_frame_conditioning = cond
+            setattr(rows_mod, rows_attr, rows)
+            setattr(cond_mod, cond_attr, cond)
 
 
 @contextlib.contextmanager
@@ -278,19 +313,17 @@ def host_ranges(on: bool, ranges):
             setattr(mod, attr, fn)
 
 
-def serving_ranges():
+def serving_ranges(ref):
     from autovc_tpu_torch.audio import Audio
     from autovc_tpu_torch.models import autoencoder as AEm
     from autovc_tpu_torch.models import speaker_encoder as SEm
-    from autovc_tpu_torch.models import wavernn as WRm
     from autovc_tpu_torch.ops import melspec as MEL
-    from autovc_tpu_torch.ops import wavernn_kernels as WK
     return [(Audio, "preprocess", "audio"),
             (MEL, "mel_spec_auto_encoder_sliced", "mel"),
             (SEm, "embed_utterances", "embed"),
             (AEm, "batch_forward_packed", "generator"),
-            (WRm, "_generate_many_program", "vocoder"),
-            (WK, "draw_noise", "noise")]
+            program_point(ref, "vocoder") + ("vocoder",),
+            program_point(ref, "noise") + ("noise",)]
 
 
 @dataclass
@@ -383,7 +416,7 @@ def conversion_flops(cfg: dict, ref, seconds: float) -> float:
     g = utterance_geometry(cfg, ref, seconds)
     return costs.conversion_flops(cfg, g["mel_frames"], g["chunks"],
                                   g["samples"], g["se_frames"],
-                                  g["se_partials"])
+                                  g["se_partials"], ref.vocoder_flops(cfg))
 
 
 def kernel1_rows(tap_launches, real_rows: int) -> list:
@@ -414,14 +447,14 @@ def folds_of(cfg: dict, samples: int, steps: int) -> int:
 def run_serve(cell: Cell, seed: int, seconds: float, tracing: bool,
               device, tmp_root: str, out: dict, fault=None):
     """``serve_batch``: one ``convert_batch`` call after another."""
-    ref = cell.reference()
+    ref = cell.ref
     cfg = cell.config
     vc = make_converter(cell, seed, device)
     stamp("converter")
     plan = traffic.plan(cell.mix, seed, device, tmp_root)
     out["plan"] = plan
     stamp("inputs")
-    tap = RowsTap()
+    tap = RowsTap(ref)
     win = Window()
     geo = {s: utterance_geometry(cfg, ref, s) for s in cell.mix["lengths_s"]}
     call_flops = (sum(conversion_flops(cfg, ref, s)
@@ -437,14 +470,14 @@ def run_serve(cell: Cell, seed: int, seconds: float, tracing: bool,
                                    seed=plan.seed(i))
         return files, res
 
-    with tap.installed(), (fault or contextlib.nullcontext)():
+    with tap.installed(), (fault or contextlib.nullcontext)(ref):
         call(0)                                   # warm-up: the cell's shapes
         sync(device)
         del tap.launches[:], tap.mels[:]
         stamp("warm-up")
         out["setup_s"] = process_age()
         with trace.traced(tracing) as tr, host_ranges(tracing,
-                                                      serving_ranges()):
+                                                      serving_ranges(ref)):
             win.start = time.perf_counter()
             i = 1
             while True:
@@ -484,14 +517,14 @@ def _target_counts(cfg, ref, seconds):
 def run_convert(cell: Cell, seed: int, seconds: float, tracing: bool,
                 device, tmp_root: str, out: dict, fault=None):
     """``convert``: one client, one request after another."""
-    ref = cell.reference()
+    ref = cell.ref
     cfg = cell.config
     vc = make_converter(cell, seed, device)
     stamp("converter")
     plan = traffic.plan(cell.mix, seed, device, tmp_root)
     out["plan"] = plan
     stamp("inputs")
-    tap = RowsTap()
+    tap = RowsTap(ref)
     win = Window()
     t_frames, t_parts = _target_counts(cfg, ref, plan.target_s)
     flops = {s: conversion_flops(cfg, ref, s) + costs.embed_flops(
@@ -506,7 +539,7 @@ def run_convert(cell: Cell, seed: int, seconds: float, tracing: bool,
                            seed=plan.seed(i))
         return path, s, a
 
-    with tap.installed(), (fault or contextlib.nullcontext)():
+    with tap.installed(), (fault or contextlib.nullcontext)(ref):
         for i in range(warm):                     # one request of each length
             request(i)
         sync(device)
@@ -560,12 +593,12 @@ def run_train(cell: Cell, seed: int, seconds: float, tracing: bool,
     from autovc_tpu_torch.config import AutoEncoderConfig
     from autovc_tpu_torch.train import loop, schedules
     from autovc_tpu_torch.utils import tree_leaves
-    ref = cell.reference()
+    ref = cell.ref
     cfg, mix = cell.config, cell.mix
     ae_cfg: AutoEncoderConfig = converter_config(cfg).auto_encoder
     state = make_states(ref, cfg, seed, device, ("generator",))["generator"]
     names = {}
-    params = program_tree("generator", state, cfg, names)
+    params = program_tree(ref, "generator", state, cfg, names)
     del state
     oc = ae_cfg.optimizer
     # one epoch is the whole run: the learning rate stays at its first value
@@ -597,7 +630,7 @@ def run_train(cell: Cell, seed: int, seconds: float, tracing: bool,
                                            mels[idx], embs[idx])
         return aux
 
-    with (fault or contextlib.nullcontext)():
+    with (fault or contextlib.nullcontext)(ref):
         for k in range(mix["reference_steps"]):
             aux = one(k)
             record["loss"].append(float(aux["loss"]))
@@ -685,11 +718,11 @@ def run(name: str, seed: int, seconds: float, tracing: bool, device="cuda",
     """One run of cell ``name``; returns the result line's object.
 
     For the control and fault readings (``control.py``, the tests):
-    ``fault`` is a context manager factory entered around the warm-up and
-    the window; ``control`` adds each fp8 control's readings under
-    ``"control"`` and its verdict by the rule of ``correct`` under
-    ``"control_correct"``; ``mix`` overrides entries of the traffic
-    mix."""
+    ``fault`` is a context manager factory, called with the configuration's
+    reference module and entered around the warm-up and the window;
+    ``control`` adds each fp8 control's readings under ``"control"`` and
+    its verdict by the rule of ``correct`` under ``"control_correct"``;
+    ``mix`` overrides entries of the traffic mix."""
     cell = load_cell(name, root, spec_path)
     if mix:
         cell.mix = dict(cell.mix, **mix)
